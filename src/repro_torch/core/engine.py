@@ -1,0 +1,573 @@
+"""BlinkDB engine facade of the port (counterpart of `repro.core.engine`).
+
+    db = BlinkDB(EngineConfig(), device="cuda")
+    db.register_table("sessions", table)
+    db.add_family("sessions", ("City",)); db.add_family("sessions", ())
+    ans = db.query(Query(..., bound=ErrorBound(0.1, 0.95)))
+
+This slice answers COUNT, SUM and AVG under ERROR WITHIN or WITHIN SECONDS
+on one device with closed-form CIs: runtime family selection (§4.1), the
+ELP choice of the resolution K (§4.2) with the a-priori ERROR WITHIN ladder
+(pilot, certify at the top resolution, escalation, exact fallback), the
+fused scan (executor → the CUDA kernel on the card), and HT estimation with
+Table-2 error bars (§4.3). QUANTILE, joins, subsampling CIs, the optimizer,
+batched queries, mutation and fault handling come with later slices and
+raise NotImplementedError here.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import elp as elp_lib
+from repro_torch.core import estimators as est_lib
+from repro_torch.core import executor as exec_lib
+from repro_torch.core import sampling as samp_lib
+from repro_torch.core import table as table_lib
+from repro_torch.core.selection import rewrite_disjuncts, select_family
+from repro_torch.core.types import (AggOp, Answer, BoundUnreachableError,
+                                    ColumnKind, ErrorBound, GroupResult,
+                                    Query, TimeBound)
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    k1: float = 100_000.0        # largest stratification cap (paper §6.1: 1e5)
+    c: float = 2.0               # resolution shrink factor
+    m: int | None = None         # resolutions per family (None: log_c K1)
+    uniform_fraction: float = 0.5
+    probe_resolutions: int = 2
+    reuse_elp: bool = True       # cache ELP decisions per template (§4.4)
+    seed: int = 0
+    # A-priori ERROR WITHIN ladder rungs: escalate to larger families, then
+    # fall back to an exact base-table scan.
+    escalate_on_unreachable: bool = True
+    exact_fallback: bool = True
+    ci_method: str = "closed"    # "subsampling" comes with a later slice
+    # Where tables, sample blocks and scans live. "cuda" unless the caller
+    # asks for the CPU; a missing card is an error, never a quiet CPU run.
+    device: str = "cuda"
+
+
+def resolve_device(device) -> torch.device:
+    """The engine's device; raises when CUDA is asked for and absent."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: BlinkDB runs on the card "
+                           "by default; pass device='cpu' to run on the CPU")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+@dataclasses.dataclass(frozen=True)
+class ElpDecision:
+    """One resolved a-priori contract decision, cached per ELP key (§4.4).
+    `gen` pins the decided family's content generation."""
+    phi: tuple[str, ...]
+    k: float
+    certified: bool | None        # None: query had no ErrorBound
+    exact: bool = False           # exact base-table fallback
+    predicted_half_width: float | None = None   # bound units; 0.0 for exact
+    gen: int = 0
+
+
+class BlinkDB:
+    def __init__(self, config: EngineConfig | None = None, device=None):
+        self.config = config or EngineConfig()
+        self.device = resolve_device(self.config.device if device is None
+                                     else device)
+        if self.config.ci_method != "closed":
+            raise NotImplementedError(
+                f"ci_method={self.config.ci_method!r}: variational-subsampling "
+                "CIs come with the subsampling-CI slice of the port")
+        self.tables: dict[str, table_lib.Table] = {}
+        self.families: dict[str, dict[tuple[str, ...], samp_lib.SampleFamily]] = {}
+        self._striped: dict[tuple[str, tuple[str, ...]], exec_lib.StripedFamily] = {}
+        self._latency: dict[tuple[str, tuple[str, ...]], elp_lib.LatencyModel] = {}
+        self._programs: dict = {}     # (table, phi, template) -> scan fn
+        self._elp_cache: dict = {}    # elp key -> ElpDecision
+        self._generations: dict[tuple[str, tuple[str, ...]], int] = {}
+
+    def family_generation(self, table_name: str, phi: tuple[str, ...]) -> int:
+        """Monotone content version of one sample family (0 = never built)."""
+        return self._generations.get((table_name, phi), 0)
+
+    def _drop_derived(self, table_name: str, phi: tuple[str, ...] | None) -> None:
+        """Forget everything calibrated against a (table, family), or the
+        whole table when phi is None: striped blocks, scan programs, ELP
+        decisions and latency models."""
+        for cache in (self._striped, self._latency, self._programs,
+                      self._elp_cache):
+            for k in [k for k in cache
+                      if k[0] == table_name and (phi is None or k[1] == phi)]:
+                del cache[k]
+
+    # ------------------------------------------------------------- offline
+    def register_table(self, name: str, tbl: table_lib.Table) -> None:
+        """Register a table and put its columns on the engine's device (the
+        exact scan reads them there)."""
+        if name in self.tables and self.tables[name] is not tbl:
+            self._drop_derived(name, None)
+            for phi in self.families.get(name, {}):
+                self._generations[(name, phi)] = \
+                    self.family_generation(name, phi) + 1
+            self.families[name] = {}
+        self.tables[name] = tbl.to(self.device)
+        self.families.setdefault(name, {})
+
+    def add_family(self, table_name: str, phi: Sequence[str],
+                   seed: int | None = None,
+                   units: np.ndarray | None = None) -> None:
+        """Add (or rebuild) a family. `seed` overrides the config seed;
+        `units` overrides the per-row priorities outright (see
+        repro_torch.state, which carries the reference's units across)."""
+        seed = self.config.seed if seed is None else seed
+        tbl = self.tables[table_name]
+        phi_t = tuple(sorted(phi))
+        if phi_t == ():
+            fam = samp_lib.build_uniform_family(
+                tbl, self.config.uniform_fraction, self.config.c,
+                self.config.m, seed=seed, units=units)
+        else:
+            fam = samp_lib.build_family(tbl, phi_t, self.config.k1,
+                                        self.config.c, self.config.m,
+                                        seed=seed, units=units)
+        self.families.setdefault(table_name, {})[phi_t] = fam
+        self._drop_derived(table_name, phi_t)
+        self._generations[(table_name, phi_t)] = \
+            self.family_generation(table_name, phi_t) + 1
+
+    # ------------------------------------------------------------- runtime
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _striped_for(self, table_name: str,
+                     phi: tuple[str, ...]) -> exec_lib.StripedFamily:
+        key = (table_name, phi)
+        if key not in self._striped:
+            fam = self.families[table_name][phi]
+            self._striped[key] = exec_lib.stripe_family(fam, self.device)
+        return self._striped[key]
+
+    def _encode(self, table_name: str):
+        tbl = self.tables[table_name]
+
+        def encode(col: str, value):
+            if tbl.schema.column(col).kind is ColumnKind.CATEGORICAL:
+                return tbl.encode_value(col, value)
+            return float(value)
+        return encode
+
+    def _column_card(self, table_name: str, col: str) -> int:
+        return self.tables[table_name].cardinality(col)
+
+    def _decode_col_value(self, table_name: str, col: str, code: int):
+        return self.tables[table_name].decode_value(col, code)
+
+    def _check_supported(self, q: Query) -> None:
+        if q.agg is AggOp.QUANTILE:
+            raise NotImplementedError(
+                "QUANTILE queries come with the QUANTILE slice of the port "
+                "(make_quantile_fn and the quantile_scan kernel)")
+        if q.joins:
+            raise NotImplementedError(
+                "joins come with the joins slice of the port")
+
+    def _run_at_k(self, table_name: str, q: Query, phi: tuple[str, ...],
+                  k: float) -> tuple[est_lib.GroupedMoments, int, float]:
+        """One fused scan at resolution k. The device is synchronised before
+        the clock starts and before it stops, so the elapsed time is the
+        scan's, not its launch's (the WITHIN SECONDS latency model is fitted
+        on these times)."""
+        fam = self.families[table_name][phi]
+        striped = self._striped_for(table_name, phi)
+        bound_pred = exec_lib.bind_predicate(q.predicate, self._encode(table_name))
+        struct, vals = exec_lib.pred_structure(bound_pred)
+        group_col = q.group_by[0] if q.group_by else None
+        n_groups = self._column_card(table_name, group_col) if group_col else 1
+        key = (table_name, phi, struct, q.value_column, group_col, n_groups)
+        fn = self._programs.get(key)
+        if fn is None:
+            fn = exec_lib.make_query_fn(struct, q.value_column, group_col,
+                                        n_groups)
+            self._programs[key] = fn
+        self._sync()
+        t0 = time.perf_counter()
+        mom = fn(k, vals, *exec_lib.scan_args(striped))
+        self._sync()
+        dt = time.perf_counter() - t0
+        return mom, fam.prefix_for_k(k), dt
+
+    def _answer_from_moments(self, q: Query, table_name: str,
+                             phi: tuple[str, ...], k: float,
+                             mom: est_lib.GroupedMoments, rows_read: int,
+                             elapsed: float, confidence: float,
+                             certified: bool | None = None,
+                             predicted_half_width: float | None = None
+                             ) -> Answer:
+        tbl = self.tables[table_name]
+        est = self._estimate_for(q, mom)
+        stderr, lo, hi = est_lib.ci(est, confidence)
+        group_col = q.group_by[0] if q.group_by else None
+        vals = est.value.cpu().numpy()
+        errs = stderr.cpu().numpy()
+        los, his = lo.cpu().numpy(), hi.cpu().numpy()
+        wsum = mom.wsum.cpu().numpy()
+        nsel = mom.n.cpu().numpy()
+        groups = []
+        realized_half = 0.0   # worst realized CI half-width, bound units
+        for g in range(len(vals)):
+            if nsel[g] == 0 and wsum[g] == 0:
+                continue  # missing subgroup (paper §3.1 "subset error")
+            key = ((self._decode_col_value(table_name, group_col, g),)
+                   if group_col else ())
+            exact = bool(abs(nsel[g] - wsum[g]) < 1e-6 * max(wsum[g], 1.0))
+            if not exact and isinstance(q.bound, ErrorBound):
+                half = est_lib.z_value(confidence) * float(errs[g])
+                if q.bound.relative:
+                    half = (abs(half / vals[g]) if vals[g]
+                            else (0.0 if half == 0.0 else float("inf")))
+                realized_half = max(realized_half, half)
+            groups.append(GroupResult(key, float(vals[g]), float(errs[g]),
+                                      float(los[g]), float(his[g]),
+                                      float(nsel[g]), exact))
+        # Contract verdict: certified a-priori AND realized post-hoc.
+        bound_met = None
+        if isinstance(q.bound, ErrorBound):
+            bound_met = bool(certified
+                             and realized_half <= q.bound.eps + 1e-12)
+        return Answer(q, groups, phi, k, rows_read, tbl.n_live, elapsed,
+                      confidence, bound_met=bound_met, certified=certified,
+                      predicted_half_width=predicted_half_width)
+
+    def _estimate_for(self, q: Query,
+                      mom: est_lib.GroupedMoments) -> est_lib.Estimate:
+        return est_lib.estimate(q.agg, mom)
+
+    def _scan_for_query(self, table_name: str, q: Query,
+                        phi: tuple[str, ...], k: float):
+        """One scan at k → (mom, rows_read, dt)."""
+        self._check_supported(q)
+        return self._run_at_k(table_name, q, phi, k)
+
+    def _scan_and_answer(self, q: Query, table_name: str,
+                         phi: tuple[str, ...], k: float, confidence: float,
+                         certified: bool | None = None,
+                         predicted_half_width: float | None = None
+                         ) -> Answer:
+        mom, rows_read, dt = self._scan_for_query(table_name, q, phi, k)
+        return self._answer_from_moments(
+            q, table_name, phi, k, mom, rows_read, dt, confidence,
+            certified=certified, predicted_half_width=predicted_half_width)
+
+    # --------------------------- a-priori ERROR WITHIN contracts (§4.2)
+    def _pilot_certify(self, table_name: str, q: Query,
+                       phi: tuple[str, ...], confidence: float
+                       ) -> tuple[float | None, float | None]:
+        """Pilot scan on the family's smallest resolution → (K or None,
+        predicted CI half-width in bound units). The pilot variance is
+        inflated by the finite-sample chi-square factor before the §4.2
+        projection."""
+        fam = self.families[table_name][phi]
+        k_probe = min(fam.ks)
+        mom, _, _ = self._scan_for_query(table_name, q, phi, k_probe)
+        est = self._estimate_for(q, mom)
+        n_pilot = est.n.cpu().numpy().astype(np.float64)
+        infl = est_lib.pilot_inflation(n_pilot, confidence)
+        n_req = est_lib.required_n_for_error(
+            q.agg, est, q.bound.eps, confidence, q.bound.relative
+        ).cpu().numpy()
+        k_q = elp_lib.pick_k_for_error(fam, n_pilot, n_req * infl, k_probe)
+        k_half = k_q if k_q is not None else fam.ks[0]
+        return k_q, self._predicted_half(q, est, infl, k_probe, k_half,
+                                         confidence)
+
+    def _certify_at_top(self, table_name: str, q: Query,
+                        phi: tuple[str, ...], confidence: float
+                        ) -> tuple[float | None, float | None]:
+        """Certify at the family's LARGEST resolution from the realized
+        (inflated) CI of a scan there."""
+        fam = self.families[table_name][phi]
+        k_top = fam.ks[0]
+        mom, _, _ = self._scan_for_query(table_name, q, phi, k_top)
+        est = self._estimate_for(q, mom)
+        infl = est_lib.pilot_inflation(
+            est.n.cpu().numpy().astype(np.float64), confidence)
+        half = self._predicted_half(q, est, infl, k_top, k_top, confidence)
+        if half is not None and half <= q.bound.eps + 1e-12:
+            return k_top, half
+        return None, half
+
+    def _predicted_half(self, q: Query, est: est_lib.Estimate, infl,
+                        k_probe: float, k: float,
+                        confidence: float) -> float | None:
+        """Pilot-projected CI half-width at resolution k, in the bound's
+        units, max over the groups the pilot saw (None when it saw none).
+        Variance scales ∝ k_probe/k (§4.2), held at 1 below the probe."""
+        vals = np.atleast_1d(est.value.cpu().numpy().astype(np.float64))
+        var = np.atleast_1d(est.variance.cpu().numpy().astype(np.float64))
+        n = np.atleast_1d(est.n.cpu().numpy().astype(np.float64))
+        infl = np.broadcast_to(np.atleast_1d(infl), n.shape)
+        seen = n > 0
+        if not seen.any():
+            return None
+        z = est_lib.z_value(confidence)
+        scale = min(k_probe / k, 1.0)
+        half = z * np.sqrt(np.maximum(var * infl * scale, 0.0))
+        if q.bound.relative:
+            with np.errstate(divide="ignore", invalid="ignore"):
+                half = np.where(np.abs(vals) > 0.0, np.abs(half / vals),
+                                np.where(half > 0.0, np.inf, 0.0))
+        return float(np.max(half[seen]))
+
+    def _plan_error_bound(self, table_name: str, q: Query,
+                          phi: tuple[str, ...],
+                          confidence: float) -> ElpDecision:
+        """Resolve an ErrorBound query by walking the ladder:
+          1. certify a K on the §4.1-selected family (pilot + inflation),
+             refined by one scan at the top resolution;
+          2. escalate: pilot strictly LARGER families, ascending by size;
+          3. exact base-table fallback — bound met by construction;
+          4. best-effort annotated certified=False, or BoundUnreachableError
+             for a strict bound (`... OR FAIL`)."""
+        fams = self.families[table_name]
+
+        def decide(p, k, certified, half, exact=False):
+            return ElpDecision(p, k, certified, exact=exact,
+                               predicted_half_width=half,
+                               gen=self.family_generation(table_name, p))
+
+        k_q, half = self._pilot_certify(table_name, q, phi, confidence)
+        if k_q is None and half is not None:
+            # Containment refinement: the top prefix may fully contain the
+            # strata the predicate touches (rate 1 ⇒ zero variance).
+            k_q, half = self._certify_at_top(table_name, q, phi, confidence)
+        if k_q is not None:
+            return decide(phi, k_q, True, half)
+        best_phi, best_half = phi, half
+        if self.config.escalate_on_unreachable:
+            def size(p):
+                return max(fams[p].prefix_sizes)
+            for p2 in sorted((p for p in fams
+                              if p != phi and size(p) > size(phi)),
+                             key=size):
+                k2, half2 = self._pilot_certify(table_name, q, p2, confidence)
+                if k2 is not None:
+                    return decide(p2, k2, True, half2)
+                if half2 is not None and (best_half is None
+                                          or half2 < best_half):
+                    best_phi, best_half = p2, half2
+        if best_half is None:
+            # Zero signal: no pilot saw a selected row. Serve the most
+            # accurate sample uncertified; a strict bound still refuses (or
+            # takes the exact fallback).
+            if q.bound.strict:
+                if self.config.exact_fallback:
+                    return decide(phi, float(fams[phi].ks[0]), True, 0.0,
+                                  exact=True)
+                raise BoundUnreachableError(
+                    f"ERROR WITHIN {q.bound.eps} cannot be certified on "
+                    f"table {table_name!r}: no pilot scan selected any "
+                    f"row (nothing to project from)", None)
+            return decide(phi, fams[phi].ks[0], False, None)
+        if self.config.exact_fallback:
+            return decide(phi, float(fams[phi].ks[0]), True, 0.0, exact=True)
+        if q.bound.strict:
+            raise BoundUnreachableError(
+                f"ERROR WITHIN {q.bound.eps} AT CONFIDENCE {confidence} is "
+                f"unreachable on table {table_name!r}: best predicted CI "
+                f"half-width {best_half} (escalation/exact fallback "
+                f"disabled or exhausted)", best_half)
+        return decide(best_phi, fams[best_phi].ks[0], False, best_half)
+
+    def _execute_decision(self, q: Query, table_name: str,
+                          dec: ElpDecision, confidence: float) -> Answer:
+        """Run one resolved contract decision to an Answer."""
+        if dec.exact:
+            ans = self.exact_query(q)
+            return dataclasses.replace(ans, bound_met=True, certified=True,
+                                       predicted_half_width=0.0)
+        if (isinstance(q.bound, ErrorBound) and q.bound.strict
+                and dec.certified is False):
+            raise BoundUnreachableError(
+                f"ERROR WITHIN {q.bound.eps} unreachable (predicted CI "
+                f"half-width {dec.predicted_half_width})",
+                dec.predicted_half_width)
+        return self._scan_and_answer(
+            q, table_name, dec.phi, dec.k, confidence,
+            certified=dec.certified,
+            predicted_half_width=dec.predicted_half_width)
+
+    def _cached_decision(self, elp_key: tuple,
+                         table_name: str) -> ElpDecision | None:
+        """§4.4 cache lookup with generation pinning: a decision whose
+        family was dropped or rebuilt is retired, not replayed."""
+        dec = self._elp_cache.get(elp_key)
+        if dec is None:
+            return None
+        if dec.exact:
+            return dec
+        fams = self.families.get(table_name, {})
+        if dec.phi not in fams or \
+                dec.gen != self.family_generation(table_name, dec.phi):
+            del self._elp_cache[elp_key]
+            return None
+        return dec
+
+    def _selection_cat_cols(self, table_name: str, q: Query) -> frozenset[str]:
+        """Family selection columns (§4.1): the query's categorical WHERE and
+        GROUP BY columns."""
+        tbl = self.tables[table_name]
+        return frozenset(c for c in q.where_group_columns
+                         if tbl.schema.column(c).kind is ColumnKind.CATEGORICAL)
+
+    def _select_phi(self, table_name: str, q: Query) -> tuple[str, ...]:
+        """§4.1 runtime family selection (superset rule, else probe)."""
+        fams = self.families[table_name]
+        cat_cols = self._selection_cat_cols(table_name, q)
+
+        def probe(phi: tuple[str, ...]) -> tuple[float, float]:
+            mom, rows_read, _ = self._run_at_k(table_name, q, phi,
+                                               min(fams[phi].ks))
+            return float(mom.n.sum()), float(rows_read)
+
+        return select_family(cat_cols, fams, probe).phi
+
+    def query(self, q: Query) -> Answer:
+        """Execute with §4.1 family selection + §4.2 ELP resolution choice.
+        ErrorBound queries walk the a-priori contract ladder, so every
+        ErrorBound answer carries bound_met / certified /
+        predicted_half_width, and a strict bound raises
+        BoundUnreachableError instead of serving a best-effort answer."""
+        self._check_supported(q)
+        subqueries = rewrite_disjuncts(q)
+        if len(subqueries) > 1:
+            return _union_answers(q, [self.query(sq) for sq in subqueries])
+
+        table_name = q.table
+        phi = self._select_phi(table_name, q)
+        confidence = q.bound.confidence if q.bound else 0.95
+        if isinstance(q.bound, TimeBound):
+            # The reuse unit is the LatencyModel, re-projected per call.
+            k_q = self._pick_k_for_time(table_name, q, phi)
+            return self._scan_and_answer(q, table_name, phi, k_q, confidence)
+        struct, _ = exec_lib.pred_structure(
+            exec_lib.bind_predicate(q.predicate, self._encode(table_name)))
+        elp_key = (table_name, phi, struct, q.agg, q.value_column,
+                   q.group_by, repr(q.bound))
+        dec = (self._cached_decision(elp_key, table_name)
+               if self.config.reuse_elp else None)
+        if dec is None:
+            if isinstance(q.bound, ErrorBound):
+                dec = self._plan_error_bound(table_name, q, phi, confidence)
+            else:   # no bound: most accurate available sample
+                dec = ElpDecision(phi, self.families[table_name][phi].ks[0],
+                                  None,
+                                  gen=self.family_generation(table_name, phi))
+            self._elp_cache[elp_key] = dec
+        return self._execute_decision(q, table_name, dec, confidence)
+
+    def _pick_k_for_time(self, table_name: str, q: Query,
+                         phi: tuple[str, ...],
+                         headroom_s: float = 0.0) -> float:
+        """§4.2 latency profile: calibrate t(rows) on the smallest
+        resolutions (scan times with the device synchronised), then pick
+        the largest K inside the bound. The fitted model is cached per
+        (table, family) and re-projected against each call's budget."""
+        fam = self.families[table_name][phi]
+        model = self._latency.get((table_name, phi))
+        if model is None:
+            def run_at_k(k):
+                mom, _, dt = self._run_at_k(table_name, q, phi, k)
+                return float(mom.n.sum()), dt
+            probes = elp_lib.run_probes(
+                fam, run_at_k, n_probes=self.config.probe_resolutions)
+            model = elp_lib.fit_latency([p.rows_read for p in probes],
+                                        [p.elapsed_s for p in probes])
+            self._latency[(table_name, phi)] = model
+        return elp_lib.pick_k_for_time(fam, model, q.bound.seconds,
+                                       headroom_s=headroom_s)
+
+    def exact_query(self, q: Query) -> Answer:
+        """Ground truth: the aggregation over the FULL base table (rate=1) on
+        the engine's device. A plain segment sum (no sample kernel), summed
+        in float64 so counts past 2^24 rows stay exact."""
+        self._check_supported(q)
+        tbl = self.tables[q.table]
+        bound_pred = exec_lib.bind_predicate(q.predicate, self._encode(q.table))
+        struct, vals = exec_lib.pred_structure(bound_pred)
+        group_col = q.group_by[0] if q.group_by else None
+        n_groups = self._column_card(q.table, group_col) if group_col else 1
+        cols = tbl.columns
+        self._sync()
+        t0 = time.perf_counter()
+        mask = exec_lib.eval_pred(struct, cols, vals)
+        ones = torch.ones(tbl.n_rows, dtype=torch.float32, device=self.device)
+        values = (cols[q.value_column].to(torch.float32)
+                  if q.value_column else ones)
+        g = (cols[group_col] if group_col
+             else torch.zeros(tbl.n_rows, dtype=torch.int32, device=self.device))
+        mom = est_lib.grouped_moments(values, ones, mask, g, n_groups,
+                                      accumulate=torch.float64)
+        est = est_lib.estimate(q.agg, mom)
+        vals_h = est.value.cpu().numpy()
+        ns = est.n.cpu().numpy()
+        dt = time.perf_counter() - t0
+        groups = []
+        for gidx in range(len(vals_h)):
+            if ns[gidx] == 0:
+                continue
+            key = ((self._decode_col_value(q.table, group_col, gidx),)
+                   if group_col else ())
+            groups.append(GroupResult(key, float(vals_h[gidx]), 0.0,
+                                      float(vals_h[gidx]), float(vals_h[gidx]),
+                                      float(ns[gidx]), True))
+        return Answer(q, groups, ("<exact>",), float("inf"), tbl.n_rows,
+                      tbl.n_live, dt, 1.0)
+
+
+def _union_answers(q: Query, answers: list[Answer]) -> Answer:
+    """Combine disjunct sub-answers (§4.1.2): sums/counts add; variances
+    add (the disjoint-disjunct case). Only ADDITIVE aggregates may be
+    unioned; rewrite_disjuncts rejects AVG/QUANTILE before execution.
+    Sub-answer GroupResults are copied before the union mutates them."""
+    if q.agg not in (AggOp.COUNT, AggOp.SUM):
+        raise ValueError(
+            f"disjunct union is only defined for additive aggregates "
+            f"(COUNT/SUM), not {q.agg}")
+    by_key: dict[tuple, GroupResult] = {}
+    for a in answers:
+        for g in a.groups:
+            if g.key in by_key:
+                prev = by_key[g.key]
+                var = prev.stderr ** 2 + g.stderr ** 2
+                by_key[g.key] = GroupResult(
+                    g.key, prev.estimate + g.estimate, var ** 0.5, 0.0, 0.0,
+                    prev.n_selected + g.n_selected, prev.exact and g.exact)
+            else:
+                by_key[g.key] = dataclasses.replace(g)
+    z = est_lib.z_value(answers[0].confidence)
+    groups = []
+    for g in by_key.values():
+        g.ci_low = g.estimate - z * g.stderr
+        g.ci_high = g.estimate + z * g.stderr
+        groups.append(g)
+    mets = [a.bound_met for a in answers]
+    certs = [a.certified for a in answers]
+    preds = [a.predicted_half_width for a in answers
+             if a.predicted_half_width is not None]
+    return Answer(q, groups, answers[0].sample_phi, answers[0].sample_k,
+                  sum(a.rows_read for a in answers), answers[0].rows_total,
+                  sum(a.elapsed_s for a in answers), answers[0].confidence,
+                  # The union claims the bound only when EVERY disjunct did.
+                  bound_met=(None if all(m is None for m in mets)
+                             else all(bool(m) for m in mets)),
+                  certified=(None if all(c is None for c in certs)
+                             else all(bool(c) for c in certs)),
+                  predicted_half_width=max(preds) if preds else None)

@@ -1,0 +1,203 @@
+"""Core datatypes of the port (counterpart of `repro.core.types`).
+
+Columns are columnar and dictionary-encoded for categoricals: integer codes
+on the device, value dictionaries on the host. Queries are aggregation
+queries with DNF predicates, GROUP BY, and an optional error or time bound
+(paper §2).
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Any
+
+import torch
+
+
+class ColumnKind(enum.Enum):
+    CATEGORICAL = "categorical"  # integer dictionary codes
+    NUMERIC = "numeric"          # float32 measures
+
+
+@dataclasses.dataclass(frozen=True)
+class ColumnSchema:
+    name: str
+    kind: ColumnKind
+    # Number of distinct dictionary entries (categoricals only).
+    cardinality: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class TableSchema:
+    name: str
+    columns: tuple[ColumnSchema, ...]
+
+    def __post_init__(self):
+        names = [c.name for c in self.columns]
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate column names in {self.name}: {names}")
+
+    def column(self, name: str) -> ColumnSchema:
+        for c in self.columns:
+            if c.name == name:
+                return c
+        raise KeyError(f"no column {name!r} in table {self.name!r}")
+
+    @property
+    def column_names(self) -> tuple[str, ...]:
+        return tuple(c.name for c in self.columns)
+
+
+class CmpOp(enum.Enum):
+    EQ = "=="
+    NE = "!="
+    LT = "<"
+    LE = "<="
+    GT = ">"
+    GE = ">="
+
+
+# Position of each operator in the kernel's op table (kernels/csrc).
+CMP_CODES = {CmpOp.EQ: 0, CmpOp.NE: 1, CmpOp.LT: 2, CmpOp.LE: 3,
+             CmpOp.GT: 4, CmpOp.GE: 5}
+
+
+def cmp_fns():
+    """Canonical CmpOp -> torch comparator table, shared by the executor and
+    the plain kernel versions."""
+    return {
+        CmpOp.EQ: torch.eq, CmpOp.NE: torch.ne,
+        CmpOp.LT: torch.lt, CmpOp.LE: torch.le,
+        CmpOp.GT: torch.gt, CmpOp.GE: torch.ge,
+    }
+
+
+@dataclasses.dataclass(frozen=True)
+class Atom:
+    """A single comparison predicate: `column <op> value`. For categorical
+    columns the value is the decoded value; it is encoded to its dictionary
+    code when the predicate is bound to a table."""
+    column: str
+    op: CmpOp
+    value: Any
+
+
+@dataclasses.dataclass(frozen=True)
+class Conjunction:
+    """AND of atoms (paper §4.1.1)."""
+    atoms: tuple[Atom, ...] = ()
+
+    @property
+    def columns(self) -> frozenset[str]:
+        return frozenset(a.column for a in self.atoms)
+
+
+@dataclasses.dataclass(frozen=True)
+class Predicate:
+    """Disjunction of conjunctions (paper §4.1.2 rewrites OR as a union of
+    conjunctive queries)."""
+    disjuncts: tuple[Conjunction, ...] = (Conjunction(),)
+
+    @classmethod
+    def true(cls) -> "Predicate":
+        return cls((Conjunction(),),)
+
+    @classmethod
+    def where(cls, *atoms: Atom) -> "Predicate":
+        return cls((Conjunction(tuple(atoms)),))
+
+    @property
+    def columns(self) -> frozenset[str]:
+        out: frozenset[str] = frozenset()
+        for d in self.disjuncts:
+            out |= d.columns
+        return out
+
+
+class AggOp(enum.Enum):
+    COUNT = "count"
+    SUM = "sum"
+    AVG = "avg"
+    QUANTILE = "quantile"
+
+
+@dataclasses.dataclass(frozen=True)
+class ErrorBound:
+    """`ERROR WITHIN eps AT CONFIDENCE conf` (paper §2). eps is relative when
+    `relative` else absolute. `strict` (`... OR FAIL`) turns an uncertifiable
+    bound into BoundUnreachableError instead of an annotated answer."""
+    eps: float
+    confidence: float = 0.95
+    relative: bool = True
+    strict: bool = False
+
+
+class BoundUnreachableError(RuntimeError):
+    """Typed refusal for a strict ERROR WITHIN contract. Carries the best
+    predicted half-width (in the bound's units)."""
+
+    def __init__(self, msg: str, predicted_half_width: float | None = None):
+        super().__init__(msg)
+        self.predicted_half_width = predicted_half_width
+
+
+@dataclasses.dataclass(frozen=True)
+class TimeBound:
+    """`WITHIN seconds SECONDS` (paper §2)."""
+    seconds: float
+    confidence: float = 0.95
+
+
+@dataclasses.dataclass(frozen=True)
+class Query:
+    """An aggregation query: op(value_column) WHERE pred GROUP BY group_by."""
+    table: str
+    agg: AggOp
+    value_column: str | None = None  # None valid for COUNT
+    predicate: Predicate = Predicate.true()
+    group_by: tuple[str, ...] = ()
+    quantile: float = 0.5  # for AggOp.QUANTILE
+    bound: ErrorBound | TimeBound | None = None
+    joins: tuple = ()
+
+    @property
+    def where_group_columns(self) -> frozenset[str]:
+        """Query template columns: WHERE ∪ GROUP BY (paper's φ^T)."""
+        return self.predicate.columns | frozenset(self.group_by)
+
+
+@dataclasses.dataclass(frozen=True)
+class QueryTemplate:
+    """A workload template: WHERE/GROUP BY column set plus a weight."""
+    columns: frozenset[str]
+    weight: float
+
+
+@dataclasses.dataclass
+class GroupResult:
+    key: tuple[Any, ...]          # decoded group-by values
+    estimate: float
+    stderr: float
+    ci_low: float
+    ci_high: float
+    n_selected: float             # sampled rows matching the predicate
+    exact: bool = False           # stratum fully contained in the sample
+
+
+@dataclasses.dataclass
+class Answer:
+    query: Query
+    groups: list[GroupResult]
+    sample_phi: tuple[str, ...]   # family the query ran on
+    sample_k: float               # resolution cap K used
+    rows_read: int                # prefix length scanned
+    rows_total: int               # rows in the original table
+    elapsed_s: float
+    confidence: float
+    # A-priori ERROR WITHIN contract provenance: `certified` says whether
+    # the pilot certified (family, K) before the main scan; `bound_met` is
+    # certified AND the realized CI half-width inside eps. None on unbounded
+    # and TimeBound queries.
+    bound_met: bool | None = None
+    certified: bool | None = None
+    predicted_half_width: float | None = None

@@ -1,0 +1,110 @@
+"""Plain PyTorch versions of the scan kernels (counterpart of
+`repro.kernels.ref`).
+
+They define the semantics. On the CPU the dispatch in kernels/ops.py runs
+them; on the card chip_smoke.py holds the CUDA kernel against them. Nothing
+on the main path calls them when a card is present.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.types import cmp_fns
+
+_CMP = cmp_fns()
+
+
+def agg_scan_ref(values: torch.Tensor, rates: torch.Tensor,
+                 mask: torch.Tensor, group_codes: torch.Tensor, n_groups: int,
+                 accumulate: torch.dtype = torch.float32) -> torch.Tensor:
+    """Fused predicate + HT-weighted grouped moments: f32[7, n_groups] in
+    GroupedMoments field order (n, wsum, wxsum, wx2sum, var_count, var_sum,
+    var_sum2). Per-row terms are float32; `accumulate` is the dtype the
+    index_add_ sums run in (float64 gives an order-independent yardstick
+    for the kernel's float32 sums at full size)."""
+    m = mask.to(torch.float32)
+    r = rates.to(torch.float32)
+    x = values.to(torch.float32)
+    w = m / r
+    vfac = m * (1.0 - r) / (r * r)
+    g = group_codes.to(torch.int64)
+
+    def seg(v):
+        out = torch.zeros(n_groups, dtype=accumulate, device=v.device)
+        return out.index_add_(0, g, v.to(accumulate))
+
+    return torch.stack([seg(m), seg(w), seg(w * x), seg(w * x * x),
+                        seg(vfac), seg(vfac * x), seg(vfac * x * x)]
+                       ).to(torch.float32)
+
+
+def agg_scan_batched_ref(values: torch.Tensor, freq: torch.Tensor,
+                         entry_key: torch.Tensor, atom_cols: torch.Tensor,
+                         group_codes: torch.Tensor, ks: torch.Tensor,
+                         pred_consts: torch.Tensor, ops_struct, n_groups: int,
+                         accumulate: torch.dtype = torch.float32
+                         ) -> torch.Tensor:
+    """Q queries over ONE family block. Per query q:
+      prefix_q = entry_key < ks[q]
+      mask_q   = prefix_q & DNF(ops_struct, atom_cols, pred_consts[q])
+      rates_q  = min(1, ks[q] / freq)
+    then the 7-statistic grouped reduction of agg_scan_ref. Atom i
+    (flattened template order) compares atom_cols[i] against
+    pred_consts[q, i]. Returns f32[Q, 7, n_groups]."""
+    ks = ks.to(torch.float32)
+    pred_consts = pred_consts.to(torch.float32)
+    freq = freq.to(torch.float32)
+    out = []
+    for q in range(ks.shape[0]):
+        k = ks[q]
+        prefix = entry_key < k
+        if ops_struct:
+            disj = torch.zeros(values.shape, dtype=torch.bool,
+                               device=values.device)
+            ai = 0
+            for conj in ops_struct:
+                m = torch.ones(values.shape, dtype=torch.bool,
+                               device=values.device)
+                for op in conj:
+                    m = m & _CMP[op](atom_cols[ai].to(torch.float32),
+                                     pred_consts[q, ai])
+                    ai += 1
+                disj = disj | m
+            mask = prefix & disj
+        else:
+            mask = prefix
+        rates = torch.clamp_max(k / freq, 1.0)
+        out.append(agg_scan_ref(values, rates, mask, group_codes, n_groups,
+                                accumulate))
+    return torch.stack(out)
+
+
+def agg_scan_fused_ref(values: torch.Tensor | None, unit: torch.Tensor,
+                       strat: torch.Tensor, freq_table: torch.Tensor,
+                       valid: torch.Tensor, atom_cols,
+                       group_codes: torch.Tensor | None, ks: torch.Tensor,
+                       pred_consts: torch.Tensor, ops_struct,
+                       atom_slots=None, n_groups: int = 1,
+                       accumulate: torch.dtype = torch.float32
+                       ) -> torch.Tensor:
+    """Plain version of the fused memory-lean scan: derive the HT state
+    from the primitives — freq = freq_table[strat], entry_key = unit·freq,
+    invalid slots forced out of every prefix — then reduce via
+    agg_scan_batched_ref. `atom_cols` is a tuple of deduplicated columns at
+    their stored width; `atom_slots[i]` names the column of flattened atom
+    i. `values=None` means all ones (COUNT), `group_codes=None` one group.
+    Returns f32[Q, 7, n_groups]."""
+    n_atoms = sum(len(c) for c in ops_struct)
+    if atom_slots is None:
+        atom_slots = tuple(range(n_atoms))
+    if values is None:
+        values = torch.ones(unit.shape, dtype=torch.float32, device=unit.device)
+    if group_codes is None:
+        group_codes = torch.zeros(unit.shape, dtype=torch.int32,
+                                  device=unit.device)
+    freq = freq_table.to(torch.float32)[strat.to(torch.int64)]
+    ek = torch.where(valid, unit.to(torch.float32) * freq,
+                     torch.full_like(freq, float("inf")))
+    atoms = [atom_cols[s] for s in atom_slots]
+    return agg_scan_batched_ref(values, freq, ek, atoms, group_codes, ks,
+                                pred_consts, ops_struct, n_groups, accumulate)

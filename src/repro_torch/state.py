@@ -1,0 +1,30 @@
+"""Carrying sampling state from the reference package into the port.
+
+`jax.random` and `torch.Generator` draw different numbers from one seed, so
+a family built by each package from the same seed differs row for row. To
+hold the port against the reference, the reference's per-row priorities
+(`repro.core.sampling.base_units(n, seed[, uniform=True])`, as numpy) are
+handed to the port's builders as `units=`. This module takes plain numpy
+arrays and never imports the reference.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+
+from repro_torch.core.engine import BlinkDB
+
+
+def install_families(db: BlinkDB, table_name: str,
+                     units: Mapping[tuple[str, ...], np.ndarray]) -> None:
+    """Build each family φ of `units` (φ = () is the uniform family) from
+    the given per-row priorities and install it into `db`, through the same
+    path as BlinkDB.add_family."""
+    n = db.tables[table_name].n_rows
+    for phi, u in units.items():
+        u = np.asarray(u, dtype=np.float32)
+        if u.shape != (n,):
+            raise ValueError(f"units for family {phi!r} have shape {u.shape}; "
+                             f"table {table_name!r} has {n} rows")
+        db.add_family(table_name, phi, units=u)
