@@ -152,13 +152,6 @@ def scan_args(striped: StripedFamily) -> tuple:
             striped.freq_table, striped.valid)
 
 
-def derive_ht(unit: torch.Tensor, strat: torch.Tensor,
-              freq_table: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(freq, entry_key) derived from the stored sampling primitives."""
-    freq = freq_table[strat.to(torch.int64)]
-    return freq, unit * freq
-
-
 def pred_structure(bound: tuple[tuple[BoundAtom, ...], ...]):
     """Split a bound predicate into (static structure, constants):
     structure = ((column, op), ...) per conjunction; constants = matching
@@ -224,35 +217,26 @@ def make_query_fn(struct, value_col: str | None, group_col: str | None,
     so every instantiation of the template reuses it. The scan is the fused
     kernel as a Q=1 batch (kernels/ops.py: the CUDA kernel on the card, its
     plain version on the CPU). A template with more atoms than the kernel's
-    descriptor holds runs the plain torch scan instead, as the reference
-    runs its jnp path for such templates."""
+    descriptor holds is refused on either device."""
     atoms = flat_atoms(struct)
+    if len(atoms) > kernel_lib.MAX_ATOMS:
+        raise NotImplementedError(
+            f"template has {len(atoms)} predicate atoms; the fused scan "
+            f"kernel holds at most {kernel_lib.MAX_ATOMS}")
     ops_struct = tuple(tuple(op for _, op in conj) for conj in struct)
     acol_names, atom_slots = dedup_atom_slots(atoms)
-    use_kernel = len(atoms) <= kernel_lib.MAX_ATOMS
 
     def fn(k, pred_vals, cols, unit, strat, freq_table, valid):
-        values = cols[value_col] if value_col is not None else None
-        gcodes = cols[group_col] if group_col is not None else None
-        if use_kernel:
-            consts = torch.tensor([flatten_pred_vals(pred_vals)],
-                                  dtype=torch.float32).reshape(1, len(atoms))
-            ks = torch.tensor([k], dtype=torch.float32)
-            mom = kops.agg_scan_fused(
-                values, unit, strat, freq_table, valid,
-                tuple(cols[c] for c in acol_names), gcodes,
-                ks.to(unit.device), consts.to(unit.device),
-                ops_struct, atom_slots, n_groups)
-            return est_lib.moments_slice(mom, 0)
-        kf = torch.tensor(k, dtype=torch.float32, device=unit.device)
-        freq, ek = derive_ht(unit, strat, freq_table)
-        mask = eval_pred(struct, cols, pred_vals) & valid & (ek < kf)
-        rates = torch.clamp_max(kf / freq, 1.0)
-        vals = (values.to(torch.float32) if values is not None
-                else torch.ones_like(unit))
-        g = (gcodes if gcodes is not None
-             else torch.zeros(unit.shape, dtype=torch.int32, device=unit.device))
-        return est_lib.grouped_moments(vals, rates, mask, g, n_groups)
+        consts = torch.tensor([flatten_pred_vals(pred_vals)],
+                              dtype=torch.float32).reshape(1, len(atoms))
+        ks = torch.tensor([k], dtype=torch.float32)
+        mom = kops.agg_scan_fused(
+            cols[value_col] if value_col is not None else None,
+            unit, strat, freq_table, valid,
+            tuple(cols[c] for c in acol_names),
+            cols[group_col] if group_col is not None else None,
+            ks.to(unit.device), consts.to(unit.device),
+            ops_struct, atom_slots, n_groups)
+        return est_lib.moments_slice(mom, 0)
 
     return fn
-

@@ -35,7 +35,7 @@ MAX_STRATA = 4096        # frequency table held in shared memory
 MAX_QUERIES = 64         # one 64-bit prefix mask per row and query tile
 _THREADS = 256           # pass-1 block size (csrc kThreads)
 _STAGE = 256             # rows staged per step (csrc kStage)
-_MAX_CHUNKS = 132 * 8    # about one wave of pass-1 blocks on an H100
+_BLOCKS_PER_SM = 8       # pass-1 blocks resident per SM (one wave)
 _SCRATCH_BYTES = 64 << 20
 
 # Column dtype tags of the kernel (csrc enum).
@@ -115,14 +115,18 @@ def _pow2_ceil(x: int) -> int:
     return 1 << max(0, (x - 1).bit_length())
 
 
-def launch_plan(n: int, q: int, g: int) -> tuple[int, int, int, int]:
-    """(rows_per_chunk, n_chunks, query tile, group tile) for one launch.
-    Tiles split the 256 threads of a block over (query, group, lane); chunks
-    are sized to about one wave of blocks, fewer when the per-chunk scratch
-    [Q, 7, G] would pass 64 MiB."""
+def launch_plan(n: int, q: int, g: int,
+                n_sms: int) -> tuple[int, int, int, int]:
+    """(rows_per_chunk, n_chunks, query tile, group tile) for one launch on
+    a card with `n_sms` multiprocessors. Tiles split the 256 threads of a
+    block over (query, group, lane); chunks are sized to about one wave of
+    blocks, fewer when the per-chunk scratch [Q, 7, G] would pass 64 MiB.
+    The chunking fixes the order of the float sums, so repeat launches on
+    one card are bit-identical; cards with other SM counts sum in another
+    order."""
     gt = min(_pow2_ceil(g), _THREADS)
     qt = min(_pow2_ceil(q), _THREADS // gt, MAX_QUERIES)
-    chunks = max(1, min(-(-n // _STAGE), _MAX_CHUNKS,
+    chunks = max(1, min(-(-n // _STAGE), n_sms * _BLOCKS_PER_SM,
                         _SCRATCH_BYTES // (4 * q * 7 * g)))
     rows = -(-max(n, 1) // chunks)
     rows = -(-rows // _STAGE) * _STAGE
@@ -200,7 +204,8 @@ def launch(lib: ctypes.CDLL, values, unit, strat, freq_table, valid,
     n, q = unit.shape[0], ks.shape[0]
     ks = ks.to(torch.float32).contiguous()
     consts = pred_consts.to(torch.float32).contiguous()
-    rows, chunks, qt, gt = launch_plan(n, q, n_groups)
+    n_sms = torch.cuda.get_device_properties(unit.device).multi_processor_count
+    rows, chunks, qt, gt = launch_plan(n, q, n_groups, n_sms)
     out = torch.empty((q, 7, n_groups), dtype=torch.float32, device=unit.device)
     partial = torch.empty((chunks, q, 7, n_groups), dtype=torch.float32,
                           device=unit.device)

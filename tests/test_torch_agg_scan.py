@@ -259,10 +259,12 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 @pytest.mark.parametrize("n, q, g", [(0, 1, 1), (1, 1, 1), (10_000_019, 1, 1),
                                      (5_000_000, 1, 500), (100_003, 64, 500),
                                      (100_003, 7, 6), (2_000_000, 3, 70_000)])
-def test_launch_plan_covers_rows(n, q, g):
-    rows, chunks, qt, gt = agg_scan.launch_plan(n, q, g)
+@pytest.mark.parametrize("n_sms", [132, 114])
+def test_launch_plan_covers_rows(n, q, g, n_sms):
+    rows, chunks, qt, gt = agg_scan.launch_plan(n, q, g, n_sms)
     assert rows % 256 == 0 and rows * chunks >= n
     assert chunks == 1 or rows * (chunks - 1) < n
     assert qt * gt <= 256 and 256 % (qt * gt) == 0 and qt <= 64
     assert chunks * q * 7 * g * 4 <= max(64 << 20, q * 7 * g * 4)
     assert -(-q // qt) * -(-g // gt) <= 65535
+    assert chunks <= 8 * n_sms

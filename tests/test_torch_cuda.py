@@ -111,3 +111,22 @@ def test_engine_on_card_matches_engine_on_cpu(cuda_device):
             np.testing.assert_allclose([gb.estimate, gb.ci_low, gb.ci_high],
                                        [ga.estimate, ga.ci_low, ga.ci_high],
                                        rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_engine_on_card_refuses_128_atoms(cuda_device):
+    db = BlinkDB(EngineConfig(k1=800.0, m=3), device=cuda_device)
+    db.register_table("sessions", table_lib.from_columns(
+        "sessions", synth.sessions_table(20_000, seed=3)))
+    db.add_family("sessions", ())
+    q = Query("sessions", AggOp.COUNT, predicate=Predicate.where(
+        *[Atom("dt", CmpOp.GE, i % 3) for i in range(128)]))
+    before = agg_scan.agg_scan_fused_cuda.launches
+    with pytest.raises(NotImplementedError, match="at most 127"):
+        db.query(q)
+    assert agg_scan.agg_scan_fused_cuda.launches == before
+    t = _case(np.random.default_rng(9), 4099, 6, 1, 128, cuda_device)
+    with pytest.raises(ValueError, match="atoms"):
+        _call(agg_scan.agg_scan_fused_cuda, t, ((CmpOp.GE,) * 128,),
+              (0,) * 128, 6)
+    assert agg_scan.agg_scan_fused_cuda.launches == before

@@ -196,6 +196,22 @@ def test_later_slices_raise_not_implemented(engines):
         P.BlinkDB(P.EngineConfig(ci_method="subsampling"), device="cpu")
 
 
+def test_template_over_kernel_atom_limit_raises(engines):
+    """A template of 128 atoms does not fit the fused kernel's descriptor
+    (127); the port refuses it on every device and runs no other scan."""
+    _, port = engines
+    q = P.Query("sessions", P.AggOp.COUNT, group_by=("OS",),
+                predicate=P.Predicate.where(
+                    *[P.Atom("dt", P.CmpOp.GE, i % 3) for i in range(128)]),
+                bound=P.ErrorBound(0.1))
+    with pytest.raises(NotImplementedError, match="at most 127"):
+        port.query(q)
+    q127 = P.Query("sessions", P.AggOp.COUNT, group_by=("OS",),
+                   predicate=P.Predicate.where(
+                       *[P.Atom("dt", P.CmpOp.GE, i % 3) for i in range(127)]))
+    assert port.query(q127).groups
+
+
 def test_disjunctive_avg_rejected_like_reference(engines):
     _, port = engines
     q = P.Query("sessions", P.AggOp.AVG, "SessionTime",
