@@ -6,18 +6,25 @@
 
 Phases, each reported on its own lines:
   1. card and build: torch version, the card's name and power limit, the
-     nvcc build of the fused-scan kernel (seconds, ptxas resources);
-  2. kernel vs plain: agg_scan_fused on the card against its plain PyTorch
-     version over a sweep of queries, groups, strata, dtypes and templates
-     (rtol 2e-5, atol 1e-3), bit-identical repeat launches, and the
-     wrapper's refusal of a 128-atom template;
+     nvcc builds of the two kernel libraries, started together (seconds,
+     ptxas resources);
+  2. kernels vs plain: agg_scan_fused and quantile_scan on the card against
+     their plain PyTorch versions over a sweep of queries, groups, strata,
+     dtypes and templates (rtol 2e-5, atol 1e-3); bit-identical repeat
+     launches; each query of a Q = 7 or 64 launch bit-identical to the same
+     query launched alone; the quantile kernel's moments bit-identical to
+     agg_scan_fused at Q = 1; both wrappers refuse a 128-atom template;
   3. main path: the Conviva-like sessions workload (paper §6.1) through
-     BlinkDB.query — COUNT/SUM/AVG, grouped and not, predicates, a
-     disjunction, ERROR WITHIN and WITHIN SECONDS — every scan's moments
-     held against the plain version on the same tensors, every answer
-     against exact_query, the kernel's launch count read around the run;
-  4. times: the kernel at the main path's shapes (Q=1, each family's whole
-     block) against its memory bound and the plain version.
+     BlinkDB.query — COUNT/SUM/AVG/QUANTILE, grouped and not, predicates, a
+     disjunction, ERROR WITHIN and WITHIN SECONDS — every scan held against
+     the plain version on the same tensors, every answer against
+     exact_query, both kernels' launch counts read around the run;
+  3b. batch: 32 queries of four templates (QUANTILE among them) through
+     BlinkDB.query_batch on a fresh engine, then through query() on that
+     engine: every answer bit-identical;
+  4. times: each kernel at the main path's shapes against its memory bound
+     and its plain version; agg_scan_fused at Q = 32 against 32 launches at
+     Q = 1.
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Any failed check raises: the script then
 exits non-zero and prints no result. Without a CUDA device it exits 2.
@@ -57,104 +64,197 @@ def card_line() -> str:
 
 # ----------------------------------------------------------------- phase 2
 
-def sweep_cases(torch, np, device):
-    """Kernel inputs over the sweep: (label, args, ops_struct, atom_slots,
-    n_groups). Pad rows (unit=+inf), ghost rows (valid=False) and a row
-    count that is no multiple of any block are in every case."""
-    from repro_torch.core.types import CmpOp
-    rng = np.random.default_rng(7)
+def make_case(torch, np, rng, device, n, g, q, n_cols, n_atoms, strata, sdt,
+              cdt, adt, ghost=0.1, values=True, codes=True):
+    """Scan-kernel inputs on the card: (values, unit, strat, freq_table,
+    valid, atom_cols, group_codes, ks, pred_consts). Pad rows (unit=+inf)
+    and ghost rows (valid=False) are in every case."""
+    u = rng.random(n).astype(np.float32)
+    u[-max(1, n // 50):] = np.inf
+    t = {
+        "v": rng.normal(5, 2, n).astype(np.float32),
+        "u": u,
+        "s": rng.integers(0, strata, n).astype(sdt),
+        "ft": rng.integers(1, 500, strata).astype(np.float32),
+        "va": rng.random(n) >= ghost,
+        "c": rng.integers(0, g, n).astype(cdt),
+        "ks": rng.uniform(20, 400, q).astype(np.float32),
+        "consts": rng.integers(0, 8, (q, n_atoms)).astype(np.float32),
+    }
+    t = {k: torch.from_numpy(a).to(device) for k, a in t.items()}
+    cols = tuple(torch.from_numpy(rng.integers(0, 8, n).astype(adt)
+                                  ).to(device) for _ in range(n_cols))
+    return (t["v"] if values else None, t["u"], t["s"], t["ft"], t["va"],
+            cols, t["c"] if codes else None, t["ks"], t["consts"])
 
-    def case(n, g, q, n_cols, n_atoms, strata, sdt, cdt, adt, ghost=0.1,
-             values=True, codes=True):
-        u = rng.random(n).astype(np.float32)
-        u[-max(1, n // 50):] = np.inf
-        t = {
-            "v": rng.normal(5, 2, n).astype(np.float32),
-            "u": u,
-            "s": rng.integers(0, strata, n).astype(sdt),
-            "ft": rng.integers(1, 500, strata).astype(np.float32),
-            "va": rng.random(n) >= ghost,
-            "c": rng.integers(0, g, n).astype(cdt),
-            "ks": rng.uniform(20, 400, q).astype(np.float32),
-            "consts": rng.integers(0, 8, (q, n_atoms)).astype(np.float32),
-        }
-        t = {k: torch.from_numpy(a).to(device) for k, a in t.items()}
-        cols = tuple(torch.from_numpy(rng.integers(0, 8, n).astype(adt)
-                                      ).to(device) for _ in range(n_cols))
-        return (t["v"] if values else None, t["u"], t["s"], t["ft"], t["va"],
-                cols, t["c"] if codes else None, t["ks"], t["consts"])
+
+def sweep_cases(torch, np, device, quantile=False):
+    """Kernel inputs over the sweep: (label, args, ops_struct, atom_slots,
+    n_groups). The quantile sweep takes one query per case (Q = 1) and
+    always a value column; a row count that is no multiple of any block is
+    in every case."""
+    from repro_torch.core.types import CmpOp
+    rng = np.random.default_rng(8 if quantile else 7)
+
+    def case(*a, **kw):
+        return make_case(torch, np, rng, device, *a, **kw)
 
     eq, gt, le, ge, ne = CmpOp.EQ, CmpOp.GT, CmpOp.LE, CmpOp.GE, CmpOp.NE
     n = 100_003
     out = []
-    for q in (1, 7, 64):
+    for q in ((1,) if quantile else (1, 7, 64)):
         for g in (1, 6, 500):
             cdt = np.int16 if g > 127 else np.int8
             out.append((f"Q={q} G={g} dnf2(dup col)",
                         case(n, g, q, 1, 2, 37, np.int8, cdt, np.int8),
                         ((eq,), (gt,)), (0, 0), g))
+    q = 1 if quantile else 3
     for strata, sdt in ((1, np.int8), (300, np.int16), (4096, np.int32)):
         out.append((f"strata={strata} {np.dtype(sdt).name}",
-                    case(n, 6, 3, 2, 2, strata, sdt, np.int32, np.int16),
+                    case(n, 6, q, 2, 2, strata, sdt, np.int32, np.int16),
                     ((le, ne),), (0, 1), 6))
+    q = 1 if quantile else 4
     for adt in (np.int8, np.int16, np.int32, np.float32):
         out.append((f"atoms {np.dtype(adt).name}",
-                    case(n, 12, 4, 1, 2, 37, np.int16, np.int16, adt),
+                    case(n, 12, q, 1, 2, 37, np.int16, np.int16, adt),
                     ((ge, CmpOp.LT),), (0, 0), 12))
-    out.append(("0 atoms, COUNT, ungrouped",
-                case(n, 1, 2, 0, 0, 37, np.int8, np.int8, np.int8,
-                     values=False, codes=False), (), (), 1))
+    out.append(("0 atoms, ungrouped" if quantile else
+                "0 atoms, COUNT, ungrouped",
+                case(n, 1, 1 if quantile else 2, 0, 0, 37, np.int8, np.int8,
+                     np.int8, values=quantile, codes=False), (), (), 1))
     out.append(("1 atom", case(n, 6, 1, 1, 1, 37, np.int8, np.int8, np.int8),
                 ((gt,),), (0,), 6))
     out.append(("127 atoms", case(20_011, 2, 1, 1, 127, 37, np.int8, np.int8,
                                   np.int8), ((ge,) * 127,), (0,) * 127, 2))
-    out.append(("all ghosts", case(n, 4, 2, 1, 1, 37, np.int8, np.int8,
-                                   np.int8, ghost=1.1), ((gt,),), (0,), 4))
+    out.append(("all ghosts", case(n, 4, 1 if quantile else 2, 1, 1, 37,
+                                   np.int8, np.int8, np.int8, ghost=1.1),
+                ((gt,),), (0,), 4))
     return out
 
 
-def phase_kernel_vs_plain(torch, np, device) -> tuple[float, float]:
+def check_close(torch, label, got, want, worst, **flags) -> tuple:
+    """Hold got against want at the kernel tolerance; log and raise on any
+    failed flag. Returns the updated (max |diff|, max tolerance ratio)."""
+    diff = (got - want).abs().max().item()
+    ratio = tol_ratio(torch, got, want)
+    ok = torch.allclose(got, want, rtol=RTOL, atol=ATOL)
+    flags = dict(allclose=ok, finite=bool(torch.isfinite(got).all()),
+                 **flags)
+    log(f"  {label:30s} shape={tuple(got.shape)} max_abs_diff={diff:.3e} "
+        f"tol_ratio={ratio:.3f} " +
+        " ".join(f"{k}={v}" for k, v in flags.items()))
+    if not all(flags.values()):
+        raise AssertionError(f"kernel vs plain failed: {label} {flags}")
+    return max(worst[0], diff), max(worst[1], ratio)
+
+
+def refuse_128_atoms(fn, args, g) -> None:
+    """A 127-atom case with one atom more: the wrapper `fn` must refuse it
+    before counting a launch. args end with pred_consts."""
     from repro_torch.core.types import CmpOp
+    consts = args[-1].new_zeros((args[-1].shape[0], 128))
+    before = fn.launches
+    try:
+        fn(*args[:-1], consts, ((CmpOp.GE,) * 128,), (0,) * 128, g)
+    except ValueError as e:
+        log(f"  128 atoms refused: {e}")
+    else:
+        raise AssertionError(f"{fn.__name__} took a 128-atom template")
+    if fn.launches != before:
+        raise AssertionError("a refused call counted a launch")
+
+
+def phase_kernel_vs_plain(torch, np, device) -> tuple[float, float]:
     from repro_torch.kernels import agg_scan, ref
     worst = (0.0, 0.0)     # (max |diff|, max tolerance ratio)
+    fused = agg_scan.agg_scan_fused_cuda
     for label, args, struct, slots, g in sweep_cases(torch, np, device):
-        got = agg_scan.agg_scan_fused_cuda(*args, struct, slots, g)
-        again = agg_scan.agg_scan_fused_cuda(*args, struct, slots, g)
+        got = fused(*args, struct, slots, g)
+        again = fused(*args, struct, slots, g)
+        # Each query alone: its slice of the batch must be bit-identical.
+        ks, consts = args[-2], args[-1]
+        alone = torch.cat([fused(*args[:-2], ks[i:i + 1], consts[i:i + 1],
+                                 struct, slots, g)
+                           for i in range(ks.shape[0])])
         torch.cuda.synchronize()
         # The plain version sums its float32 per-row terms in float64: an
         # order-free yardstick for the kernel's float32 sums.
         want = ref.agg_scan_fused_ref(*args, struct, slots, g,
                                       accumulate=torch.float64)
-        diff = (got - want).abs().max().item()
-        ratio = tol_ratio(torch, got, want)
-        worst = (max(worst[0], diff), max(worst[1], ratio))
-        ok = torch.allclose(got, want, rtol=RTOL, atol=ATOL)
-        same = torch.equal(got, again)
-        log(f"  {label:28s} shape={tuple(got.shape)} max_abs_diff={diff:.3e} "
-            f"tol_ratio={ratio:.3f} allclose={ok} bit_identical_repeat={same}")
-        if not (ok and same and torch.isfinite(got).all()):
-            raise AssertionError(f"kernel vs plain failed: {label}")
+        worst = check_close(torch, label, got, want, worst,
+                            bit_identical_repeat=torch.equal(got, again),
+                            slices_equal_alone=torch.equal(got, alone))
         if len(slots) == agg_scan.MAX_ATOMS:
             widest = (args, g)
-    # The 127-atom case with one atom more: the wrapper must refuse it.
+    refuse_128_atoms(fused, *widest)
+    log(f"phase 2 agg_scan_fused ok: max_abs_diff={worst[0]:.6e} max "
+        f"tol_ratio={worst[1]:.4f} (rtol={RTOL}, atol={ATOL})")
+    return worst
+
+
+def quantile_args(args) -> tuple:
+    """Fused-scan args of one query → quantile-scan args over the values'
+    own range (lo, hi as host floats)."""
+    v = args[0]
+    return (*args[:-1], v.min().item(), v.max().item(), args[-1])
+
+
+def phase_quantile_vs_plain(torch, np, device) -> tuple[float, float]:
+    from repro_torch.kernels import agg_scan, ref
+    worst = (0.0, 0.0)
+    quant = agg_scan.quantile_scan_cuda
+    cases = sweep_cases(torch, np, device, quantile=True)
+    # A range narrower than the data: out-of-range values clip into the
+    # end bins.
+    label, args, struct, slots, g = cases[1]
+    cases.append(("narrow range " + label, args, struct, slots, g, 4.0, 6.0))
+    for label, args, struct, slots, g, *rng in cases:
+        qargs = quantile_args(args)
+        if rng:
+            qargs = (*qargs[:-3], *rng, qargs[-1])
+        mom, hist = quant(*qargs, struct, slots, g)
+        mom2, hist2 = quant(*qargs, struct, slots, g)
+        fused = agg_scan.agg_scan_fused_cuda(*args, struct, slots, g)[0]
+        torch.cuda.synchronize()
+        want_mom, want_hist = ref.quantile_scan_ref(
+            *qargs, struct, slots, g, accumulate=torch.float64)
+        worst = check_close(torch, label + " moments", mom, want_mom, worst,
+                            bit_identical_repeat=torch.equal(mom, mom2),
+                            equals_fused_q1=torch.equal(mom, fused))
+        worst = check_close(torch, label + " histogram", hist, want_hist,
+                            worst,
+                            bit_identical_repeat=torch.equal(hist, hist2))
+        if len(slots) == agg_scan.MAX_ATOMS:
+            widest = (args, g)
     args, g = widest
-    consts = args[-1].new_zeros((args[-1].shape[0], 128))
-    before = agg_scan.agg_scan_fused_cuda.launches
-    try:
-        agg_scan.agg_scan_fused_cuda(*args[:-1], consts, ((CmpOp.GE,) * 128,),
-                                     (0,) * 128, g)
-    except ValueError as e:
-        log(f"  128 atoms refused: {e}")
-    else:
-        raise AssertionError("the kernel wrapper took a 128-atom template")
-    if agg_scan.agg_scan_fused_cuda.launches != before:
-        raise AssertionError("a refused call counted a launch")
-    log(f"phase 2 ok: max_abs_diff={worst[0]:.6e} max tol_ratio="
-        f"{worst[1]:.4f} (rtol={RTOL}, atol={ATOL})")
+    refuse_128_atoms(quant, quantile_args(args), g)
+    log(f"phase 2 quantile_scan ok: max_abs_diff={worst[0]:.6e} max "
+        f"tol_ratio={worst[1]:.4f} (rtol={RTOL}, atol={ATOL})")
     return worst
 
 
 # ----------------------------------------------------------------- phase 3
+
+def kernel_args(torch, db, q, phi, k):
+    """The fused-scan kernel's inputs for query q on family phi at k, as the
+    engine passes them: (args, ops_struct, atom_slots, n_groups)."""
+    from repro_torch.core import executor as exec_lib
+    striped = db._striped_for(q.table, phi)
+    key, vals = db._scan_key(q.table, q, phi)
+    _, _, struct, value_col, group_col, n_groups = key
+    names, slots = exec_lib.dedup_atom_slots(exec_lib.flat_atoms(struct))
+    cols = striped.columns
+    args = (cols[value_col] if value_col else None,
+            striped.unit, striped.strat, striped.freq_table, striped.valid,
+            tuple(cols[c] for c in names),
+            cols[group_col] if group_col else None,
+            torch.tensor([k], dtype=torch.float32, device=db.device),
+            torch.tensor([exec_lib.flatten_pred_vals(vals)],
+                         dtype=torch.float32,
+                         device=db.device).reshape(1, len(slots)))
+    return args, tuple(tuple(op for _, op in c) for c in struct), slots, \
+        n_groups
+
 
 def checked_engine(torch, record):
     """A BlinkDB whose every scan is also run through the plain version on
@@ -162,46 +262,59 @@ def checked_engine(torch, record):
     from repro_torch.core import BlinkDB
     from repro_torch.core import executor as exec_lib
     from repro_torch.kernels import agg_scan, ref
+    fused, quant = agg_scan.agg_scan_fused_cuda, agg_scan.quantile_scan_cuda
 
     class CheckedDB(BlinkDB):
         check = True     # False: record scans only (the latency pass)
 
+        def _hold(self, name, got, want, phi, k):
+            diff = (got - want).abs().max().item()
+            if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+                raise AssertionError(
+                    f"{name} moments disagree with the plain version: "
+                    f"{phi} k={k} max_abs_diff={diff}")
+            rec = record[name]
+            rec["max_abs_diff"] = max(rec["max_abs_diff"], diff)
+            rec["tol_ratio"] = max(rec["tol_ratio"],
+                                   tol_ratio(torch, got, want))
+
         def _run_at_k(self, table_name, q, phi, k):
-            before = agg_scan.agg_scan_fused_cuda.launches
+            before = fused.launches
             mom, rows, dt = super()._run_at_k(table_name, q, phi, k)
-            launched = agg_scan.agg_scan_fused_cuda.launches - before
-            if self.check and self.device.type == "cuda":
-                striped = self._striped_for(table_name, phi)
-                bound = exec_lib.bind_predicate(q.predicate,
-                                                self._encode(table_name))
-                struct, vals = exec_lib.pred_structure(bound)
-                names, slots = exec_lib.dedup_atom_slots(
-                    exec_lib.flat_atoms(struct))
-                cols = striped.columns
-                g = q.group_by[0] if q.group_by else None
-                n_groups = self._column_card(table_name, g) if g else 1
-                want = ref.agg_scan_fused_ref(
-                    cols[q.value_column] if q.value_column else None,
-                    striped.unit, striped.strat, striped.freq_table,
-                    striped.valid, tuple(cols[c] for c in names),
-                    cols[g] if g else None,
-                    torch.tensor([k], dtype=torch.float32, device=self.device),
-                    torch.tensor([exec_lib.flatten_pred_vals(vals)],
-                                 dtype=torch.float32,
-                                 device=self.device).reshape(1, len(slots)),
-                    tuple(tuple(op for _, op in c) for c in struct), slots,
-                    n_groups, accumulate=torch.float64)[0]
-                got = mom.stacked()
-                diff = (got - want).abs().max().item()
-                if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
-                    raise AssertionError(
-                        f"scan moments disagree with the plain version: "
-                        f"{phi} k={k} max_abs_diff={diff}")
-                record["max_abs_diff"] = max(record["max_abs_diff"], diff)
-                record["tol_ratio"] = max(record["tol_ratio"],
-                                          tol_ratio(torch, got, want))
+            launched = fused.launches - before
+            if self.check:
+                args, struct, slots, g = kernel_args(torch, self, q, phi, k)
+                want = ref.agg_scan_fused_ref(*args, struct, slots, g,
+                                              accumulate=torch.float64)[0]
+                self._hold("agg_scan_fused", mom.stacked(), want, phi, k)
             record["scans"].append((phi, k, rows, dt, launched))
             return mom, rows, dt
+
+        def _run_quantile_at_k(self, table_name, q, phi, k):
+            before = quant.launches
+            mom, rows, dt, qpair = super()._run_quantile_at_k(table_name, q,
+                                                              phi, k)
+            launched = quant.launches - before
+            if self.check:
+                args, struct, slots, g = kernel_args(torch, self, q, phi, k)
+                lo, hi = self._family_range(table_name, phi, q.value_column)
+                want, hist = ref.quantile_scan_ref(
+                    *args[:-1], lo, hi, args[-1], struct, slots, g,
+                    accumulate=torch.float64)
+                self._hold("quantile_scan", mom.stacked(), want, phi, k)
+                # The quantile read off the plain histogram lies within one
+                # bin of the kernel's.
+                qv, _ = exec_lib.hist_to_quantile(hist, lo, hi, q.quantile)
+                bin_w = (hi - lo) / 256.0
+                gap = (qpair[0] - qv).abs().max().item() / bin_w
+                if gap > 1.0:
+                    raise AssertionError(
+                        f"quantile off the plain histogram by {gap} bins: "
+                        f"{phi} k={k}")
+                rec = record["quantile_scan"]
+                rec["max_bin_gap"] = max(rec["max_bin_gap"], gap)
+            record["scans"].append((phi, k, rows, dt, launched))
+            return mom, rows, dt, qpair
     return CheckedDB
 
 
@@ -236,10 +349,52 @@ def main_path_queries(Q, AggOp, Atom, CmpOp, Conjunction, Predicate,
         ("AVG(Bitrate) GROUP BY URL WITHIN 0.05 SECONDS",
          Q(t, AggOp.AVG, "Bitrate", group_by=("URL",),
            bound=TimeBound(0.05))),
+        ("QUANTILE(SessionTime, 0.5) ERROR 10%",
+         Q(t, AggOp.QUANTILE, "SessionTime", quantile=0.5,
+           bound=ErrorBound(0.10))),
+        ("QUANTILE(SessionTime, 0.9) GROUP BY OS ERROR 5%",
+         Q(t, AggOp.QUANTILE, "SessionTime", quantile=0.9, group_by=("OS",),
+           bound=ErrorBound(0.05))),
+        ("QUANTILE(Bitrate, 0.5) GROUP BY City ERROR 10%",
+         Q(t, AggOp.QUANTILE, "Bitrate", quantile=0.5, group_by=("City",),
+           bound=ErrorBound(0.10))),
+        ("QUANTILE(SessionTime, 0.99) WHERE Genre=genre03 ERROR 10%",
+         Q(t, AggOp.QUANTILE, "SessionTime", quantile=0.99, predicate=genre,
+           bound=ErrorBound(0.10))),
+        ("QUANTILE(Bitrate, 0.9) GROUP BY URL WITHIN 0.05 SECONDS",
+         Q(t, AggOp.QUANTILE, "Bitrate", quantile=0.9, group_by=("URL",),
+           bound=TimeBound(0.05))),
     ]
 
 
+def exact_bin_width(torch, db, q) -> float:
+    """Bin width of exact_query's QUANTILE histogram: its range is that of
+    the rows the predicate selects."""
+    from repro_torch.core import executor as exec_lib
+    tbl = db.tables[q.table]
+    struct, vals = exec_lib.pred_structure(
+        exec_lib.bind_predicate(q.predicate, db._encode(q.table)))
+    v = tbl.columns[q.value_column][exec_lib.eval_pred(struct, tbl.columns,
+                                                       vals)]
+    return (v.max().item() - v.min().item()) / 256.0
+
+
+def launch_counts(agg_scan) -> tuple[int, int]:
+    return (agg_scan.agg_scan_fused_cuda.launches,
+            agg_scan.quantile_scan_cuda.launches)
+
+
+def reset_launches(agg_scan) -> None:
+    agg_scan.agg_scan_fused_cuda.launches = 0
+    agg_scan.quantile_scan_cuda.launches = 0
+
+
 def phase_main_path(torch, np, n_rows: int, record, device="cuda") -> dict:
+    """The rule for every answer, fixed before the first chip run: COUNT,
+    SUM and AVG need 90% of all their groups within 2 CI half-widths of
+    exact_query; every QUANTILE group must lie within 2 CI half-widths
+    plus one bin width of each side's histogram range (the sample's
+    family-global range, and exact_query's range of the selected rows)."""
     from repro_torch.core import (AggOp, Atom, CmpOp, Conjunction,
                                   EngineConfig, ErrorBound, Predicate, Query,
                                   TimeBound)
@@ -274,24 +429,47 @@ def phase_main_path(torch, np, n_rows: int, record, device="cuda") -> dict:
 
     queries = main_path_queries(Query, AggOp, Atom, CmpOp, Conjunction,
                                 Predicate, ErrorBound, TimeBound)
-    agg_scan.agg_scan_fused_cuda.launches = 0
+    reset_launches(agg_scan)
     results, covered, total = [], 0, 0
     for label, q in queries:
         n_scans = len(record["scans"])
-        before = agg_scan.agg_scan_fused_cuda.launches
+        before = launch_counts(agg_scan)
         ans = db.query(q)
-        launched = agg_scan.agg_scan_fused_cuda.launches - before
+        launched = [a - b for a, b in zip(launch_counts(agg_scan), before)]
         scans = record["scans"][n_scans:]
         exact = {g.key: g.estimate for g in db.exact_query(q).groups}
         if not ans.groups or not np.isfinite(
                 [[g.estimate, g.ci_low, g.ci_high] for g in ans.groups]).all():
             raise AssertionError(f"{label}: empty or non-finite answer")
-        rel, in_ci = [], 0
+        slack = 0.0
+        if q.agg is AggOp.QUANTILE:
+            exact_w = exact_bin_width(torch, db, q)
+            if ans.sample_phi == ("<exact>",):
+                slack = 2.0 * exact_w
+            else:
+                lo, hi = db._family_range("sessions", ans.sample_phi,
+                                          q.value_column)
+                slack = (hi - lo) / 256.0 + exact_w
+        rel, in_ci, outside = [], 0, []
         for g in ans.groups:
             truth = exact[g.key]
             rel.append(abs(g.estimate - truth) / max(abs(truth), 1e-12))
             half = max(g.ci_high - g.estimate, g.estimate - g.ci_low)
-            in_ci += abs(g.estimate - truth) <= 2.0 * half + 1e-4 * abs(truth)
+            inside = abs(g.estimate - truth) <= \
+                2.0 * half + 1e-4 * abs(truth) + slack
+            in_ci += inside
+            if not inside:
+                outside.append((g.key, g.estimate, truth, half,
+                                g.n_selected))
+        for key, est, truth, half, n_sel in outside[:10]:
+            log(f"    outside: {label} group={key} estimate={est!r} "
+                f"exact={truth!r} ci_half={half!r} slack={slack!r} "
+                f"n_selected={n_sel} family={ans.sample_phi} "
+                f"K={ans.sample_k!r}")
+        if q.agg is AggOp.QUANTILE and in_ci < len(ans.groups):
+            raise AssertionError(
+                f"{label}: {len(ans.groups) - in_ci} groups farther than 2 CI "
+                f"half-widths plus one bin width per side from exact_query")
         covered += in_ci
         total += len(ans.groups)
         ci_rel = max(((g.ci_high - g.ci_low) / 2.0 / max(abs(g.estimate), 1e-12))
@@ -300,13 +478,16 @@ def phase_main_path(torch, np, n_rows: int, record, device="cuda") -> dict:
         log(f"  {label}: family={ans.sample_phi} K={ans.sample_k:.6g} "
             f"rows_read={ans.rows_read} scan_ms={main_ms:.3f} "
             f"bound_met={ans.bound_met} certified={ans.certified} "
-            f"scans={len(scans)} launches={launched} groups={len(ans.groups)} "
+            f"scans={len(scans)} launches fused={launched[0]} "
+            f"quantile={launched[1]} groups={len(ans.groups)} "
             f"max_realized_rel_err={max(rel):.3e} max_ci_rel_half={ci_rel:.3e} "
-            f"groups_within_2ci={in_ci}/{len(ans.groups)}")
+            f"groups_within={in_ci}/{len(ans.groups)}"
+            + (f" bin_slack={slack:.6g}" if slack else ""))
         results.append((label, q, ans))
-    launches = agg_scan.agg_scan_fused_cuda.launches
-    if device == "cuda" and launches == 0:
-        raise AssertionError("the main path launched the kernel no time")
+    launches = launch_counts(agg_scan)
+    if device == "cuda" and min(launches) == 0:
+        raise AssertionError(f"a kernel of the main path was launched no "
+                             f"time: (fused, quantile) = {launches}")
     if covered < 0.9 * total:
         raise AssertionError(f"only {covered}/{total} groups within 2 CI "
                              f"half-widths of exact_query")
@@ -329,11 +510,89 @@ def phase_main_path(torch, np, n_rows: int, record, device="cuda") -> dict:
             log(f"    {label} [{run}]: query_ms={1e3 * wall:.3f} "
                 f"scans={len(scans)} scan_ms_sum={1e3 * scan_s:.3f} "
                 f"scan_share={scan_s / wall:.3f}")
-    log(f"phase 3 ok: {len(queries)} queries, kernel launches={launches}, "
-        f"{covered}/{total} groups within 2 CI half-widths of exact, scan "
-        f"moments vs plain max_abs_diff={record['max_abs_diff']:.6e} "
-        f"max tol_ratio={record['tol_ratio']:.4f}")
+    fr, qr = record["agg_scan_fused"], record["quantile_scan"]
+    log(f"phase 3 ok: {len(queries)} queries, launches fused={launches[0]} "
+        f"quantile={launches[1]}, {covered}/{total} groups within the rule; "
+        f"scans vs plain: fused max_abs_diff={fr['max_abs_diff']:.6e} "
+        f"tol_ratio={fr['tol_ratio']:.4f}, quantile moments max_abs_diff="
+        f"{qr['max_abs_diff']:.6e} tol_ratio={qr['tol_ratio']:.4f} "
+        f"quantile gap {qr['max_bin_gap']:.4f} bins")
     return {"db": db, "launches": launches, "results": results}
+
+
+# ---------------------------------------------------------------- phase 3b
+
+def batch_queries(Q, AggOp, Atom, CmpOp, Predicate, ErrorBound):
+    """32 instantiations of four templates, interleaved."""
+    t = "sessions"
+    out = []
+    for i in range(8):
+        city = Predicate.where(Atom("City", CmpOp.EQ, f"city{i:03d}"))
+        out += [
+            Q(t, AggOp.COUNT, predicate=city, bound=ErrorBound(0.10)),
+            Q(t, AggOp.AVG, "SessionTime", group_by=("OS",),
+              predicate=Predicate.where(Atom("Genre", CmpOp.EQ,
+                                             f"genre{i:02d}")),
+              bound=ErrorBound(0.10)),
+            Q(t, AggOp.SUM, "Bitrate",
+              predicate=Predicate.where(Atom("URL", CmpOp.EQ, f"url{i:03d}")),
+              bound=ErrorBound(0.10)),
+            Q(t, AggOp.QUANTILE, "SessionTime", quantile=0.5, predicate=city,
+              bound=ErrorBound(0.10)),
+        ]
+    return out
+
+
+def answer_bits(ans) -> tuple:
+    return (ans.sample_phi, ans.sample_k, ans.rows_read, ans.bound_met,
+            ans.certified, ans.predicted_half_width,
+            [(g.key, g.estimate, g.stderr, g.ci_low, g.ci_high, g.n_selected,
+              g.exact) for g in ans.groups])
+
+
+def phase_batch(torch, np, main_db) -> dict:
+    """query_batch on a fresh engine (the main engine's families and
+    blocks, no cached decisions), then query() on that engine: every
+    answer bit-identical."""
+    from repro_torch.core import (AggOp, Atom, BlinkDB, CmpOp, EngineConfig,
+                                  ErrorBound, Predicate, Query)
+    from repro_torch.kernels import agg_scan
+    db = BlinkDB(EngineConfig(), device=main_db.device)
+    db.register_table("sessions", main_db.tables["sessions"])
+    db.families["sessions"] = dict(main_db.families["sessions"])
+    db._generations.update(main_db._generations)
+    db._striped.update(main_db._striped)
+    queries = batch_queries(Query, AggOp, Atom, CmpOp, Predicate, ErrorBound)
+    reset_launches(agg_scan)
+    db._sync()
+    t0 = time.perf_counter()
+    batched = db.query_batch(queries)
+    db._sync()
+    batch_s = time.perf_counter() - t0
+    batch_launches = launch_counts(agg_scan)
+    reset_launches(agg_scan)
+    t0 = time.perf_counter()
+    single = [db.query(q) for q in queries]
+    db._sync()
+    single_s = time.perf_counter() - t0
+    single_launches = launch_counts(agg_scan)
+    if db.device.type == "cuda" and min(batch_launches) == 0:
+        raise AssertionError(f"query_batch launched a kernel no time: "
+                             f"(fused, quantile) = {batch_launches}")
+    same = 0
+    for q, a, b in zip(queries, batched, single):
+        if not a.groups or not np.isfinite([g.estimate for g in a.groups]).all():
+            raise AssertionError(f"batched answer empty or non-finite: {q}")
+        if answer_bits(a) != answer_bits(b):
+            raise AssertionError(f"query_batch and query() differ: {q}\n"
+                                 f"{answer_bits(a)}\n{answer_bits(b)}")
+        same += 1
+    log(f"  query_batch: {len(queries)} queries in {1e3 * batch_s:.3f} ms, "
+        f"launches fused={batch_launches[0]} quantile={batch_launches[1]}")
+    log(f"  query() on the same engine: {1e3 * single_s:.3f} ms, launches "
+        f"fused={single_launches[0]} quantile={single_launches[1]}")
+    log(f"phase 3b ok: {same}/{len(queries)} answers bit-identical")
+    return {"launches": batch_launches, "single_launches": single_launches}
 
 
 # ----------------------------------------------------------------- phase 4
@@ -356,52 +615,40 @@ def time_cuda(torch, fn, warmup: int, reps: int) -> float:
 
 
 def scan_inputs(torch, db, q):
-    from repro_torch.core import executor as exec_lib
-    phi = db._select_phi("sessions", q)
-    striped = db._striped_for("sessions", phi)
-    bound = exec_lib.bind_predicate(q.predicate, db._encode("sessions"))
-    struct, vals = exec_lib.pred_structure(bound)
-    names, slots = exec_lib.dedup_atom_slots(exec_lib.flat_atoms(struct))
-    g = q.group_by[0] if q.group_by else None
-    cols = striped.columns
-    k = striped.ks[0]
-    args = (cols[q.value_column] if q.value_column else None,
-            striped.unit, striped.strat, striped.freq_table, striped.valid,
-            tuple(cols[c] for c in names), cols[g] if g else None,
-            torch.tensor([k], dtype=torch.float32, device="cuda"),
-            torch.tensor([exec_lib.flatten_pred_vals(vals)], dtype=torch.float32,
-                         device="cuda").reshape(1, len(slots)))
-    n_groups = db._column_card("sessions", g) if g else 1
-    return phi, striped, args, tuple(tuple(op for _, op in c) for c in struct), \
-        slots, n_groups
+    """Kernel inputs of q at its selected family's largest K (the whole
+    block): (phi, striped block, args, ops_struct, atom_slots, n_groups)."""
+    phi = db._select_phi(q.table, q)
+    args, struct, slots, g = kernel_args(torch, db, q, phi,
+                                         db.families[q.table][phi].ks[0])
+    return phi, db._striped_for(q.table, phi), args, struct, slots, g
 
 
-def bound_for(torch, args, ops_struct, n_groups, out) -> tuple[float, str]:
-    """Least time for one call: bytes (each input read once, the output
+def bound_for(args, ops_struct, mom, out_bytes) -> tuple[float, str]:
+    """Least time for one call: bytes (each input read once, each output
     written once) over 3.35 TB/s against float32 operations over 67
-    TFLOP/s, counting this run's selected rows."""
+    TFLOP/s, counting this run's selected rows. mom is [..., 7, G]."""
     (values, unit, strat, ftab, valid, acols, codes, ks, consts) = args
     n = unit.shape[0]
     streams = [t for t in (values, unit, strat, valid, codes, *acols)
                if t is not None]
     nbytes = sum(n * t.element_size() for t in streams) + \
-        4 * (ftab.numel() + ks.numel() + consts.numel() + out.numel())
+        4 * (ftab.numel() + ks.numel() + consts.numel()) + out_bytes
     n_atoms = sum(len(c) for c in ops_struct)
-    selected = float(out[:, 0, :].sum())
-    ops = n * (2 + n_atoms) + 20.0 * selected
+    selected = float(mom[..., 0, :].sum())
+    ops = n * (2 + n_atoms) * ks.numel() + 20.0 * selected
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_times(torch, db, card: str) -> list[dict]:
+def phase_times(torch, db, card: str) -> dict:
     from repro_torch.core import AggOp, Atom, CmpOp, Predicate, Query
     from repro_torch.kernels import agg_scan, ref
     t = "sessions"
-    shapes = [
+    genre = Predicate.where(Atom("Genre", CmpOp.EQ, "genre03"))
+    fused_shapes = [
         ("SUM(SessionTime) WHERE Genre=genre03 GROUP BY OS",
-         Query(t, AggOp.SUM, "SessionTime",
-               predicate=Predicate.where(Atom("Genre", CmpOp.EQ, "genre03")),
+         Query(t, AggOp.SUM, "SessionTime", predicate=genre,
                group_by=("OS",))),
         ("AVG(SessionTime) GROUP BY City",
          Query(t, AggOp.AVG, "SessionTime", group_by=("City",))),
@@ -411,24 +658,88 @@ def phase_times(torch, db, card: str) -> list[dict]:
             t, AggOp.COUNT,
             predicate=Predicate.where(Atom("dt", CmpOp.LT, 15)))),
     ]
-    rows = []
-    for label, q in shapes:
+    quantile_shapes = [
+        ("QUANTILE(SessionTime) GROUP BY OS",
+         Query(t, AggOp.QUANTILE, "SessionTime", quantile=0.9,
+               group_by=("OS",))),
+        ("QUANTILE(SessionTime)",
+         Query(t, AggOp.QUANTILE, "SessionTime", quantile=0.5)),
+        ("QUANTILE(SessionTime) WHERE Genre=genre03",
+         Query(t, AggOp.QUANTILE, "SessionTime", quantile=0.99,
+               predicate=genre)),
+        ("QUANTILE(Bitrate) GROUP BY City",
+         Query(t, AggOp.QUANTILE, "Bitrate", group_by=("City",))),
+        ("QUANTILE(Bitrate) GROUP BY URL",
+         Query(t, AggOp.QUANTILE, "Bitrate", quantile=0.9,
+               group_by=("URL",))),
+    ]
+    fused, quant = agg_scan.agg_scan_fused_cuda, agg_scan.quantile_scan_cuda
+    before = launch_counts(agg_scan)
+    rows = {"agg_scan_fused": [], "quantile_scan": []}
+    for label, q in fused_shapes:
         phi, striped, args, struct, slots, g = scan_inputs(torch, db, q)
-        before = agg_scan.agg_scan_fused_cuda.launches
-        out = agg_scan.agg_scan_fused_cuda(*args, struct, slots, g)
-        ms = time_cuda(torch, lambda: agg_scan.agg_scan_fused_cuda(
-            *args, struct, slots, g), warmup=3, reps=20)
+        out = fused(*args, struct, slots, g)
+        ms = time_cuda(torch, lambda: fused(*args, struct, slots, g),
+                       warmup=3, reps=20)
         plain_ms = time_cuda(torch, lambda: ref.agg_scan_fused_ref(
             *args, struct, slots, g), warmup=1, reps=5)
-        agg_scan.agg_scan_fused_cuda.launches = before   # not main-path work
-        bound_ms, bound_by = bound_for(torch, args, struct, g, out)
-        log(f"  {label}: family={phi} slots={striped.n_local} Q=1 G={g} "
-            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        bound_ms, bound_by = bound_for(args, struct, out, 4 * out.numel())
+        log(f"  agg_scan_fused {label}: family={phi} slots={striped.n_local} "
+            f"Q=1 G={g} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"bound_ms={bound_ms:.4f} ({bound_by}) "
             f"bound_share={bound_ms / ms:.3f} library_ms=None (no single "
             f"PyTorch call computes this function) card={card}")
-        rows.append({"label": label, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by})
+        rows["agg_scan_fused"].append(
+            {"label": label, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by})
+    for label, q in quantile_shapes:
+        phi, striped, args, struct, slots, g = scan_inputs(torch, db, q)
+        lo, hi = db._family_range("sessions", phi, q.value_column)
+        qargs = (*args[:-1], lo, hi, args[-1])
+        mom, hist = quant(*qargs, struct, slots, g)
+        ms = time_cuda(torch, lambda: quant(*qargs, struct, slots, g),
+                       warmup=3, reps=20)
+        plain_ms = time_cuda(torch, lambda: ref.quantile_scan_ref(
+            *qargs, struct, slots, g), warmup=1, reps=5)
+        # The histogram half alone as one library call: bincount of the
+        # flat (group, bin) index weighted by w (inputs made outside).
+        flat, w = ref.histogram_terms(*qargs, struct, slots)
+        lib_ms = time_cuda(torch, lambda: torch.bincount(
+            flat, weights=w, minlength=g * 256), warmup=2, reps=10)
+        bound_ms, bound_by = bound_for(args, struct, mom,
+                                       4 * (mom.numel() + hist.numel()))
+        log(f"  quantile_scan {label}: family={phi} slots={striped.n_local} "
+            f"G={g} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={bound_ms:.4f} ({bound_by}) "
+            f"bound_share={bound_ms / ms:.3f} library_ms=None (no single "
+            f"PyTorch call computes moments and a grouped histogram) "
+            f"hist_bincount_ms={lib_ms:.4f} card={card}")
+        rows["quantile_scan"].append(
+            {"label": label, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "hist_bincount_ms": lib_ms})
+    # Q = 32 in one launch against 32 launches at Q = 1 (one template, the
+    # City family's whole block, 32 constants).
+    phi, striped, args, struct, slots, g = scan_inputs(torch, db, Query(
+        t, AggOp.COUNT,
+        predicate=Predicate.where(Atom("City", CmpOp.EQ, "city000"))))
+    ks = args[-2].repeat(32)
+    consts = torch.arange(32, dtype=torch.float32, device=db.device)[:, None]
+    batch = (*args[:-2], ks, consts)
+    q32_ms = time_cuda(torch, lambda: fused(*batch, struct, slots, g),
+                       warmup=3, reps=20)
+    singles = [(*args[:-2], ks[i:i + 1], consts[i:i + 1]) for i in range(32)]
+
+    def thirty_two():
+        for a in singles:
+            fused(*a, struct, slots, g)
+    q1x32_ms = time_cuda(torch, thirty_two, warmup=1, reps=10)
+    log(f"  agg_scan_fused Q=32 one launch: {q32_ms:.4f} ms; 32 launches at "
+        f"Q=1: {q1x32_ms:.4f} ms (family={phi} slots={striped.n_local}, "
+        f"COUNT WHERE City=c) card={card}")
+    agg_scan.agg_scan_fused_cuda.launches, \
+        agg_scan.quantile_scan_cuda.launches = before   # not main-path work
+    rows["q32_ms"], rows["q1x32_ms"] = q32_ms, q1x32_ms
     return rows
 
 
@@ -451,36 +762,56 @@ def main() -> int:
         f"device {name} count {torch.cuda.device_count()}")
     log(card)
     t0 = time.perf_counter()
-    agg_scan.build()
-    built = agg_scan._Library.build_seconds
-    log(f"  built {agg_scan._Library.path.name} in "
-        f"{(built if built is not None else time.perf_counter() - t0):.2f}s")
-    for line in agg_scan._Library.build_log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    agg_scan.build_all()
+    log(f"  built {len(agg_scan.LIBRARIES)} libraries in parallel in "
+        f"{time.perf_counter() - t0:.2f}s")
+    for lib in agg_scan.LIBRARIES.values():
+        built = lib.build_seconds
+        log(f"  {lib.path.name}: nvcc "
+            f"{'%.2fs' % built if built is not None else 'earlier build'}")
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
 
-    log("phase 2: agg_scan_fused vs its plain version")
-    worst = phase_kernel_vs_plain(torch, np, "cuda")
+    log("phase 2: kernels vs their plain versions")
+    worst = {"agg_scan_fused": phase_kernel_vs_plain(torch, np, "cuda"),
+             "quantile_scan": phase_quantile_vs_plain(torch, np, "cuda")}
 
-    log("phase 3: main path")
-    record = {"max_abs_diff": 0.0, "tol_ratio": 0.0, "scans": []}
+    log("phase 3: main path, BlinkDB.query")
+    record = {"scans": [],
+              "agg_scan_fused": {"max_abs_diff": 0.0, "tol_ratio": 0.0},
+              "quantile_scan": {"max_abs_diff": 0.0, "tol_ratio": 0.0,
+                                "max_bin_gap": 0.0}}
     main = phase_main_path(torch, np, args.rows, record)
+
+    log("phase 3b: main path, BlinkDB.query_batch")
+    batch = phase_batch(torch, np, main["db"])
 
     log(f"phase 4: times at the main path's shapes ({card})")
     times = phase_times(torch, main["db"], card)
-    rep = times[0]
-    kernels = [{
-        "name": "agg_scan_fused", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/agg_scan_fused.cu",
-        "replaces": "src/repro/kernels/agg_scan.py:411",
-        "launches": main["launches"],
-        "max_abs_err": max(worst[0], record["max_abs_diff"]),
-        "max_abs_diff": max(worst[0], record["max_abs_diff"]),
-        "max_tol_ratio": max(worst[1], record["tol_ratio"]),
-        "ms": rep["ms"], "plain_ms": rep["plain_ms"],
-        "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-        "library_ms": None, "shape": rep["label"], "card": card,
-    }]
+    sources = {"agg_scan_fused": ("agg_scan_fused.cu", "agg_scan.py:411"),
+               "quantile_scan": ("quantile_scan.cu", "agg_scan.py:557")}
+    kernels = []
+    for i, (kname, (src, line)) in enumerate(sources.items()):
+        rep = times[kname][0]
+        err = max(worst[kname][0], record[kname]["max_abs_diff"])
+        entry = {
+            "name": kname, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/kernels/{line}",
+            "launches": main["launches"][i],
+            "batch_launches": batch["launches"][i],
+            "max_abs_err": err, "max_abs_diff": err,
+            "max_tol_ratio": max(worst[kname][1], record[kname]["tol_ratio"]),
+            "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+            "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+            "library_ms": None, "shape": rep["label"], "card": card,
+        }
+        if kname == "agg_scan_fused":
+            entry.update(q32_ms=times["q32_ms"], q1x32_ms=times["q1x32_ms"])
+        else:
+            entry["hist_bincount_ms"] = rep["hist_bincount_ms"]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -5,14 +5,15 @@
     db.add_family("sessions", ("City",)); db.add_family("sessions", ())
     ans = db.query(Query(..., bound=ErrorBound(0.1, 0.95)))
 
-This slice answers COUNT, SUM and AVG under ERROR WITHIN or WITHIN SECONDS
-on one device with closed-form CIs: runtime family selection (§4.1), the
-ELP choice of the resolution K (§4.2) with the a-priori ERROR WITHIN ladder
-(pilot, certify at the top resolution, escalation, exact fallback), the
-fused scan (executor → the CUDA kernel on the card), and HT estimation with
-Table-2 error bars (§4.3). QUANTILE, joins, subsampling CIs, the optimizer,
-batched queries, mutation and fault handling come with later slices and
-raise NotImplementedError here.
+The port answers COUNT, SUM, AVG and QUANTILE under ERROR WITHIN or WITHIN
+SECONDS on one device with closed-form CIs, one query at a time (`query`)
+or as a batch that shares its scans (`query_batch`): runtime family
+selection (§4.1), the ELP choice of the resolution K (§4.2) with the
+a-priori ERROR WITHIN ladder (pilot, certify at the top resolution,
+escalation, exact fallback), the fused scan and the one-pass quantile scan
+(executor → the CUDA kernels on the card), and HT estimation with Table-2
+error bars (§4.3). Joins, subsampling CIs, the optimizer, mutation and
+fault handling come with later slices and raise NotImplementedError here.
 """
 from __future__ import annotations
 
@@ -76,6 +77,28 @@ class ElpDecision:
     gen: int = 0
 
 
+# Largest Q per fused scan launch (the kernel's scratch grows with Q);
+# bigger groups run as back-to-back launches of at most this many queries.
+_MAX_SCAN_BATCH = 64
+
+
+@dataclasses.dataclass
+class _BatchJob:
+    """One conjunctive subquery's slot in a batched execution plan."""
+    parent: int                   # index of the originating query
+    order: int                    # disjunct order within the parent
+    q: Query
+    table: str
+    phi: tuple[str, ...]
+    consts: tuple[float, ...]     # predicate constants, flat_atoms order
+    elp_key: tuple
+    scan_key: tuple               # (table, phi, struct, value, group, G)
+    confidence: float
+    k: float | None = None        # resolved resolution cap
+    certified: bool | None = None  # a-priori contract provenance
+    predicted_half: float | None = None
+
+
 class BlinkDB:
     def __init__(self, config: EngineConfig | None = None, device=None):
         self.config = config or EngineConfig()
@@ -89,7 +112,10 @@ class BlinkDB:
         self.families: dict[str, dict[tuple[str, ...], samp_lib.SampleFamily]] = {}
         self._striped: dict[tuple[str, tuple[str, ...]], exec_lib.StripedFamily] = {}
         self._latency: dict[tuple[str, tuple[str, ...]], elp_lib.LatencyModel] = {}
-        self._programs: dict = {}     # (table, phi, template) -> scan fn
+        # (table, phi, template, value, group, G) -> scan program
+        self._batched_programs: dict = {}
+        self._quantile_programs: dict = {}
+        self._quantile_ranges: dict = {}     # (table, phi, column) -> range
         self._elp_cache: dict = {}    # elp key -> ElpDecision
         self._generations: dict[tuple[str, tuple[str, ...]], int] = {}
 
@@ -100,8 +126,9 @@ class BlinkDB:
     def _drop_derived(self, table_name: str, phi: tuple[str, ...] | None) -> None:
         """Forget everything calibrated against a (table, family), or the
         whole table when phi is None: striped blocks, scan programs, ELP
-        decisions and latency models."""
-        for cache in (self._striped, self._latency, self._programs,
+        decisions, latency models and quantile histogram ranges."""
+        for cache in (self._striped, self._latency, self._batched_programs,
+                      self._quantile_programs, self._quantile_ranges,
                       self._elp_cache):
             for k in [k for k in cache
                       if k[0] == table_name and (phi is None or k[1] == phi)]:
@@ -171,48 +198,40 @@ class BlinkDB:
         return self.tables[table_name].decode_value(col, code)
 
     def _check_supported(self, q: Query) -> None:
-        if q.agg is AggOp.QUANTILE:
-            raise NotImplementedError(
-                "QUANTILE queries come with the QUANTILE slice of the port "
-                "(make_quantile_fn and the quantile_scan kernel)")
         if q.joins:
             raise NotImplementedError(
                 "joins come with the joins slice of the port")
 
     def _run_at_k(self, table_name: str, q: Query, phi: tuple[str, ...],
                   k: float) -> tuple[est_lib.GroupedMoments, int, float]:
-        """One fused scan at resolution k. The device is synchronised before
-        the clock starts and before it stops, so the elapsed time is the
-        scan's, not its launch's (the WITHIN SECONDS latency model is fitted
-        on these times)."""
-        fam = self.families[table_name][phi]
-        striped = self._striped_for(table_name, phi)
+        """One fused scan at resolution k: the batched scan at Q = 1, timed
+        with the device synchronised (the WITHIN SECONDS latency model is
+        fitted on these times)."""
+        key, vals = self._scan_key(table_name, q, phi)
+        mom, dt = self._run_batched(key, [k], [exec_lib.flatten_pred_vals(vals)])
+        return (est_lib.moments_slice(mom, 0),
+                self.families[table_name][phi].prefix_for_k(k), dt)
+
+    def _scan_key(self, table_name: str, q: Query, phi: tuple[str, ...]
+                  ) -> tuple[tuple, tuple]:
+        """(program key (table, phi, struct, value, group, G), the query's
+        nested predicate constants)."""
         bound_pred = exec_lib.bind_predicate(q.predicate, self._encode(table_name))
         struct, vals = exec_lib.pred_structure(bound_pred)
         group_col = q.group_by[0] if q.group_by else None
         n_groups = self._column_card(table_name, group_col) if group_col else 1
-        key = (table_name, phi, struct, q.value_column, group_col, n_groups)
-        fn = self._programs.get(key)
-        if fn is None:
-            fn = exec_lib.make_query_fn(struct, q.value_column, group_col,
-                                        n_groups)
-            self._programs[key] = fn
-        self._sync()
-        t0 = time.perf_counter()
-        mom = fn(k, vals, *exec_lib.scan_args(striped))
-        self._sync()
-        dt = time.perf_counter() - t0
-        return mom, fam.prefix_for_k(k), dt
+        return (table_name, phi, struct, q.value_column, group_col,
+                n_groups), vals
 
     def _answer_from_moments(self, q: Query, table_name: str,
                              phi: tuple[str, ...], k: float,
                              mom: est_lib.GroupedMoments, rows_read: int,
                              elapsed: float, confidence: float,
-                             certified: bool | None = None,
+                             qpair=None, certified: bool | None = None,
                              predicted_half_width: float | None = None
                              ) -> Answer:
         tbl = self.tables[table_name]
-        est = self._estimate_for(q, mom)
+        est = self._estimate_for(q, table_name, phi, k, mom, qpair)
         stderr, lo, hi = est_lib.ci(est, confidence)
         group_col = q.group_by[0] if q.group_by else None
         vals = est.value.cpu().numpy()
@@ -246,25 +265,86 @@ class BlinkDB:
                       confidence, bound_met=bound_met, certified=certified,
                       predicted_half_width=predicted_half_width)
 
-    def _estimate_for(self, q: Query,
-                      mom: est_lib.GroupedMoments) -> est_lib.Estimate:
-        return est_lib.estimate(q.agg, mom)
+    def _family_range(self, table_name: str, phi: tuple[str, ...],
+                      value_col: str | None) -> tuple[float, float]:
+        """Host-cached [min, max] (float32) of a family's value column: the
+        fixed histogram range of the quantile scan. Dropped with the
+        family's other derived state."""
+        key = (table_name, phi, value_col)
+        rng = self._quantile_ranges.get(key)
+        if rng is None:
+            fam = self.families[table_name][phi]
+            if value_col is None:
+                rng = (0.0, 1.0)  # COUNT-style: values are all ones
+            else:
+                col = np.asarray(fam.host_column(value_col), np.float32)
+                rng = ((float(np.min(col)), float(np.max(col)))
+                       if col.size else (0.0, 1.0))
+            self._quantile_ranges[key] = rng
+        return rng
+
+    def _quantile_scan(self, q: Query, table_name: str, phi: tuple[str, ...],
+                       k: float) -> tuple[est_lib.GroupedMoments,
+                                          tuple[torch.Tensor, torch.Tensor]]:
+        """ONE quantile-scan launch producing the grouped moments and the
+        histogram quantile (value, density) over the family's range."""
+        striped = self._striped_for(table_name, phi)
+        key, vals = self._scan_key(table_name, q, phi)
+        fn = self._quantile_programs.get(key)
+        if fn is None:
+            fn = exec_lib.make_quantile_fn(*key[2:])
+            self._quantile_programs[key] = fn
+        lo, hi = self._family_range(table_name, phi, q.value_column)
+        mom, qv, dens = fn(k, vals, q.quantile, lo, hi,
+                           *exec_lib.scan_args(striped))
+        return mom, (qv, dens)
+
+    def _run_quantile_at_k(self, table_name: str, q: Query,
+                           phi: tuple[str, ...], k: float):
+        """QUANTILE analogue of _run_at_k, timed the same way (device
+        synchronised): → (mom, rows_read, dt, qpair)."""
+        fam = self.families[table_name][phi]
+        self._sync()
+        t0 = time.perf_counter()
+        mom, qpair = self._quantile_scan(q, table_name, phi, k)
+        self._sync()
+        dt = time.perf_counter() - t0
+        return mom, fam.prefix_for_k(k), dt, qpair
+
+    def _estimate_for(self, q: Query, table_name: str, phi: tuple[str, ...],
+                      k: float, mom: est_lib.GroupedMoments,
+                      qpair=None) -> est_lib.Estimate:
+        """Estimate from moments. QUANTILE also needs the histogram
+        quantile: `qpair` when the caller's scan produced it, else one
+        quantile scan at k supplies it (its moments are discarded)."""
+        if q.agg is not AggOp.QUANTILE:
+            return est_lib.estimate(q.agg, mom)
+        if qpair is None:
+            _, qpair = self._quantile_scan(q, table_name, phi, k)
+        return est_lib.estimate(AggOp.QUANTILE, mom, quantile_value=qpair[0],
+                                quantile_density=qpair[1], q=q.quantile)
 
     def _scan_for_query(self, table_name: str, q: Query,
                         phi: tuple[str, ...], k: float):
-        """One scan at k → (mom, rows_read, dt)."""
+        """One scan at k → (mom, rows_read, dt, qpair): a QUANTILE query
+        runs the one-pass quantile scan, every other aggregate the fused
+        scan (qpair None)."""
         self._check_supported(q)
-        return self._run_at_k(table_name, q, phi, k)
+        if q.agg is AggOp.QUANTILE:
+            return self._run_quantile_at_k(table_name, q, phi, k)
+        return self._run_at_k(table_name, q, phi, k) + (None,)
 
     def _scan_and_answer(self, q: Query, table_name: str,
                          phi: tuple[str, ...], k: float, confidence: float,
                          certified: bool | None = None,
                          predicted_half_width: float | None = None
                          ) -> Answer:
-        mom, rows_read, dt = self._scan_for_query(table_name, q, phi, k)
+        mom, rows_read, dt, qpair = self._scan_for_query(table_name, q,
+                                                         phi, k)
         return self._answer_from_moments(
             q, table_name, phi, k, mom, rows_read, dt, confidence,
-            certified=certified, predicted_half_width=predicted_half_width)
+            qpair=qpair, certified=certified,
+            predicted_half_width=predicted_half_width)
 
     # --------------------------- a-priori ERROR WITHIN contracts (§4.2)
     def _pilot_certify(self, table_name: str, q: Query,
@@ -276,8 +356,17 @@ class BlinkDB:
         projection."""
         fam = self.families[table_name][phi]
         k_probe = min(fam.ks)
-        mom, _, _ = self._scan_for_query(table_name, q, phi, k_probe)
-        est = self._estimate_for(q, mom)
+        mom, _, _, qpair = self._scan_for_query(table_name, q, phi, k_probe)
+        est = self._estimate_for(q, table_name, phi, k_probe, mom, qpair)
+        return self._certify_from_pilot(q, fam, k_probe, est, confidence)
+
+    def _certify_from_pilot(self, q: Query, fam: samp_lib.SampleFamily,
+                            k_probe: float, est: est_lib.Estimate,
+                            confidence: float
+                            ) -> tuple[float | None, float | None]:
+        """(K or None, predicted half-width) from a pilot scan at k_probe:
+        the smallest K projected to give each group the selected rows the
+        bound needs, the pilot variance inflated."""
         n_pilot = est.n.cpu().numpy().astype(np.float64)
         infl = est_lib.pilot_inflation(n_pilot, confidence)
         n_req = est_lib.required_n_for_error(
@@ -295,14 +384,28 @@ class BlinkDB:
         (inflated) CI of a scan there."""
         fam = self.families[table_name][phi]
         k_top = fam.ks[0]
-        mom, _, _ = self._scan_for_query(table_name, q, phi, k_top)
-        est = self._estimate_for(q, mom)
+        mom, _, _, qpair = self._scan_for_query(table_name, q, phi, k_top)
+        est = self._estimate_for(q, table_name, phi, k_top, mom, qpair)
         infl = est_lib.pilot_inflation(
             est.n.cpu().numpy().astype(np.float64), confidence)
         half = self._predicted_half(q, est, infl, k_top, k_top, confidence)
-        if half is not None and half <= q.bound.eps + 1e-12:
+        if half is not None and half <= q.bound.eps + 1e-12 and (
+                q.agg is not AggOp.QUANTILE
+                or est_lib.quantile_sample_suffices(mom, q.quantile)):
             return k_top, half
         return None, half
+
+    def _quantile_floor_met(self, table_name: str, q: Query,
+                            phi: tuple[str, ...], k: float) -> bool:
+        """For QUANTILE, whether a scan at the certified K gives every group
+        the effective sample its closed-form CI needs
+        (estimators.quantile_sample_suffices). The reference skips this
+        check and can certify a tail quantile from a handful of heavily
+        weighted rows; other aggregates always pass."""
+        if q.agg is not AggOp.QUANTILE:
+            return True
+        mom, _ = self._quantile_scan(q, table_name, phi, k)
+        return est_lib.quantile_sample_suffices(mom, q.quantile)
 
     def _predicted_half(self, q: Query, est: est_lib.Estimate, infl,
                         k_probe: float, k: float,
@@ -327,15 +430,18 @@ class BlinkDB:
         return float(np.max(half[seen]))
 
     def _plan_error_bound(self, table_name: str, q: Query,
-                          phi: tuple[str, ...],
-                          confidence: float) -> ElpDecision:
+                          phi: tuple[str, ...], confidence: float,
+                          first: tuple[float | None, float | None]
+                          | None = None) -> ElpDecision:
         """Resolve an ErrorBound query by walking the ladder:
           1. certify a K on the §4.1-selected family (pilot + inflation),
              refined by one scan at the top resolution;
           2. escalate: pilot strictly LARGER families, ascending by size;
           3. exact base-table fallback — bound met by construction;
           4. best-effort annotated certified=False, or BoundUnreachableError
-             for a strict bound (`... OR FAIL`)."""
+             for a strict bound (`... OR FAIL`).
+        `first` injects a pilot result for the selected family (the shared
+        pilot scan of query_batch)."""
         fams = self.families[table_name]
 
         def decide(p, k, certified, half, exact=False):
@@ -343,7 +449,11 @@ class BlinkDB:
                                predicted_half_width=half,
                                gen=self.family_generation(table_name, p))
 
-        k_q, half = self._pilot_certify(table_name, q, phi, confidence)
+        k_q, half = (self._pilot_certify(table_name, q, phi, confidence)
+                     if first is None else first)
+        if k_q is not None and not self._quantile_floor_met(table_name, q,
+                                                            phi, k_q):
+            k_q = None
         if k_q is None and half is not None:
             # Containment refinement: the top prefix may fully contain the
             # strata the predicate touches (rate 1 ⇒ zero variance).
@@ -358,7 +468,8 @@ class BlinkDB:
                               if p != phi and size(p) > size(phi)),
                              key=size):
                 k2, half2 = self._pilot_certify(table_name, q, p2, confidence)
-                if k2 is not None:
+                if k2 is not None and self._quantile_floor_met(
+                        table_name, q, p2, k2):
                     return decide(p2, k2, True, half2)
                 if half2 is not None and (best_half is None
                                           or half2 < best_half):
@@ -494,10 +605,189 @@ class BlinkDB:
         return elp_lib.pick_k_for_time(fam, model, q.bound.seconds,
                                        headroom_s=headroom_s)
 
+    # ------------------------------------------------- batched shared scans
+    def _plan_batch_job(self, parent: int, order: int, q: Query,
+                        sel_cache: dict) -> _BatchJob:
+        """Family selection for one conjunctive subquery. One selection per
+        distinct (table, selection columns, template, constants) serves
+        every query of the batch that maps to it."""
+        self._check_supported(q)
+        table_name = q.table
+        cat_cols = self._selection_cat_cols(table_name, q)
+        struct, vals = exec_lib.pred_structure(
+            exec_lib.bind_predicate(q.predicate, self._encode(table_name)))
+        consts = exec_lib.flatten_pred_vals(vals)
+        skey = (table_name, cat_cols, struct, consts)
+        phi = sel_cache.get(skey)
+        if phi is None:
+            phi = self._select_phi(table_name, q)
+            sel_cache[skey] = phi
+        scan_key, _ = self._scan_key(table_name, q, phi)
+        return _BatchJob(
+            parent=parent, order=order, q=q, table=table_name, phi=phi,
+            consts=consts,
+            elp_key=(table_name, phi, struct, q.agg, q.value_column,
+                     q.group_by, repr(q.bound)),
+            scan_key=scan_key,
+            confidence=q.bound.confidence if q.bound else 0.95)
+
+    def _run_batched(self, scan_key, ks: Sequence[float],
+                     consts_list: Sequence[tuple[float, ...]]
+                     ) -> tuple[est_lib.GroupedMoments, float]:
+        """One fused multi-query scan over a family block → (moments with
+        leaves [Q, G], seconds), the device synchronised around it. Batches
+        over _MAX_SCAN_BATCH run as back-to-back launches; each query's
+        moments have the bits of the same query scanned alone."""
+        n_q = len(ks)
+        if n_q > _MAX_SCAN_BATCH:
+            parts = [self._run_batched(scan_key, ks[i:i + _MAX_SCAN_BATCH],
+                                       consts_list[i:i + _MAX_SCAN_BATCH])
+                     for i in range(0, n_q, _MAX_SCAN_BATCH)]
+            mom = est_lib.GroupedMoments.from_stacked(
+                torch.cat([m.stacked() for m, _ in parts]))
+            return mom, sum(d for _, d in parts)
+        table_name, phi, struct = scan_key[:3]
+        striped = self._striped_for(table_name, phi)
+        fn = self._batched_programs.get(scan_key)
+        if fn is None:
+            fn = exec_lib.make_batched_query_fn(*scan_key[2:])
+            self._batched_programs[scan_key] = fn
+        n_atoms = len(exec_lib.flat_atoms(struct))
+        ks_t = torch.tensor(list(ks), dtype=torch.float32).to(self.device)
+        consts_t = torch.tensor([list(c) for c in consts_list],
+                                dtype=torch.float32
+                                ).reshape(n_q, n_atoms).to(self.device)
+        self._sync()
+        t0 = time.perf_counter()
+        mom = fn(ks_t, consts_t, *exec_lib.scan_args(striped))
+        self._sync()
+        return mom, time.perf_counter() - t0
+
+    def query_batch(self, queries: Sequence[Query],
+                    deadline_headroom_s: float = 0.0) -> list[Answer]:
+        """Execute N queries, sharing one fused scan per (table, family,
+        template) group. Disjunctive queries split into conjunctive
+        subqueries that join the batch individually; family selection and
+        the ELP pilot scans are shared across the batch; the final pass is
+        one multi-query scan per group, whose per-query slices unpack into
+        ordinary Answers. A QUANTILE job takes its moments from the shared
+        scan and its quantile from one quantile scan at its K.
+
+        Answers equal query()'s on the same engine bit for bit: a query's
+        scan sums in the same order alone as in a batch, and later query()
+        calls replay the decisions the batch cached.
+
+        `deadline_headroom_s` (an admission scheduler's batching window)
+        tightens every TimeBound query's scan budget by that amount.
+        ErrorBound jobs the shared pilot cannot certify escalate, fall back
+        to an exact scan or annotate bound_met=False out of band, as in
+        query(); a strict bound raises BoundUnreachableError."""
+        queries = list(queries)
+        if not queries:
+            return []
+        sel_cache: dict = {}
+        jobs: list[_BatchJob] = []
+        n_subs = [0] * len(queries)
+        for pi, q in enumerate(queries):
+            for sq in rewrite_disjuncts(q):
+                jobs.append(self._plan_batch_job(pi, n_subs[pi], sq,
+                                                 sel_cache))
+                n_subs[pi] += 1
+
+        # Decisions that cannot join the shared scan (exact fallback, or
+        # escalation onto another family) run out of band.
+        oob: dict[int, ElpDecision] = {}
+
+        def apply_decision(job: _BatchJob, dec: ElpDecision) -> None:
+            if dec.exact or dec.phi != job.phi:
+                oob[id(job)] = dec
+                return
+            job.k = dec.k
+            job.certified = dec.certified
+            job.predicted_half = dec.predicted_half_width
+
+        # ELP resolution (§4.2/§4.4): cached templates replay their
+        # decision; uncached ErrorBound jobs share one pilot scan per group;
+        # TimeBound jobs need timed probes (one model fit per family).
+        probe_groups: dict[tuple, list[_BatchJob]] = {}
+        for job in jobs:
+            fam = self.families[job.table][job.phi]
+            if isinstance(job.q.bound, TimeBound):
+                job.k = self._pick_k_for_time(job.table, job.q, job.phi,
+                                              headroom_s=deadline_headroom_s)
+                continue
+            dec = (self._cached_decision(job.elp_key, job.table)
+                   if self.config.reuse_elp else None)
+            if dec is not None:
+                apply_decision(job, dec)
+            elif isinstance(job.q.bound, ErrorBound):
+                probe_groups.setdefault(job.scan_key, []).append(job)
+            else:   # no bound: most accurate available sample
+                dec = ElpDecision(
+                    job.phi, fam.ks[0], None,
+                    gen=self.family_generation(job.table, job.phi))
+                self._elp_cache[job.elp_key] = dec
+                apply_decision(job, dec)
+
+        for scan_key, group in probe_groups.items():
+            fam = self.families[group[0].table][group[0].phi]
+            k_probe = min(fam.ks)
+            mom, _ = self._run_batched(scan_key, [k_probe] * len(group),
+                                       [j.consts for j in group])
+            for i, job in enumerate(group):
+                # Later jobs of one elp_key replay the first one's decision,
+                # as sequential query() calls would.
+                dec = (self._cached_decision(job.elp_key, job.table)
+                       if self.config.reuse_elp else None)
+                if dec is None:
+                    mi = est_lib.moments_slice(mom, i)
+                    est = self._estimate_for(job.q, job.table, job.phi,
+                                             k_probe, mi)
+                    first = self._certify_from_pilot(job.q, fam, k_probe, est,
+                                                     job.confidence)
+                    dec = self._plan_error_bound(job.table, job.q, job.phi,
+                                                 job.confidence, first=first)
+                    self._elp_cache[job.elp_key] = dec
+                apply_decision(job, dec)
+
+        # Final scan: one multi-query launch per (table, family, template).
+        final_groups: dict[tuple, list[_BatchJob]] = {}
+        for job in jobs:
+            if id(job) not in oob:
+                final_groups.setdefault(job.scan_key, []).append(job)
+        sub_answers: list[list[tuple[int, Answer]]] = [[] for _ in queries]
+        for scan_key, group in final_groups.items():
+            mom, dt = self._run_batched(scan_key, [j.k for j in group],
+                                        [j.consts for j in group])
+            for i, job in enumerate(group):
+                fam = self.families[job.table][job.phi]
+                ans = self._answer_from_moments(
+                    job.q, job.table, job.phi, job.k,
+                    est_lib.moments_slice(mom, i), fam.prefix_for_k(job.k),
+                    dt / len(group), job.confidence,
+                    certified=job.certified,
+                    predicted_half_width=job.predicted_half)
+                sub_answers[job.parent].append((job.order, ans))
+
+        for job in jobs:
+            dec = oob.get(id(job))
+            if dec is not None:
+                ans = self._execute_decision(job.q, job.table, dec,
+                                             job.confidence)
+                sub_answers[job.parent].append((job.order, ans))
+
+        out = []
+        for pi, subs in enumerate(sub_answers):
+            subs = [a for _, a in sorted(subs, key=lambda t: t[0])]
+            out.append(subs[0] if len(subs) == 1
+                       else _union_answers(queries[pi], subs))
+        return out
+
     def exact_query(self, q: Query) -> Answer:
         """Ground truth: the aggregation over the FULL base table (rate=1) on
         the engine's device. A plain segment sum (no sample kernel), summed
-        in float64 so counts past 2^24 rows stay exact."""
+        in float64 so counts past 2^24 rows stay exact; QUANTILE bins the
+        selected rows over their own range (executor.grouped_quantile)."""
         self._check_supported(q)
         tbl = self.tables[q.table]
         bound_pred = exec_lib.bind_predicate(q.predicate, self._encode(q.table))
@@ -515,7 +805,16 @@ class BlinkDB:
              else torch.zeros(tbl.n_rows, dtype=torch.int32, device=self.device))
         mom = est_lib.grouped_moments(values, ones, mask, g, n_groups,
                                       accumulate=torch.float64)
-        est = est_lib.estimate(q.agg, mom)
+        if q.agg is AggOp.QUANTILE:
+            # Histogram counts summed in float64 and rounded to float32:
+            # the reference's float32 counts wherever no bin passes 2^24.
+            qv, dens = exec_lib.grouped_quantile(
+                values, mask.to(torch.float32), g, n_groups, q.quantile,
+                accumulate=torch.float64)
+            est = est_lib.estimate(AggOp.QUANTILE, mom, quantile_value=qv,
+                                   quantile_density=dens, q=q.quantile)
+        else:
+            est = est_lib.estimate(q.agg, mom)
         vals_h = est.value.cpu().numpy()
         ns = est.n.cpu().numpy()
         dt = time.perf_counter() - t0

@@ -195,6 +195,26 @@ def effective_sample_size(mom: GroupedMoments) -> torch.Tensor:
                        torch.zeros_like(w2sum))
 
 
+# Effective rows a QUANTILE estimate needs on its thin side (below q, or
+# above it) before Table 2's normal approximation holds.
+QUANTILE_MIN_TAIL_ROWS = 10.0
+
+
+def quantile_sample_suffices(mom: GroupedMoments, q: float) -> bool:
+    """Whether every group's sample can carry a closed-form CI for its
+    q-quantile: n_eff · min(q, 1 - q) ≥ 10 (n_eff the Kish effective sample
+    size: at least ten effective rows on the quantile's thin side, the
+    usual condition for the normal approximation to a binomial count), or
+    the sample holds the group whole (every rate 1, so its histogram is the
+    population's). Below that floor a tail quantile is read off a handful
+    of heavily weighted rows and its CI can be many times too narrow. The
+    reference certifies without this floor."""
+    n_eff = effective_sample_size(mom)
+    whole = (mom.wsum - mom.n).abs() <= 1e-6 * torch.clamp_min(mom.wsum, 1.0)
+    tail = n_eff * min(q, 1.0 - q) >= QUANTILE_MIN_TAIL_ROWS
+    return bool((whole | tail).all())
+
+
 def pilot_inflation(n_pilot, confidence: float):
     """Finite-sample variance inflation for a-priori certification: the
     (confidence)-upper limit of the true variance from a pilot of n rows,
@@ -215,8 +235,13 @@ class Estimate:
     n: torch.Tensor         # f32[G] selected sample rows
 
 
-def estimate(agg: AggOp, mom: GroupedMoments) -> Estimate:
-    """Point estimate + variance per group for COUNT, SUM or AVG."""
+def estimate(agg: AggOp, mom: GroupedMoments, *,
+             quantile_value: torch.Tensor | None = None,
+             quantile_density: torch.Tensor | None = None,
+             q: float = 0.5) -> Estimate:
+    """Point estimate + variance per group for a Table-2 aggregate. QUANTILE
+    takes the histogram quantile and its density per group
+    (executor.hist_to_quantile)."""
     eps = 1e-12
     if agg is AggOp.COUNT:
         # HT count: Σ 1/r_i ; Var = Σ (1-r)/r².
@@ -231,8 +256,18 @@ def estimate(agg: AggOp, mom: GroupedMoments) -> Estimate:
         var = (mom.var_sum2 - 2.0 * a * mom.var_sum + a * a * mom.var_count) / (c * c)
         return Estimate(a, torch.clamp_min(var, 0.0), mom.n)
     if agg is AggOp.QUANTILE:
-        raise NotImplementedError(
-            "QUANTILE estimates come with the QUANTILE slice of the port")
+        # Table 2: Var = p(1-p) / (n f(x_p)²), f the histogram density at
+        # the quantile and n the Kish effective sample size (Σw)²/Σw².
+        if quantile_value is None or quantile_density is None:
+            raise ValueError("QUANTILE needs quantile_value and "
+                             "quantile_density")
+        n = torch.clamp_min(effective_sample_size(mom), 1.0)
+        f = torch.clamp_min(quantile_density, eps)
+        # p(1-p) is a host double rounded to float32 once, as the reference
+        # does (a Python scalar divided by a tensor would multiply by the
+        # tensor's reciprocal instead).
+        pq = torch.full_like(n, q * (1.0 - q))
+        return Estimate(quantile_value, pq / (n * (f * f)), mom.n)
     raise ValueError(f"unsupported aggregate {agg}")
 
 

@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.core import estimators as est_lib
 from repro_torch.core.sampling import SampleFamily
-from repro_torch.core.types import CmpOp, Predicate, cmp_fns
+from repro_torch.core.types import QUANTILE_BINS, CmpOp, Predicate, cmp_fns
 from repro_torch.kernels import agg_scan as kernel_lib
 from repro_torch.kernels import ops as kops
 
@@ -209,34 +209,186 @@ def dedup_atom_slots(atoms) -> tuple[tuple[str, ...], tuple[int, ...]]:
     return tuple(names), tuple(slots)
 
 
+def _kernel_template(struct):
+    """(ops_struct, atom column names, atom slots) of a template the scan
+    kernels take; a template with more atoms than their descriptor holds
+    is refused on either device."""
+    atoms = flat_atoms(struct)
+    if len(atoms) > kernel_lib.MAX_ATOMS:
+        raise NotImplementedError(
+            f"template has {len(atoms)} predicate atoms; the scan kernels "
+            f"hold at most {kernel_lib.MAX_ATOMS}")
+    ops_struct = tuple(tuple(op for _, op in conj) for conj in struct)
+    return (ops_struct, *dedup_atom_slots(atoms))
+
+
+def make_batched_query_fn(struct, value_col: str | None,
+                          group_col: str | None, n_groups: int):
+    """The fused multi-query program of one (family × template): returns
+    fn(ks, pred_consts, cols, unit, strat, freq_table, valid) ->
+    GroupedMoments with leaves [Q, G]; ks is f32[Q] (per-query resolution
+    caps), pred_consts f32[Q, A] (per-query constants in flat_atoms order),
+    Q at most 64. One launch of the fused kernel (kernels/ops.py: the CUDA
+    kernel on the card, its plain version on the CPU); query q of it has
+    the bits of the same query launched alone."""
+    ops_struct, acol_names, atom_slots = _kernel_template(struct)
+
+    def fn(ks, pred_consts, cols, unit, strat, freq_table, valid):
+        return kops.agg_scan_fused(
+            cols[value_col] if value_col is not None else None,
+            unit, strat, freq_table, valid,
+            tuple(cols[c] for c in acol_names),
+            cols[group_col] if group_col is not None else None,
+            ks, pred_consts, ops_struct, atom_slots, n_groups)
+
+    return fn
+
+
+def _query_consts(k: float, pred_vals, device) -> tuple[torch.Tensor,
+                                                        torch.Tensor]:
+    """One query's (ks f32[1], pred_consts f32[1, A]) on `device`."""
+    flat = flatten_pred_vals(pred_vals)
+    consts = torch.tensor([flat], dtype=torch.float32).reshape(1, len(flat))
+    ks = torch.tensor([k], dtype=torch.float32)
+    return ks.to(device), consts.to(device)
+
+
 def make_query_fn(struct, value_col: str | None, group_col: str | None,
                   n_groups: int):
     """The fused query program of one (family × template): returns
     fn(k, pred_vals, cols, unit, strat, freq_table, valid) -> GroupedMoments
     over the primitive layout. k and the predicate constants are arguments,
-    so every instantiation of the template reuses it. The scan is the fused
-    kernel as a Q=1 batch (kernels/ops.py: the CUDA kernel on the card, its
-    plain version on the CPU). A template with more atoms than the kernel's
+    so every instantiation of the template reuses it. The scan is the
+    batched program at Q = 1. A template with more atoms than the kernel's
     descriptor holds is refused on either device."""
-    atoms = flat_atoms(struct)
-    if len(atoms) > kernel_lib.MAX_ATOMS:
-        raise NotImplementedError(
-            f"template has {len(atoms)} predicate atoms; the fused scan "
-            f"kernel holds at most {kernel_lib.MAX_ATOMS}")
-    ops_struct = tuple(tuple(op for _, op in conj) for conj in struct)
-    acol_names, atom_slots = dedup_atom_slots(atoms)
+    batched = make_batched_query_fn(struct, value_col, group_col, n_groups)
 
     def fn(k, pred_vals, cols, unit, strat, freq_table, valid):
-        consts = torch.tensor([flatten_pred_vals(pred_vals)],
-                              dtype=torch.float32).reshape(1, len(atoms))
-        ks = torch.tensor([k], dtype=torch.float32)
-        mom = kops.agg_scan_fused(
+        ks, consts = _query_consts(k, pred_vals, unit.device)
+        mom = batched(ks, consts, cols, unit, strat, freq_table, valid)
+        return est_lib.moments_slice(mom, 0)
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# Grouped weighted quantiles (histogram method, Table 2 variance)
+# ---------------------------------------------------------------------------
+
+def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a·b + c rounded once to float32, as a fused multiply-add (the float32
+    product is exact in float64)."""
+    return (a.double() * b.double() + c.double()).to(torch.float32)
+
+
+def _cumsum_bins(hist: torch.Tensor) -> torch.Tensor:
+    """Cumulative sum over 256 bins in the reference's order (XLA's CPU
+    cumsum, bit for bit): 16 sequential adds inside each block of 16 bins,
+    then each block's running total of the earlier blocks added on."""
+    g = hist.shape[0]
+    blocks = hist.reshape(g, 16, 16)
+    inner = torch.empty_like(blocks)
+    acc = torch.zeros_like(blocks[:, :, 0])
+    for j in range(16):
+        acc = acc + blocks[:, :, j]
+        inner[:, :, j] = acc
+    before = torch.empty_like(acc)
+    run = torch.zeros_like(acc[:, 0])
+    for b in range(16):
+        before[:, b] = run
+        run = run + inner[:, b, 15]
+    return (inner + before[:, :, None]).reshape(g, 256)
+
+
+def hist_to_quantile(hist: torch.Tensor, lo, hi, q
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(quantile_value[G], density[G]) from per-group histograms f32[G, 256]
+    over the fixed range [lo, hi]: the first bin whose CDF reaches q,
+    interpolated linearly inside it. Groups with zero selected mass give
+    (0, 0). Rounds as the reference's compiled program does: its cumsum
+    order, and the two interpolations `lo + idx·bin_w` and
+    `left_edge + frac·bin_w` as fused multiply-adds."""
+    if hist.dim() != 2 or hist.shape[1] != QUANTILE_BINS:
+        raise ValueError(f"hist has shape {tuple(hist.shape)}; need "
+                         f"[G, {QUANTILE_BINS}]")
+    f32, dev = torch.float32, hist.device
+    n_bins = hist.shape[1]
+    lo = torch.as_tensor(lo, dtype=f32, device=dev)
+    span = torch.clamp_min(torch.as_tensor(hi, dtype=f32, device=dev) - lo,
+                           1e-12)
+    q = torch.as_tensor(q, dtype=f32, device=dev)
+    cum = _cumsum_bins(hist)
+    mass = cum[:, -1]
+    total = torch.clamp_min(cum[:, -1:], 1e-12)
+    cdf = cum / total
+    idx = torch.argmax((cdf >= q).to(torch.int32), dim=1)
+    bin_w = span / n_bins
+    left_edge = _fma_f32(idx.to(f32), bin_w, lo)
+    at = cdf.gather(1, idx[:, None])[:, 0]
+    prev = torch.where(idx > 0,
+                       cdf.gather(1, torch.clamp_min(idx - 1, 0)[:, None])[:, 0],
+                       torch.zeros_like(at))
+    bin_mass = at - prev
+    frac = torch.where(bin_mass > 1e-12,
+                       (q - prev) / torch.clamp_min(bin_mass, 1e-12),
+                       torch.full_like(at, 0.5))
+    qval = _fma_f32(frac, bin_w, left_edge)
+    density = hist.gather(1, idx[:, None])[:, 0] / (total[:, 0] * bin_w)
+    empty = mass <= 0.0
+    zero = torch.zeros_like(qval)
+    return torch.where(empty, zero, qval), torch.where(empty, zero, density)
+
+
+def grouped_quantile(values: torch.Tensor, weights: torch.Tensor,
+                     gcodes: torch.Tensor, n_groups: int, q: float,
+                     accumulate: torch.dtype = torch.float32
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Weighted per-group quantile over the range of the rows with
+    positive weight (the data's range), via a 256-bin histogram:
+    (quantile_value[G], density_at_quantile[G]). `accumulate=torch.float64`
+    sums the histogram in double and rounds it to float32 (the exact
+    base-table scan, whose bins may pass 2^24 rows)."""
+    f32 = torch.float32
+    n_bins = QUANTILE_BINS
+    v = values.to(f32)
+    sel = weights > 0
+    inf = torch.tensor(float("inf"), dtype=f32, device=v.device)
+    lo = torch.where(sel, v, inf).min() if v.numel() else inf
+    hi = torch.where(sel, v, -inf).max() if v.numel() else -inf
+    # Empty selection: force a finite range; every group then reports (0, 0).
+    lo = torch.where(torch.isfinite(lo), lo, torch.zeros_like(lo))
+    hi = torch.where(torch.isfinite(hi), hi, torch.zeros_like(hi))
+    span = torch.clamp_min(hi - lo, 1e-12)
+    # Clipped before the cast: equal to the reference's cast-then-clip on
+    # every row with positive weight, and defined on the others.
+    bins = torch.clamp((v - lo) / span * n_bins, 0.0, n_bins - 1).to(torch.int64)
+    flat = gcodes.to(torch.int64) * n_bins + bins
+    hist = torch.zeros(n_groups * n_bins, dtype=accumulate, device=v.device)
+    hist.index_add_(0, flat, weights.to(accumulate))
+    return hist_to_quantile(hist.to(f32).reshape(n_groups, n_bins), lo, hi, q)
+
+
+def make_quantile_fn(struct, value_col: str | None, group_col: str | None,
+                     n_groups: int):
+    """The one-pass QUANTILE program of one (family × template): returns
+    fn(k, pred_vals, level, lo, hi, cols, unit, strat, freq_table, valid)
+    -> (GroupedMoments, quantile_value[G], density[G]). One quantile-scan
+    launch gives the grouped moments and the HT-weighted histogram over the
+    family-global range [lo, hi] (the engine's `_family_range`); the
+    quantile is read off that histogram. This is the reference's kernel
+    path (`use_pallas=True`) on either device; its jnp path bins over the
+    data's range instead."""
+    ops_struct, acol_names, atom_slots = _kernel_template(struct)
+
+    def fn(k, pred_vals, level, lo, hi, cols, unit, strat, freq_table, valid):
+        ks, consts = _query_consts(k, pred_vals, unit.device)
+        mom, hist = kops.quantile_scan(
             cols[value_col] if value_col is not None else None,
             unit, strat, freq_table, valid,
             tuple(cols[c] for c in acol_names),
             cols[group_col] if group_col is not None else None,
-            ks.to(unit.device), consts.to(unit.device),
-            ops_struct, atom_slots, n_groups)
-        return est_lib.moments_slice(mom, 0)
+            ks, lo, hi, consts, ops_struct, atom_slots, n_groups)
+        qval, dens = hist_to_quantile(hist, lo, hi, level)
+        return mom, qval, dens
 
     return fn

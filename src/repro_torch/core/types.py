@@ -61,6 +61,9 @@ class CmpOp(enum.Enum):
 CMP_CODES = {CmpOp.EQ: 0, CmpOp.NE: 1, CmpOp.LT: 2, CmpOp.LE: 3,
              CmpOp.GT: 4, CmpOp.GE: 5}
 
+# Bins of a QUANTILE histogram (one thread per bin in kernels/csrc).
+QUANTILE_BINS = 256
+
 
 def cmp_fns():
     """Canonical CmpOp -> torch comparator table, shared by the executor and

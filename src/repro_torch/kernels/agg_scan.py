@@ -1,17 +1,20 @@
-"""Fused memory-lean scan kernel for Hopper: build, bind and launch
-(counterpart of `repro.kernels.agg_scan.agg_scan_fused_pallas`).
+"""Sample-scan kernels for Hopper: build, bind and launch (counterparts of
+`repro.kernels.agg_scan.agg_scan_fused_pallas` and `quantile_scan_pallas`).
 
-The kernel is CUDA C++ in csrc/agg_scan_fused.cu with a plain C interface.
-`nvcc` compiles it for sm_90a into build/kernels/ at its first use (never at
-import: the CPU tests import this module), and ctypes loads the library.
-`agg_scan_fused_cuda` checks its arguments, allocates the output and the
-per-chunk scratch with torch.empty, launches both passes on the current
-stream and raises if the launch failed. Its `launches` attribute counts the
-launches; nothing else touches it.
+The kernels are CUDA C++ in csrc/ with a plain C interface, one library per
+source: agg_scan_fused.cu and quantile_scan.cu, which share
+csrc/scan_common.cuh. `nvcc` compiles each for sm_90a into build/kernels/
+at its first use (never at import: the CPU tests import this module), and
+ctypes loads it. `build_all()` starts one nvcc per source at once. Each
+wrapper (`agg_scan_fused_cuda`, `quantile_scan_cuda`) checks its
+arguments, allocates outputs and per-chunk scratch with torch.empty,
+launches on the current stream and raises if the launch failed. Its
+`launches` attribute counts the launches; nothing else touches it.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -22,34 +25,66 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.core.types import CMP_CODES
+from repro_torch.core.types import CMP_CODES, QUANTILE_BINS
 
-CSRC = Path(__file__).resolve().parent / "csrc" / "agg_scan_fused.cu"
+CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+HEADER = CSRC_DIR / "scan_common.cuh"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-MAX_ATOMS = 127          # template atoms the kernel's descriptor holds
+MAX_ATOMS = 127          # template atoms the kernels' descriptor holds
 MAX_CONJUNCTIONS = 128
 MAX_STRATA = 4096        # frequency table held in shared memory
-MAX_QUERIES = 64         # one 64-bit prefix mask per row and query tile
-_THREADS = 256           # pass-1 block size (csrc kThreads)
+MAX_QUERIES = 64         # queries per launch (the scratch grows with Q)
+_THREADS = 256           # block size (csrc kThreads)
 _STAGE = 256             # rows staged per step (csrc kStage)
 _BLOCKS_PER_SM = 8       # pass-1 blocks resident per SM (one wave)
-_SCRATCH_BYTES = 64 << 20
+_SCRATCH_BYTES = 64 << 20   # per query and launch
 
-# Column dtype tags of the kernel (csrc enum).
+# Column dtype tags of the kernels (csrc enum).
 _VALUE_TAGS = {torch.float32: 0, torch.int8: 1, torch.int16: 2,
                torch.int32: 3, torch.uint8: 4, torch.bool: 4}
 _INT_TAGS = {torch.int8: 1, torch.int16: 2, torch.int32: 3, torch.uint8: 4}
 
 
-class _Library:
-    """The compiled kernel library, built and loaded at first use."""
+@dataclasses.dataclass
+class Library:
+    """One compiled kernel library, built and loaded at first use."""
+    source: Path
+    symbol: str
+    argtypes: list
     handle: ctypes.CDLL | None = None
     path: Path | None = None
     build_seconds: float | None = None   # None: loaded an earlier build
     build_log: str = ""
+
+
+_P, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                        ctypes.c_float)
+# Pointers as c_void_p, so ctypes never truncates them.
+_SCAN_ARGS = [
+    _P, _I32, _P,                  # values, values_tag, unit
+    _P, _I32, _P, _I32,            # strat, strat_tag, ftab, n_strata
+    _P, _P, _I32,                  # valid, codes, codes_tag
+    _P, _P, _I32,                  # col_ptrs, col_tags, n_cols (host)
+    _P, _P, _I32,                  # atom_slot, atom_op, n_atoms (host)
+    _P, _I32,                      # conj_end, n_conj (host)
+]
+LIBRARIES = {
+    "agg_scan_fused": Library(
+        CSRC_DIR / "agg_scan_fused.cu", "agg_scan_fused_launch",
+        _SCAN_ARGS + [_P, _P, _I32, _I32, _I64,   # ks, consts, Q, G, n
+                      _I64, _I32, _I32,           # rows_per_chunk, n_chunks, gt
+                      _P, _P, _P]),               # partial, out, stream
+    "quantile_scan": Library(
+        CSRC_DIR / "quantile_scan.cu", "quantile_scan_launch",
+        _SCAN_ARGS + [_P, _P, _I32, _I64,         # k, consts, G, n
+                      _I64, _I32, _I32,           # rows_per_chunk, n_chunks, gt
+                      _P, _P,                     # partial, out
+                      _F32, _F32, _I64, _I32,     # lo, hi, hist rows, chunks
+                      _P, _P, _P]),               # hist partial, hist out, stream
+}
 
 
 def _nvcc() -> str:
@@ -63,74 +98,101 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def build() -> ctypes.CDLL:
-    """Compile csrc/agg_scan_fused.cu (once per source version) and load it.
-    The library name carries a hash of the source and flags, so an edited
-    source never loads a stale build; the build writes to a temporary file
-    and renames it, so concurrent builders cannot load a half-written one."""
-    if _Library.handle is not None:
-        return _Library.handle
-    src = CSRC.read_bytes()
+def _library_path(lib: Library) -> Path:
+    """The build's file name carries a hash of the sources and flags, so an
+    edited source never loads a stale build."""
+    src = lib.source.read_bytes() + HEADER.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    path = BUILD_DIR / f"libagg_scan_fused_{tag}.so"
-    if not path.exists():
-        t0 = time.perf_counter()
+    return BUILD_DIR / f"lib{lib.source.stem}_{tag}.so"
+
+
+def _load(lib: Library, path: Path) -> ctypes.CDLL:
+    handle = ctypes.CDLL(str(path))
+    fn = getattr(handle, lib.symbol)
+    fn.argtypes = lib.argtypes
+    fn.restype = ctypes.c_int
+    lib.handle, lib.path = handle, path
+    return handle
+
+
+def build_all(names=None) -> dict[str, ctypes.CDLL]:
+    """Compile the named libraries (default: all) that are not built yet,
+    one nvcc per source, all started together, and load them. Each build
+    writes to a temporary file and renames it, so concurrent builders
+    cannot load a half-written library."""
+    names = list(LIBRARIES) if names is None else list(names)
+    pending = []
+    for name in names:
+        lib = LIBRARIES[name]
+        if lib.handle is not None:
+            continue
+        path = _library_path(lib)
+        if path.exists():
+            _load(lib, path)
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(lib.source)]
+        pending.append((lib, path, tmp, time.perf_counter(),
+                        subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT,
+                                         text=True)))
+    failed = []
+    for lib, path, tmp, t0, proc in pending:
+        log, _ = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
+            failed.append(f"nvcc {lib.source.name} failed "
+                          f"({proc.returncode}):\n{log}")
+            continue
         os.replace(tmp, path)
-        _Library.build_seconds = time.perf_counter() - t0
-        _Library.build_log = proc.stdout + proc.stderr
-    lib = bind(ctypes.CDLL(str(path)))
-    _Library.handle, _Library.path = lib, path
-    return lib
+        lib.build_seconds = time.perf_counter() - t0
+        lib.build_log = log
+        _load(lib, path)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: LIBRARIES[name].handle for name in names}
 
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C signature of agg_scan_fused_launch on a loaded
-    library (pointers as c_void_p, so ctypes never truncates them)."""
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.agg_scan_fused_launch.argtypes = [
-        ptr, i32, ptr,                 # values, values_tag, unit
-        ptr, i32, ptr, i32,            # strat, strat_tag, ftab, n_strata
-        ptr, ptr, i32,                 # valid, codes, codes_tag
-        ptr, ptr, i32,                 # col_ptrs, col_tags, n_cols (host)
-        ptr, ptr, i32,                 # atom_slot, atom_op, n_atoms (host)
-        ptr, i32,                      # conj_end, n_conj (host)
-        ptr, ptr, i32, i32, i64,       # ks, consts, Q, G, n
-        i64, i32, i32, i32,            # rows_per_chunk, n_chunks, qt, gt
-        ptr, ptr, ptr,                 # partial, out, stream
-    ]
-    lib.agg_scan_fused_launch.restype = ctypes.c_int
-    return lib
+def build(name: str) -> ctypes.CDLL:
+    """The named library, built and loaded at its first use."""
+    return build_all([name])[name]
 
 
 def _pow2_ceil(x: int) -> int:
     return 1 << max(0, (x - 1).bit_length())
 
 
-def launch_plan(n: int, q: int, g: int,
-                n_sms: int) -> tuple[int, int, int, int]:
-    """(rows_per_chunk, n_chunks, query tile, group tile) for one launch on
-    a card with `n_sms` multiprocessors. Tiles split the 256 threads of a
-    block over (query, group, lane); chunks are sized to about one wave of
-    blocks, fewer when the per-chunk scratch [Q, 7, G] would pass 64 MiB.
-    The chunking fixes the order of the float sums, so repeat launches on
-    one card are bit-identical; cards with other SM counts sum in another
-    order."""
-    gt = min(_pow2_ceil(g), _THREADS)
-    qt = min(_pow2_ceil(q), _THREADS // gt, MAX_QUERIES)
+def _chunks(n: int, n_sms: int, bytes_per_chunk: int) -> tuple[int, int]:
+    """(rows_per_chunk, n_chunks): about one wave of blocks, fewer when
+    the per-chunk scratch would pass 64 MiB; rows a multiple of the stage."""
     chunks = max(1, min(-(-n // _STAGE), n_sms * _BLOCKS_PER_SM,
-                        _SCRATCH_BYTES // (4 * q * 7 * g)))
+                        _SCRATCH_BYTES // bytes_per_chunk))
     rows = -(-max(n, 1) // chunks)
     rows = -(-rows // _STAGE) * _STAGE
-    return rows, max(1, -(-n // rows)), qt, gt
+    return rows, max(1, -(-n // rows))
+
+
+def launch_plan(n: int, q: int, g: int,
+                n_sms: int) -> tuple[int, int, int, int]:
+    """(rows_per_chunk, n_chunks, group tile, blocks per chunk) of a Q-query
+    launch on a card with `n_sms` multiprocessors. A block takes one query
+    and a tile of up to 256 groups; its 256 threads split over (group,
+    lane). The chunking and the group tile fix the order of the float sums
+    and depend on (n, G) and the card only: a query sums in the same order
+    alone as in a batch, and repeat launches on one card are bit-identical
+    (cards with other SM counts sum in another order). Only the number of
+    blocks per chunk, Q × group tiles, grows with Q."""
+    gt = min(_pow2_ceil(g), _THREADS)
+    rows, chunks = _chunks(n, n_sms, 4 * 7 * g)
+    return rows, chunks, gt, q * -(-g // gt)
+
+
+def hist_plan(n: int, g: int, n_sms: int) -> tuple[int, int]:
+    """(rows_per_chunk, n_chunks) of the quantile kernel's histogram pass,
+    whose per-chunk scratch is G × 256 floats."""
+    return _chunks(n, n_sms, 4 * QUANTILE_BINS * g)
 
 
 def check_fused_args(values, unit, strat, freq_table, valid, atom_cols,
@@ -195,20 +257,33 @@ def check_fused_args(values, unit, strat, freq_table, valid, atom_cols,
     return atom_slots
 
 
-def launch(lib: ctypes.CDLL, values, unit, strat, freq_table, valid,
-           atom_cols, group_codes, ks, pred_consts, ops_struct, atom_slots,
-           n_groups: int, stream) -> torch.Tensor:
-    """Pack the descriptors, allocate output and scratch, and call the C
-    launcher once (both passes, enqueued on `stream`). Arguments are
-    already checked."""
-    n, q = unit.shape[0], ks.shape[0]
-    ks = ks.to(torch.float32).contiguous()
-    consts = pred_consts.to(torch.float32).contiguous()
-    n_sms = torch.cuda.get_device_properties(unit.device).multi_processor_count
-    rows, chunks, qt, gt = launch_plan(n, q, n_groups, n_sms)
-    out = torch.empty((q, 7, n_groups), dtype=torch.float32, device=unit.device)
-    partial = torch.empty((chunks, q, 7, n_groups), dtype=torch.float32,
-                          device=unit.device)
+def check_quantile_args(values, unit, strat, freq_table, valid, atom_cols,
+                        group_codes, k, lo, hi, pred_consts, ops_struct,
+                        atom_slots, n_groups) -> tuple:
+    """Validate a quantile-scan call: one query (k f32[1], pred_consts
+    f32[1, n_atoms]) and a finite histogram range. Returns the resolved
+    atom_slots."""
+    if k.shape != (1,):
+        raise ValueError(f"k has shape {tuple(k.shape)}; need (1,)")
+    if not torch.isfinite(torch.tensor([lo, hi], dtype=torch.float32)).all():
+        raise ValueError(f"histogram range [{lo}, {hi}] is not finite")
+    return check_fused_args(values, unit, strat, freq_table, valid,
+                            atom_cols, group_codes, k, pred_consts,
+                            ops_struct, atom_slots, n_groups)
+
+
+def _check_cuda(name, tensors, device) -> None:
+    if device.type != "cuda":
+        raise ValueError(f"{name} takes CUDA tensors, got {device}")
+    if not all(t is None or t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} takes contiguous tensors")
+
+
+def _scan_head(values, unit, strat, freq_table, valid, atom_cols,
+               group_codes, ops_struct, atom_slots) -> tuple:
+    """The leading C arguments both launchers take (column pointers and
+    tags, and the packed template descriptor), with the host arrays they
+    point into: the caller keeps the tuple alive across the call."""
     n_cols = len(atom_cols)
     col_ptrs = (ctypes.c_uint64 * max(n_cols, 1))(
         *[a.data_ptr() for a in atom_cols])
@@ -222,22 +297,26 @@ def launch(lib: ctypes.CDLL, values, unit, strat, freq_table, valid,
         a += len(conj)
         ends.append(a)
     end_arr = (ctypes.c_int * max(len(ends), 1))(*ends)
-    rc = lib.agg_scan_fused_launch(
-        values.data_ptr() if values is not None else None,
-        _VALUE_TAGS[values.dtype] if values is not None else 0,
-        unit.data_ptr(), strat.data_ptr(), _INT_TAGS[strat.dtype],
-        freq_table.data_ptr(), freq_table.shape[0], valid.data_ptr(),
-        group_codes.data_ptr() if group_codes is not None else None,
-        _INT_TAGS[group_codes.dtype] if group_codes is not None else 0,
-        ctypes.addressof(col_ptrs), ctypes.addressof(col_tags), n_cols,
-        ctypes.addressof(slot_arr), ctypes.addressof(op_arr), len(ops),
-        ctypes.addressof(end_arr), len(ends),
-        ks.data_ptr(), consts.data_ptr(), q, n_groups, n,
-        rows, chunks, qt, gt, partial.data_ptr(), out.data_ptr(), stream)
+    head = (values.data_ptr() if values is not None else None,
+            _VALUE_TAGS[values.dtype] if values is not None else 0,
+            unit.data_ptr(), strat.data_ptr(), _INT_TAGS[strat.dtype],
+            freq_table.data_ptr(), freq_table.shape[0], valid.data_ptr(),
+            group_codes.data_ptr() if group_codes is not None else None,
+            _INT_TAGS[group_codes.dtype] if group_codes is not None else 0,
+            ctypes.addressof(col_ptrs), ctypes.addressof(col_tags), n_cols,
+            ctypes.addressof(slot_arr), ctypes.addressof(op_arr), len(ops),
+            ctypes.addressof(end_arr), len(ends))
+    return head, (col_ptrs, col_tags, slot_arr, op_arr, end_arr)
+
+
+def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"agg_scan_fused launch failed: CUDA error {rc}"
-                           if rc > 0 else "agg_scan_fused: arguments refused")
-    return out
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}"
+                           if rc > 0 else f"{name}: arguments refused")
+
+
+def _n_sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def agg_scan_fused_cuda(values, unit, strat, freq_table, valid, atom_cols,
@@ -250,18 +329,77 @@ def agg_scan_fused_cuda(values, unit, strat, freq_table, valid, atom_cols,
                                   atom_cols, group_codes, ks, pred_consts,
                                   ops_struct, atom_slots, n_groups)
     device = unit.device
-    if device.type != "cuda":
-        raise ValueError(f"agg_scan_fused_cuda takes CUDA tensors, got {device}")
-    cols = [values, unit, strat, freq_table, valid, group_codes, *atom_cols]
-    if not all(t is None or t.is_contiguous() for t in cols):
-        raise ValueError("agg_scan_fused_cuda takes contiguous tensors")
-    lib = build()
+    _check_cuda("agg_scan_fused_cuda", [values, unit, strat, freq_table,
+                                        valid, group_codes, *atom_cols],
+                device)
+    lib = build("agg_scan_fused")
+    n, q = unit.shape[0], ks.shape[0]
     with torch.cuda.device(device):
-        out = launch(lib, values, unit, strat, freq_table, valid, atom_cols,
-                     group_codes, ks, pred_consts, ops_struct, atom_slots,
-                     n_groups, torch.cuda.current_stream(device).cuda_stream)
+        ks = ks.to(torch.float32).contiguous()
+        consts = pred_consts.to(torch.float32).contiguous()
+        rows, chunks, gt, _ = launch_plan(n, q, n_groups, _n_sms(device))
+        out = torch.empty((q, 7, n_groups), dtype=torch.float32, device=device)
+        partial = torch.empty((chunks, q, 7, n_groups), dtype=torch.float32,
+                              device=device)
+        head, keep = _scan_head(values, unit, strat, freq_table, valid,
+                                atom_cols, group_codes, ops_struct,
+                                atom_slots)
+        rc = lib.agg_scan_fused_launch(
+            *head, ks.data_ptr(), consts.data_ptr(), q, n_groups, n,
+            rows, chunks, gt, partial.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+        del keep
+    _raise_on(rc, "agg_scan_fused")
     agg_scan_fused_cuda.launches += 1
     return out
 
 
 agg_scan_fused_cuda.launches = 0
+
+
+def quantile_scan_cuda(values, unit, strat, freq_table, valid, atom_cols,
+                       group_codes, k, lo: float, hi: float, pred_consts,
+                       ops_struct, atom_slots=None, n_groups: int = 1
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the quantile scan on CUDA tensors: returns (moments
+    f32[7, n_groups], histogram f32[n_groups, 256]). Same arguments and
+    semantics as ref.quantile_scan_ref: k f32[1], pred_consts
+    f32[1, n_atoms], lo and hi host floats (rounded to float32)."""
+    atom_slots = check_quantile_args(values, unit, strat, freq_table, valid,
+                                     atom_cols, group_codes, k, lo, hi,
+                                     pred_consts, ops_struct, atom_slots,
+                                     n_groups)
+    device = unit.device
+    _check_cuda("quantile_scan_cuda", [values, unit, strat, freq_table,
+                                       valid, group_codes, *atom_cols],
+                device)
+    lib = build("quantile_scan")
+    n = unit.shape[0]
+    with torch.cuda.device(device):
+        k = k.to(torch.float32).contiguous()
+        consts = pred_consts.to(torch.float32).contiguous()
+        n_sms = _n_sms(device)
+        rows, chunks, gt, _ = launch_plan(n, 1, n_groups, n_sms)
+        h_rows, h_chunks = hist_plan(n, n_groups, n_sms)
+        mom = torch.empty((7, n_groups), dtype=torch.float32, device=device)
+        partial = torch.empty((chunks, 7, n_groups), dtype=torch.float32,
+                              device=device)
+        hist = torch.empty((n_groups, QUANTILE_BINS), dtype=torch.float32,
+                           device=device)
+        h_partial = torch.empty((h_chunks, n_groups, QUANTILE_BINS),
+                                dtype=torch.float32, device=device)
+        head, keep = _scan_head(values, unit, strat, freq_table, valid,
+                                atom_cols, group_codes, ops_struct,
+                                atom_slots)
+        rc = lib.quantile_scan_launch(
+            *head, k.data_ptr(), consts.data_ptr(), n_groups, n,
+            rows, chunks, gt, partial.data_ptr(), mom.data_ptr(),
+            float(lo), float(hi), h_rows, h_chunks, h_partial.data_ptr(),
+            hist.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+        del keep
+    _raise_on(rc, "quantile_scan")
+    quantile_scan_cuda.launches += 1
+    return mom, hist
+
+
+quantile_scan_cuda.launches = 0

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.types import cmp_fns
+from repro_torch.core.types import QUANTILE_BINS, cmp_fns
 
 _CMP = cmp_fns()
 
@@ -38,6 +38,23 @@ def agg_scan_ref(values: torch.Tensor, rates: torch.Tensor,
                        ).to(torch.float32)
 
 
+def dnf_mask(atom_cols, ops_struct, consts: torch.Tensor, shape,
+             device) -> torch.Tensor:
+    """DNF of a template over atom columns (flattened template order) with
+    one query's f32 constants; no conjunctions = TRUE."""
+    if not ops_struct:
+        return torch.ones(shape, dtype=torch.bool, device=device)
+    disj = torch.zeros(shape, dtype=torch.bool, device=device)
+    ai = 0
+    for conj in ops_struct:
+        m = torch.ones(shape, dtype=torch.bool, device=device)
+        for op in conj:
+            m = m & _CMP[op](atom_cols[ai].to(torch.float32), consts[ai])
+            ai += 1
+        disj = disj | m
+    return disj
+
+
 def agg_scan_batched_ref(values: torch.Tensor, freq: torch.Tensor,
                          entry_key: torch.Tensor, atom_cols: torch.Tensor,
                          group_codes: torch.Tensor, ks: torch.Tensor,
@@ -57,22 +74,9 @@ def agg_scan_batched_ref(values: torch.Tensor, freq: torch.Tensor,
     out = []
     for q in range(ks.shape[0]):
         k = ks[q]
-        prefix = entry_key < k
-        if ops_struct:
-            disj = torch.zeros(values.shape, dtype=torch.bool,
-                               device=values.device)
-            ai = 0
-            for conj in ops_struct:
-                m = torch.ones(values.shape, dtype=torch.bool,
-                               device=values.device)
-                for op in conj:
-                    m = m & _CMP[op](atom_cols[ai].to(torch.float32),
-                                     pred_consts[q, ai])
-                    ai += 1
-                disj = disj | m
-            mask = prefix & disj
-        else:
-            mask = prefix
+        mask = (entry_key < k) & dnf_mask(atom_cols, ops_struct,
+                                          pred_consts[q], values.shape,
+                                          values.device)
         rates = torch.clamp_max(k / freq, 1.0)
         out.append(agg_scan_ref(values, rates, mask, group_codes, n_groups,
                                 accumulate))
@@ -108,3 +112,64 @@ def agg_scan_fused_ref(values: torch.Tensor | None, unit: torch.Tensor,
     atoms = [atom_cols[s] for s in atom_slots]
     return agg_scan_batched_ref(values, freq, ek, atoms, group_codes, ks,
                                 pred_consts, ops_struct, n_groups, accumulate)
+
+
+def histogram_terms(values: torch.Tensor | None, unit: torch.Tensor,
+                    strat: torch.Tensor, freq_table: torch.Tensor,
+                    valid: torch.Tensor, atom_cols,
+                    group_codes: torch.Tensor | None, k: torch.Tensor,
+                    lo: float, hi: float, pred_consts: torch.Tensor,
+                    ops_struct, atom_slots
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(flat index g·256 + bin, weight) of every row for the quantile
+    scan's histogram: the weight is w = m / r (0 off the query's prefix and
+    predicate), the bin int(clip((v - lo) / max(hi - lo, 1e-12) · 256,
+    0, 255)), clipped in float32 before the cast."""
+    device = unit.device
+    v = (values.to(torch.float32) if values is not None else
+         torch.ones(unit.shape, dtype=torch.float32, device=device))
+    g = (group_codes.to(torch.int64) if group_codes is not None else
+         torch.zeros(unit.shape, dtype=torch.int64, device=device))
+    k = k.to(torch.float32)[0]
+    freq = freq_table.to(torch.float32)[strat.to(torch.int64)]
+    ek = torch.where(valid, unit.to(torch.float32) * freq,
+                     torch.full_like(freq, float("inf")))
+    mask = (ek < k) & dnf_mask([atom_cols[s] for s in atom_slots], ops_struct,
+                               pred_consts.to(torch.float32)[0], unit.shape,
+                               device)
+    w = mask.to(torch.float32) / torch.clamp_max(k / freq, 1.0)
+    lo_t = torch.tensor(lo, dtype=torch.float32, device=device)
+    span = torch.clamp_min(torch.tensor(hi, dtype=torch.float32,
+                                        device=device) - lo_t, 1e-12)
+    bins = torch.clamp((v - lo_t) / span * QUANTILE_BINS, 0.0,
+                       QUANTILE_BINS - 1).to(torch.int64)
+    return g * QUANTILE_BINS + bins, w
+
+
+def quantile_scan_ref(values: torch.Tensor | None, unit: torch.Tensor,
+                      strat: torch.Tensor, freq_table: torch.Tensor,
+                      valid: torch.Tensor, atom_cols,
+                      group_codes: torch.Tensor | None, k: torch.Tensor,
+                      lo: float, hi: float, pred_consts: torch.Tensor,
+                      ops_struct, atom_slots=None, n_groups: int = 1,
+                      accumulate: torch.dtype = torch.float32
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the one-query QUANTILE scan: (moments f32[7, G],
+    histogram f32[G, 256]). The moments are agg_scan_fused_ref's at
+    Q = 1 (k f32[1], pred_consts f32[1, n_atoms]). The histogram is the
+    reference's `quantile_hist_ref` over the fixed range [lo, hi]
+    (histogram_terms summed with index_add_; the reference's kernel
+    returns it transposed, [256, G])."""
+    n_atoms = sum(len(c) for c in ops_struct)
+    if atom_slots is None:
+        atom_slots = tuple(range(n_atoms))
+    mom = agg_scan_fused_ref(values, unit, strat, freq_table, valid,
+                             atom_cols, group_codes, k, pred_consts,
+                             ops_struct, atom_slots, n_groups, accumulate)[0]
+    flat, w = histogram_terms(values, unit, strat, freq_table, valid,
+                              atom_cols, group_codes, k, lo, hi, pred_consts,
+                              ops_struct, atom_slots)
+    hist = torch.zeros(n_groups * QUANTILE_BINS, dtype=accumulate,
+                       device=unit.device)
+    hist.index_add_(0, flat, w.to(accumulate))
+    return mom, hist.to(torch.float32).reshape(n_groups, QUANTILE_BINS)

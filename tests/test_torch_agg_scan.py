@@ -261,10 +261,11 @@ def test_cuda_wrapper_refuses_cpu_tensors():
                                      (100_003, 7, 6), (2_000_000, 3, 70_000)])
 @pytest.mark.parametrize("n_sms", [132, 114])
 def test_launch_plan_covers_rows(n, q, g, n_sms):
-    rows, chunks, qt, gt = agg_scan.launch_plan(n, q, g, n_sms)
+    rows, chunks, gt, blocks = agg_scan.launch_plan(n, q, g, n_sms)
     assert rows % 256 == 0 and rows * chunks >= n
     assert chunks == 1 or rows * (chunks - 1) < n
-    assert qt * gt <= 256 and 256 % (qt * gt) == 0 and qt <= 64
-    assert chunks * q * 7 * g * 4 <= max(64 << 20, q * 7 * g * 4)
-    assert -(-q // qt) * -(-g // gt) <= 65535
+    assert gt <= 256 and 256 % gt == 0 and gt >= min(g, 256)
+    # the scratch is capped per query: [chunks, 7, G] floats of 64 MiB
+    assert chunks * 7 * g * 4 <= max(64 << 20, 7 * g * 4)
+    assert blocks == q * -(-g // gt) and chunks <= 65535
     assert chunks <= 8 * n_sms

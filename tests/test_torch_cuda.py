@@ -130,3 +130,89 @@ def test_engine_on_card_refuses_128_atoms(cuda_device):
         _call(agg_scan.agg_scan_fused_cuda, t, ((CmpOp.GE,) * 128,),
               (0,) * 128, 6)
     assert agg_scan.agg_scan_fused_cuda.launches == before
+
+
+def _quantile_call(fn, t, struct, slots, g, **kw):
+    lo, hi = t["values"].min().item(), t["values"].max().item()
+    return fn(t["values"], t["unit"], t["strat"], t["freq_table"], t["valid"],
+              t["atom_cols"], t["group_codes"], t["ks"][:1], lo, hi,
+              t["pred_consts"][:1], struct, slots, g, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_groups", [1, 6, 500])
+def test_quantile_kernel_matches_plain_and_repeats_bitwise(cuda_device,
+                                                           n_groups):
+    rng = np.random.default_rng(30 + n_groups)
+    t = _case(rng, 100_003, n_groups, 1, 2, cuda_device)
+    struct, slots = ((CmpOp.EQ,), (CmpOp.GT,)), (0, 0)
+    before = agg_scan.quantile_scan_cuda.launches
+    mom, hist = _quantile_call(agg_scan.quantile_scan_cuda, t, struct, slots,
+                               n_groups)
+    mom2, hist2 = _quantile_call(agg_scan.quantile_scan_cuda, t, struct,
+                                 slots, n_groups)
+    assert agg_scan.quantile_scan_cuda.launches == before + 2
+    want_mom, want_hist = _quantile_call(ref.quantile_scan_ref, t, struct,
+                                         slots, n_groups,
+                                         accumulate=torch.float64)
+    torch.testing.assert_close(mom, want_mom, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(hist, want_hist, rtol=RTOL, atol=ATOL)
+    assert torch.equal(mom, mom2) and torch.equal(hist, hist2)
+    # the moment half is the fused scan's at Q = 1, bit for bit
+    fused = _call(agg_scan.agg_scan_fused_cuda,
+                  dict(t, ks=t["ks"][:1], pred_consts=t["pred_consts"][:1]),
+                  struct, slots, n_groups)
+    assert torch.equal(mom, fused[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q, n_groups", [(7, 6), (64, 500)])
+def test_batched_query_slices_equal_single_launches(cuda_device, q, n_groups):
+    rng = np.random.default_rng(40 + q)
+    t = _case(rng, 100_003, n_groups, q, 2, cuda_device)
+    struct, slots = ((CmpOp.EQ,), (CmpOp.GT,)), (0, 0)
+    batched = _call(agg_scan.agg_scan_fused_cuda, t, struct, slots, n_groups)
+    for i in range(q):
+        one = _call(agg_scan.agg_scan_fused_cuda,
+                    dict(t, ks=t["ks"][i:i + 1],
+                         pred_consts=t["pred_consts"][i:i + 1]),
+                    struct, slots, n_groups)
+        assert torch.equal(batched[i], one[0]), i
+
+
+@pytest.mark.cuda
+def test_engine_quantile_and_batch_on_card(cuda_device):
+    dbs = []
+    for dev in ("cpu", cuda_device):
+        db = BlinkDB(EngineConfig(k1=800.0, m=3), device=dev)
+        db.register_table("sessions", table_lib.from_columns(
+            "sessions", synth.sessions_table(50_000, seed=3)))
+        db.add_family("sessions", ("OS",))
+        db.add_family("sessions", ())
+        dbs.append(db)
+    genre = Predicate.where(Atom("Genre", CmpOp.EQ, "genre03"))
+    queries = [
+        Query("sessions", AggOp.QUANTILE, "SessionTime", quantile=0.5,
+              bound=ErrorBound(0.1)),
+        Query("sessions", AggOp.QUANTILE, "SessionTime", quantile=0.9,
+              group_by=("OS",), bound=ErrorBound(0.05)),
+        Query("sessions", AggOp.QUANTILE, "Bitrate", quantile=0.99,
+              predicate=genre, bound=ErrorBound(0.1)),
+        Query("sessions", AggOp.AVG, "SessionTime", group_by=("OS",),
+              bound=ErrorBound(0.1)),
+    ]
+    before = agg_scan.quantile_scan_cuda.launches
+    batched = dbs[1].query_batch(queries * 3)
+    assert agg_scan.quantile_scan_cuda.launches > before
+    for q, b in zip(queries * 3, batched):
+        one = dbs[1].query(q)
+        assert [(g.key, g.estimate, g.ci_low, g.ci_high) for g in b.groups] \
+            == [(g.key, g.estimate, g.ci_low, g.ci_high) for g in one.groups]
+    for q in queries:
+        a, b = dbs[0].query(q), dbs[1].query(q)
+        assert (b.sample_phi, b.sample_k) == (a.sample_phi, a.sample_k)
+        assert [g.key for g in b.groups] == [g.key for g in a.groups]
+        for ga, gb in zip(a.groups, b.groups):
+            np.testing.assert_allclose([gb.estimate, gb.ci_low, gb.ci_high],
+                                       [ga.estimate, ga.ci_low, ga.ci_high],
+                                       rtol=1e-4)
