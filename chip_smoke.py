@@ -6,25 +6,38 @@
 
 Phases, each reported on its own lines:
   1. card and build: torch version, the card's name and power limit, the
-     nvcc builds of the two kernel libraries, started together (seconds,
-     ptxas resources);
-  2. kernels vs plain: agg_scan_fused and quantile_scan on the card against
-     their plain PyTorch versions over a sweep of queries, groups, strata,
-     dtypes and templates (rtol 2e-5, atol 1e-3); bit-identical repeat
-     launches; each query of a Q = 7 or 64 launch bit-identical to the same
-     query launched alone; the quantile kernel's moments bit-identical to
-     agg_scan_fused at Q = 1; both wrappers refuse a 128-atom template;
+     nvcc builds of the five kernel libraries (agg_scan, agg_scan_batched,
+     weighted_sum, agg_scan_fused, quantile_scan), started together
+     (seconds, ptxas resources);
+  2. kernels vs plain: each kernel on the card against its plain PyTorch
+     version (rtol 2e-5, atol 1e-3; weighted_sum rtol 1e-4, atol 1e-2)
+     over a sweep of rows, queries, groups, strata, dtypes, templates,
+     ghosts and group codes outside [0, G); bit-identical repeat launches;
+     each query of a Q = 7 or 64 launch bit-identical to the same query
+     launched alone; the quantile kernel's moments bit-identical to
+     agg_scan_fused at Q = 1 and to agg_scan over a selection given as one
+     atom column; agg_scan_batched equal to agg_scan_fused (max |diff| 0.0)
+     across its sweep; the wrappers refuse a 128-atom template;
   3. main path: the Conviva-like sessions workload (paper §6.1) through
      BlinkDB.query — COUNT/SUM/AVG/QUANTILE, grouped and not, predicates, a
-     disjunction, ERROR WITHIN and WITHIN SECONDS — every scan held against
-     the plain version on the same tensors, every answer against
-     exact_query, both kernels' launch counts read around the run;
-  3b. batch: 32 queries of four templates (QUANTILE among them) through
-     BlinkDB.query_batch on a fresh engine, then through query() on that
-     engine: every answer bit-identical;
-  4. times: each kernel at the main path's shapes against its memory bound
-     and its plain version; agg_scan_fused at Q = 32 against 32 launches at
-     Q = 1.
+     disjunction, ERROR WITHIN and WITHIN SECONDS, and three templates
+     wider than the fused kernel's constant block (NOT IN lists of 200 URLs,
+     130 cities and, for QUANTILE, 126 URLs) — every scan held against its
+     plain version on the same tensors, every answer against exact_query,
+     the launch counts of agg_scan_fused, quantile_scan and agg_scan read
+     around the run;
+  3b. batch: 36 queries of five templates (QUANTILE and a 130-atom template
+     among them) through BlinkDB.query_batch on a fresh engine, then
+     through query() on that engine: every answer bit-identical;
+  3c. the kernels' own entry points, kernels.ops.agg_scan_batched (32
+     instantiations of SUM(SessionTime) WHERE URL = u GROUP BY OS on the
+     URL family's materialized HT state) and kernels.ops.weighted_sum (the
+     HT sums of SUM(SessionTime) on the uniform family), each with its
+     launch count read around it: held against agg_scan_fused (bit for
+     bit; rtol 1e-4 for weighted_sum's ungrouped sums), the plain version
+     and exact_query;
+  4. times: each kernel at the main path's shapes against its bound and
+     its plain version; agg_scan_fused and agg_scan_batched at Q = 32.
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Any failed check raises: the script then
 exits non-zero and prints no result. Without a CUDA device it exits 2.
@@ -50,9 +63,12 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def tol_ratio(torch, got, want) -> float:
+WS_RTOL, WS_ATOL = 1e-4, 1e-2  # the reference's weighted_sum tolerance
+
+
+def tol_ratio(torch, got, want, rtol=RTOL, atol=ATOL) -> float:
     """max |got - want| / (atol + rtol·|want|): at most 1 where allclose."""
-    return ((got - want).abs() / (ATOL + RTOL * want.abs())).max().item()
+    return ((got - want).abs() / (atol + rtol * want.abs())).max().item()
 
 
 def card_line() -> str:
@@ -132,12 +148,13 @@ def sweep_cases(torch, np, device, quantile=False):
     return out
 
 
-def check_close(torch, label, got, want, worst, **flags) -> tuple:
+def check_close(torch, label, got, want, worst, rtol=RTOL, atol=ATOL,
+                **flags) -> tuple:
     """Hold got against want at the kernel tolerance; log and raise on any
     failed flag. Returns the updated (max |diff|, max tolerance ratio)."""
-    diff = (got - want).abs().max().item()
-    ratio = tol_ratio(torch, got, want)
-    ok = torch.allclose(got, want, rtol=RTOL, atol=ATOL)
+    diff = (got - want).abs().max().item() if got.numel() else 0.0
+    ratio = tol_ratio(torch, got, want, rtol, atol) if got.numel() else 0.0
+    ok = torch.allclose(got, want, rtol=rtol, atol=atol)
     flags = dict(allclose=ok, finite=bool(torch.isfinite(got).all()),
                  **flags)
     log(f"  {label:30s} shape={tuple(got.shape)} max_abs_diff={diff:.3e} "
@@ -233,7 +250,173 @@ def phase_quantile_vs_plain(torch, np, device) -> tuple[float, float]:
     return worst
 
 
+def rate_case(torch, np, rng, device, n, g, dtype):
+    """agg_scan inputs on the card: values at `dtype`, rates = min(1,
+    100/freq), a random mask, and int32 codes in [-2, g + 2): the codes
+    outside [0, g) must land in no group."""
+    values = (rng.integers(0, 100, n) if dtype == np.int32
+              else rng.normal(5, 2, n)).astype(dtype)
+    freq = rng.integers(1, 500, n).astype(np.float32)
+    host = (values, np.minimum(1.0, 100.0 / freq).astype(np.float32),
+            rng.random(n) < 0.5, rng.integers(-2, g + 2, n).astype(np.int32))
+    return tuple(torch.from_numpy(a).to(device) for a in host)
+
+
+def phase_agg_scan_vs_plain(torch, np, device) -> tuple[float, float]:
+    from repro_torch.core.types import CmpOp
+    from repro_torch.kernels import agg_scan, ref
+    worst = (0.0, 0.0)
+    fn = agg_scan.agg_scan_cuda
+    rng = np.random.default_rng(9)
+    cases = [(n, g, np.float32) for n in (1, 4099, 1_000_000)
+             for g in (1, 6, 600)]
+    cases += [(n, 6, dt) for n in (4099, 1_000_000)
+              for dt in (np.float16, np.int32)]
+    for n, g, dt in cases:
+        args = rate_case(torch, np, rng, device, n, g, dt)
+        got = fn(*args, g)
+        again = fn(*args, g)
+        torch.cuda.synchronize()
+        want = ref.agg_scan_ref(*args, g, accumulate=torch.float64)
+        worst = check_close(torch, f"n={n} G={g} {np.dtype(dt).name}", got,
+                            want, worst,
+                            bit_identical_repeat=torch.equal(got, again))
+    # A wide QUANTILE's promise: quantile_scan over a selection given as
+    # one atom column has agg_scan's moments over it, bit for bit.
+    for label, args, struct, slots, g in sweep_cases(torch, np, device,
+                                                     quantile=True)[:3]:
+        values, unit, strat, ftab, valid, cols, codes, ks, consts = args
+        k = ks[:1]
+        freq = ftab[strat.long()]
+        sel = valid & (unit * freq < k[0]) & (cols[0] > 3)
+        rates = torch.clamp_max(k[0] / freq, 1.0)
+        mom = fn(values, rates, sel, codes, g)
+        qmom, _ = agg_scan.quantile_scan_cuda(
+            values, unit, strat, ftab, valid, (sel,), codes, k,
+            values.min().item(), values.max().item(),
+            torch.ones((1, 1), device=device), ((CmpOp.EQ,),), (0,), g)
+        torch.cuda.synchronize()
+        log(f"  {label:30s} quantile_scan moments over a selection == "
+            f"agg_scan: {torch.equal(mom, qmom)}")
+        if not torch.equal(mom, qmom):
+            raise AssertionError(f"quantile_scan and agg_scan differ: {label}")
+    log(f"phase 2 agg_scan ok: max_abs_diff={worst[0]:.6e} max "
+        f"tol_ratio={worst[1]:.4f} (rtol={RTOL}, atol={ATOL})")
+    return worst
+
+
+def materialized(torch, args, n_atoms):
+    """agg_scan_batched inputs from fused-scan inputs: freq =
+    freq_table[strat], entry_key = where(valid, unit·freq, inf), and one
+    float32 row per atom (every atom reads atom column 0)."""
+    values, unit, strat, ftab, valid, cols, codes, ks, consts = args
+    freq = ftab[strat.long()]
+    ek = torch.where(valid, unit * freq, torch.full_like(freq, float("inf")))
+    atoms = (cols[0].float()[None, :].repeat(n_atoms, 1) if n_atoms
+             else torch.zeros((0, freq.shape[0]), device=freq.device))
+    return values, freq, ek, atoms, codes
+
+
+def phase_batched_vs_plain(torch, np, device) -> tuple[float, float, float]:
+    """Returns (max |diff| to the plain version, max tolerance ratio, max
+    |diff| to agg_scan_fused, which must be 0)."""
+    from repro_torch.core.types import CmpOp
+    from repro_torch.kernels import agg_scan, ref
+    worst, fused_diff = (0.0, 0.0), 0.0
+    fn, fused = agg_scan.agg_scan_batched_cuda, agg_scan.agg_scan_fused_cuda
+    rng = np.random.default_rng(10)
+    cases = [(q, a, 6) for q in (1, 7, 64, 65) for a in (0, 1, 127)]
+    cases.append((64, 1, 500))
+    for q, a, g in cases:
+        args = make_case(torch, np, rng, device, 100_003, g, q, 1, a, 37,
+                         np.int8, np.int16 if g > 127 else np.int8, np.int8)
+        struct = ((CmpOp.GE,) * a,) if a else ()
+        mat = materialized(torch, args, a)
+        ks, consts = args[-2], args[-1]
+        got = fn(*mat, ks, consts, struct, g)
+        again = fn(*mat, ks, consts, struct, g)
+        same = torch.cat([fused(*args[:-2], ks[i:i + 64], consts[i:i + 64],
+                                struct, (0,) * a, g)
+                          for i in range(0, q, 64)])
+        torch.cuda.synchronize()
+        want = ref.agg_scan_batched_ref(*mat, ks, consts, struct, g,
+                                        accumulate=torch.float64)
+        diff = (got - same).abs().max().item()
+        fused_diff = max(fused_diff, diff)
+        worst = check_close(torch, f"Q={q} A={a} G={g}", got, want, worst,
+                            bit_identical_repeat=torch.equal(got, again),
+                            equals_fused=diff == 0.0)
+        if a == agg_scan.MAX_ATOMS:
+            widest = (args, mat)
+    args, mat = widest
+    before = fn.launches
+    try:
+        fn(*mat[:3], mat[3][:1].repeat(128, 1), mat[4], args[-2],
+           args[-1].new_zeros((args[-1].shape[0], 128)), ((CmpOp.GE,) * 128,),
+           6)
+    except ValueError as e:
+        log(f"  128 atoms refused: {e}")
+    else:
+        raise AssertionError("agg_scan_batched_cuda took a 128-atom template")
+    if fn.launches != before:
+        raise AssertionError("a refused call counted a launch")
+    log(f"phase 2 agg_scan_batched ok: max_abs_diff={worst[0]:.6e} max "
+        f"tol_ratio={worst[1]:.4f}; max |diff| to agg_scan_fused "
+        f"{fused_diff!r} over {len(cases)} cases")
+    return worst + (fused_diff,)
+
+
+def phase_weighted_sum_vs_plain(torch, np, device) -> tuple[float, float]:
+    from repro_torch.kernels import ref, weighted_sum
+    worst = (0.0, 0.0)
+    fn = weighted_sum.weighted_sum_cuda
+    rng = np.random.default_rng(11)
+    for n in (1, 127, 9999, 10_000_000):
+        host = (rng.normal(0, 3, n).astype(np.float32),
+                (rng.random(n) + 0.5).astype(np.float32), rng.random(n) < 0.6)
+        args = tuple(torch.from_numpy(a).to(device) for a in host)
+        got = torch.stack(fn(*args))
+        again = torch.stack(fn(*args))
+        torch.cuda.synchronize()
+        want = torch.stack(ref.weighted_sum_ref(*args,
+                                                accumulate=torch.float64))
+        worst = check_close(torch, f"n={n}", got, want, worst, rtol=WS_RTOL,
+                            atol=WS_ATOL,
+                            bit_identical_repeat=torch.equal(got, again))
+    log(f"phase 2 weighted_sum ok: max_abs_diff={worst[0]:.6e} max "
+        f"tol_ratio={worst[1]:.4f} (rtol={WS_RTOL}, atol={WS_ATOL})")
+    return worst
+
+
 # ----------------------------------------------------------------- phase 3
+
+KERNELS = ("agg_scan", "agg_scan_batched", "weighted_sum", "agg_scan_fused",
+           "quantile_scan")
+MAIN_PATH_KERNELS = ("agg_scan_fused", "quantile_scan", "agg_scan")
+
+
+def wrappers() -> dict:
+    """Each kernel's wrapper, whose `launches` counts its launches."""
+    from repro_torch.kernels import agg_scan, weighted_sum
+    return {"agg_scan": agg_scan.agg_scan_cuda,
+            "agg_scan_batched": agg_scan.agg_scan_batched_cuda,
+            "weighted_sum": weighted_sum.weighted_sum_cuda,
+            "agg_scan_fused": agg_scan.agg_scan_fused_cuda,
+            "quantile_scan": agg_scan.quantile_scan_cuda}
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
+def reset_launches(counts=None) -> None:
+    for name, fn in wrappers().items():
+        fn.launches = counts[name] if counts else 0
+
+
+def launches_since(before: dict) -> dict:
+    return {k: v - before[k] for k, v in launch_counts().items()}
+
 
 def kernel_args(torch, db, q, phi, k):
     """The fused-scan kernel's inputs for query q on family phi at k, as the
@@ -256,13 +439,40 @@ def kernel_args(torch, db, q, phi, k):
         n_groups
 
 
+def wide_args(torch, db, q, phi, k):
+    """The wide path's inputs for query q on family phi at k, as the engine
+    builds them: (values, rates, selection, group codes), n_groups, and
+    whether the template is wide for (fused scan, quantile scan)."""
+    from repro_torch.core import executor as exec_lib
+    striped = db._striped_for(q.table, phi)
+    key, vals = db._scan_key(q.table, q, phi)
+    _, _, struct, value_col, group_col, n_groups = key
+    k = torch.tensor(k, dtype=torch.float32, device=db.device)
+    pred = exec_lib.eval_pred_flat(
+        struct, striped.columns,
+        torch.tensor(exec_lib.flatten_pred_vals(vals), dtype=torch.float32,
+                     device=db.device))
+    freq, sel = exec_lib.query_selection(pred, k,
+                                         *exec_lib.scan_args(striped)[1:])
+    inputs = exec_lib.agg_scan_inputs(sel, freq, k, striped.columns,
+                                      value_col, group_col)
+    return inputs, n_groups, (not exec_lib.fits_const_block(struct, 1),
+                              not exec_lib.fits_const_block(struct, 3))
+
+
+def is_wide(torch, db, q, phi, lanes: int) -> bool:
+    from repro_torch.core import executor as exec_lib
+    key, _ = db._scan_key(q.table, q, phi)
+    return not exec_lib.fits_const_block(key[2], lanes)
+
+
 def checked_engine(torch, record):
     """A BlinkDB whose every scan is also run through the plain version on
-    the same striped tensors and compared (outside the timed region)."""
+    the same tensors and compared (outside the timed region)."""
     from repro_torch.core import BlinkDB
     from repro_torch.core import executor as exec_lib
-    from repro_torch.kernels import agg_scan, ref
-    fused, quant = agg_scan.agg_scan_fused_cuda, agg_scan.quantile_scan_cuda
+    from repro_torch.core.types import CmpOp
+    from repro_torch.kernels import ref
 
     class CheckedDB(BlinkDB):
         check = True     # False: record scans only (the latency pass)
@@ -279,10 +489,14 @@ def checked_engine(torch, record):
                                    tol_ratio(torch, got, want))
 
         def _run_at_k(self, table_name, q, phi, k):
-            before = fused.launches
+            before = launch_counts()
             mom, rows, dt = super()._run_at_k(table_name, q, phi, k)
-            launched = fused.launches - before
-            if self.check:
+            launched = sum(launches_since(before).values())
+            if self.check and is_wide(torch, self, q, phi, 1):
+                inputs, g, _ = wide_args(torch, self, q, phi, k)
+                want = ref.agg_scan_ref(*inputs, g, accumulate=torch.float64)
+                self._hold("agg_scan", mom.stacked(), want, phi, k)
+            elif self.check:
                 args, struct, slots, g = kernel_args(torch, self, q, phi, k)
                 want = ref.agg_scan_fused_ref(*args, struct, slots, g,
                                               accumulate=torch.float64)[0]
@@ -291,21 +505,33 @@ def checked_engine(torch, record):
             return mom, rows, dt
 
         def _run_quantile_at_k(self, table_name, q, phi, k):
-            before = quant.launches
+            before = launch_counts()
             mom, rows, dt, qpair = super()._run_quantile_at_k(table_name, q,
                                                               phi, k)
-            launched = quant.launches - before
+            launched = sum(launches_since(before).values())
             if self.check:
                 args, struct, slots, g = kernel_args(torch, self, q, phi, k)
-                lo, hi = self._family_range(table_name, phi, q.value_column)
+                if is_wide(torch, self, q, phi, 3):
+                    # The wide path: the selection as one atom column, over
+                    # the selected values' range.
+                    (values, _, sel, _), g, _ = wide_args(torch, self, q,
+                                                          phi, k)
+                    lo, hi = exec_lib.selected_range(values, sel)
+                    one = torch.ones((1, 1), device=self.device)
+                    qargs = (values, *args[1:5], (sel,), args[6], args[7],
+                             lo, hi, one)
+                    struct, slots = ((CmpOp.EQ,),), (0,)
+                else:
+                    lo, hi = self._family_range(table_name, phi,
+                                                q.value_column)
+                    qargs = (*args[:-1], lo, hi, args[-1])
                 want, hist = ref.quantile_scan_ref(
-                    *args[:-1], lo, hi, args[-1], struct, slots, g,
-                    accumulate=torch.float64)
+                    *qargs, struct, slots, g, accumulate=torch.float64)
                 self._hold("quantile_scan", mom.stacked(), want, phi, k)
                 # The quantile read off the plain histogram lies within one
                 # bin of the kernel's.
                 qv, _ = exec_lib.hist_to_quantile(hist, lo, hi, q.quantile)
-                bin_w = (hi - lo) / 256.0
+                bin_w = max(hi - lo, 1e-12) / 256.0
                 gap = (qpair[0] - qv).abs().max().item() / bin_w
                 if gap > 1.0:
                     raise AssertionError(
@@ -316,6 +542,14 @@ def checked_engine(torch, record):
             record["scans"].append((phi, k, rows, dt, launched))
             return mom, rows, dt, qpair
     return CheckedDB
+
+
+def not_in(Atom, CmpOp, Predicate, col, prefix, total, n):
+    """col NOT IN its n least popular values (prefix000 is the most
+    popular): one conjunctive template of n NE atoms. An IN list would be
+    a disjunction, which §4.1.2 splits into one-atom subqueries."""
+    return Predicate.where(*[Atom(col, CmpOp.NE, f"{prefix}{total - 1 - i:03d}")
+                             for i in range(n)])
 
 
 def main_path_queries(Q, AggOp, Atom, CmpOp, Conjunction, Predicate,
@@ -364,6 +598,18 @@ def main_path_queries(Q, AggOp, Atom, CmpOp, Conjunction, Predicate,
         ("QUANTILE(Bitrate, 0.9) GROUP BY URL WITHIN 0.05 SECONDS",
          Q(t, AggOp.QUANTILE, "Bitrate", quantile=0.9, group_by=("URL",),
            bound=TimeBound(0.05))),
+        ("COUNT(*) WHERE URL NOT IN (200 URLs) GROUP BY OS ERROR 10%",
+         Q(t, AggOp.COUNT, group_by=("OS",),
+           predicate=not_in(Atom, CmpOp, Predicate, "URL", "url", 500, 200),
+           bound=ErrorBound(0.10))),
+        ("AVG(SessionTime) WHERE City NOT IN (130 cities) ERROR 5%",
+         Q(t, AggOp.AVG, "SessionTime",
+           predicate=not_in(Atom, CmpOp, Predicate, "City", "city", 200, 130),
+           bound=ErrorBound(0.05))),
+        ("QUANTILE(SessionTime, 0.9) WHERE URL NOT IN (126 URLs) ERROR 10%",
+         Q(t, AggOp.QUANTILE, "SessionTime", quantile=0.9,
+           predicate=not_in(Atom, CmpOp, Predicate, "URL", "url", 500, 126),
+           bound=ErrorBound(0.10))),
     ]
 
 
@@ -379,14 +625,17 @@ def exact_bin_width(torch, db, q) -> float:
     return (v.max().item() - v.min().item()) / 256.0
 
 
-def launch_counts(agg_scan) -> tuple[int, int]:
-    return (agg_scan.agg_scan_fused_cuda.launches,
-            agg_scan.quantile_scan_cuda.launches)
-
-
-def reset_launches(agg_scan) -> None:
-    agg_scan.agg_scan_fused_cuda.launches = 0
-    agg_scan.quantile_scan_cuda.launches = 0
+def sample_bin_width(torch, db, q, ans) -> float:
+    """Bin width of the sample's QUANTILE histogram: the family's range on
+    the kernel path, the selected rows' range on the wide path."""
+    from repro_torch.core import executor as exec_lib
+    if is_wide(torch, db, q, ans.sample_phi, 3):
+        (values, _, sel, _), _, _ = wide_args(torch, db, q, ans.sample_phi,
+                                              ans.sample_k)
+        lo, hi = exec_lib.selected_range(values, sel)
+    else:
+        lo, hi = db._family_range("sessions", ans.sample_phi, q.value_column)
+    return (hi - lo) / 256.0
 
 
 def phase_main_path(torch, np, n_rows: int, record, device="cuda") -> dict:
@@ -394,13 +643,12 @@ def phase_main_path(torch, np, n_rows: int, record, device="cuda") -> dict:
     SUM and AVG need 90% of all their groups within 2 CI half-widths of
     exact_query; every QUANTILE group must lie within 2 CI half-widths
     plus one bin width of each side's histogram range (the sample's
-    family-global range, and exact_query's range of the selected rows)."""
+    range, and exact_query's range of the selected rows)."""
     from repro_torch.core import (AggOp, Atom, CmpOp, Conjunction,
                                   EngineConfig, ErrorBound, Predicate, Query,
                                   TimeBound)
     from repro_torch.core import table as table_lib
     from repro_torch.data import synth
-    from repro_torch.kernels import agg_scan
 
     t0 = time.perf_counter()
     raw = synth.sessions_table(n_rows, seed=0)
@@ -429,13 +677,13 @@ def phase_main_path(torch, np, n_rows: int, record, device="cuda") -> dict:
 
     queries = main_path_queries(Query, AggOp, Atom, CmpOp, Conjunction,
                                 Predicate, ErrorBound, TimeBound)
-    reset_launches(agg_scan)
+    reset_launches()
     results, covered, total = [], 0, 0
     for label, q in queries:
         n_scans = len(record["scans"])
-        before = launch_counts(agg_scan)
+        before = launch_counts()
         ans = db.query(q)
-        launched = [a - b for a, b in zip(launch_counts(agg_scan), before)]
+        launched = launches_since(before)
         scans = record["scans"][n_scans:]
         exact = {g.key: g.estimate for g in db.exact_query(q).groups}
         if not ans.groups or not np.isfinite(
@@ -447,9 +695,7 @@ def phase_main_path(torch, np, n_rows: int, record, device="cuda") -> dict:
             if ans.sample_phi == ("<exact>",):
                 slack = 2.0 * exact_w
             else:
-                lo, hi = db._family_range("sessions", ans.sample_phi,
-                                          q.value_column)
-                slack = (hi - lo) / 256.0 + exact_w
+                slack = sample_bin_width(torch, db, q, ans) + exact_w
         rel, in_ci, outside = [], 0, []
         for g in ans.groups:
             truth = exact[g.key]
@@ -478,16 +724,17 @@ def phase_main_path(torch, np, n_rows: int, record, device="cuda") -> dict:
         log(f"  {label}: family={ans.sample_phi} K={ans.sample_k:.6g} "
             f"rows_read={ans.rows_read} scan_ms={main_ms:.3f} "
             f"bound_met={ans.bound_met} certified={ans.certified} "
-            f"scans={len(scans)} launches fused={launched[0]} "
-            f"quantile={launched[1]} groups={len(ans.groups)} "
+            f"scans={len(scans)} launches "
+            + " ".join(f"{k}={launched[k]}" for k in MAIN_PATH_KERNELS)
+            + f" groups={len(ans.groups)} "
             f"max_realized_rel_err={max(rel):.3e} max_ci_rel_half={ci_rel:.3e} "
             f"groups_within={in_ci}/{len(ans.groups)}"
             + (f" bin_slack={slack:.6g}" if slack else ""))
         results.append((label, q, ans))
-    launches = launch_counts(agg_scan)
-    if device == "cuda" and min(launches) == 0:
+    launches = launch_counts()
+    if device == "cuda" and min(launches[k] for k in MAIN_PATH_KERNELS) == 0:
         raise AssertionError(f"a kernel of the main path was launched no "
-                             f"time: (fused, quantile) = {launches}")
+                             f"time: {launches}")
     if covered < 0.9 * total:
         raise AssertionError(f"only {covered}/{total} groups within 2 CI "
                              f"half-widths of exact_query")
@@ -510,12 +757,16 @@ def phase_main_path(torch, np, n_rows: int, record, device="cuda") -> dict:
             log(f"    {label} [{run}]: query_ms={1e3 * wall:.3f} "
                 f"scans={len(scans)} scan_ms_sum={1e3 * scan_s:.3f} "
                 f"scan_share={scan_s / wall:.3f}")
-    fr, qr = record["agg_scan_fused"], record["quantile_scan"]
-    log(f"phase 3 ok: {len(queries)} queries, launches fused={launches[0]} "
-        f"quantile={launches[1]}, {covered}/{total} groups within the rule; "
+    fr, qr, ar = (record["agg_scan_fused"], record["quantile_scan"],
+                  record["agg_scan"])
+    log(f"phase 3 ok: {len(queries)} queries, launches "
+        + " ".join(f"{k}={launches[k]}" for k in MAIN_PATH_KERNELS)
+        + f", {covered}/{total} groups within the rule; "
         f"scans vs plain: fused max_abs_diff={fr['max_abs_diff']:.6e} "
-        f"tol_ratio={fr['tol_ratio']:.4f}, quantile moments max_abs_diff="
-        f"{qr['max_abs_diff']:.6e} tol_ratio={qr['tol_ratio']:.4f} "
+        f"tol_ratio={fr['tol_ratio']:.4f}, agg_scan max_abs_diff="
+        f"{ar['max_abs_diff']:.6e} tol_ratio={ar['tol_ratio']:.4f}, "
+        f"quantile moments max_abs_diff={qr['max_abs_diff']:.6e} "
+        f"tol_ratio={qr['tol_ratio']:.4f} "
         f"quantile gap {qr['max_bin_gap']:.4f} bins")
     return {"db": db, "launches": launches, "results": results}
 
@@ -523,7 +774,9 @@ def phase_main_path(torch, np, n_rows: int, record, device="cuda") -> dict:
 # ---------------------------------------------------------------- phase 3b
 
 def batch_queries(Q, AggOp, Atom, CmpOp, Predicate, ErrorBound):
-    """32 instantiations of four templates, interleaved."""
+    """32 instantiations of four templates, interleaved, then 4 of one
+    130-atom template (City NOT IN 130 cities, a different window of
+    cities each)."""
     t = "sessions"
     out = []
     for i in range(8):
@@ -540,6 +793,11 @@ def batch_queries(Q, AggOp, Atom, CmpOp, Predicate, ErrorBound):
             Q(t, AggOp.QUANTILE, "SessionTime", quantile=0.5, predicate=city,
               bound=ErrorBound(0.10)),
         ]
+    for i in range(4):
+        out.append(Q(t, AggOp.AVG, "SessionTime", bound=ErrorBound(0.05),
+                     predicate=Predicate.where(*[
+                         Atom("City", CmpOp.NE, f"city{199 - i - j:03d}")
+                         for j in range(130)])))
     return out
 
 
@@ -556,29 +814,29 @@ def phase_batch(torch, np, main_db) -> dict:
     answer bit-identical."""
     from repro_torch.core import (AggOp, Atom, BlinkDB, CmpOp, EngineConfig,
                                   ErrorBound, Predicate, Query)
-    from repro_torch.kernels import agg_scan
     db = BlinkDB(EngineConfig(), device=main_db.device)
     db.register_table("sessions", main_db.tables["sessions"])
     db.families["sessions"] = dict(main_db.families["sessions"])
     db._generations.update(main_db._generations)
     db._striped.update(main_db._striped)
     queries = batch_queries(Query, AggOp, Atom, CmpOp, Predicate, ErrorBound)
-    reset_launches(agg_scan)
+    reset_launches()
     db._sync()
     t0 = time.perf_counter()
     batched = db.query_batch(queries)
     db._sync()
     batch_s = time.perf_counter() - t0
-    batch_launches = launch_counts(agg_scan)
-    reset_launches(agg_scan)
+    batch_launches = launch_counts()
+    reset_launches()
     t0 = time.perf_counter()
     single = [db.query(q) for q in queries]
     db._sync()
     single_s = time.perf_counter() - t0
-    single_launches = launch_counts(agg_scan)
-    if db.device.type == "cuda" and min(batch_launches) == 0:
+    single_launches = launch_counts()
+    if db.device.type == "cuda" and min(
+            batch_launches[k] for k in MAIN_PATH_KERNELS) == 0:
         raise AssertionError(f"query_batch launched a kernel no time: "
-                             f"(fused, quantile) = {batch_launches}")
+                             f"{batch_launches}")
     same = 0
     for q, a, b in zip(queries, batched, single):
         if not a.groups or not np.isfinite([g.estimate for g in a.groups]).all():
@@ -588,11 +846,130 @@ def phase_batch(torch, np, main_db) -> dict:
                                  f"{answer_bits(a)}\n{answer_bits(b)}")
         same += 1
     log(f"  query_batch: {len(queries)} queries in {1e3 * batch_s:.3f} ms, "
-        f"launches fused={batch_launches[0]} quantile={batch_launches[1]}")
+        "launches " + " ".join(f"{k}={batch_launches[k]}"
+                               for k in MAIN_PATH_KERNELS))
     log(f"  query() on the same engine: {1e3 * single_s:.3f} ms, launches "
-        f"fused={single_launches[0]} quantile={single_launches[1]}")
+        + " ".join(f"{k}={single_launches[k]}" for k in MAIN_PATH_KERNELS))
     log(f"phase 3b ok: {same}/{len(queries)} answers bit-identical")
     return {"launches": batch_launches, "single_launches": single_launches}
+
+
+# ---------------------------------------------------------------- phase 3c
+
+def batched_path_inputs(torch, db, n_queries: int):
+    """kernels.ops.agg_scan_batched's inputs for n_queries instantiations of
+    SUM(SessionTime) WHERE URL = u GROUP BY OS over the URL family's whole
+    block (k = K1): the materialized HT state (pads and ghosts at entry_key
+    inf), the URL column as one float32 atom row. Also the fused scan's
+    inputs for the same queries."""
+    from repro_torch.core import executor as exec_lib
+    phi = ("URL",)
+    striped = db._striped_for("sessions", phi)
+    k1 = db.families["sessions"][phi].ks[0]
+    freq, ek = exec_lib.derive_ht(striped.unit, striped.strat,
+                                  striped.freq_table)
+    ek = torch.where(striped.valid, ek, torch.full_like(ek, float("inf")))
+    cols = striped.columns
+    enc = db._encode("sessions")
+    ks = torch.full((n_queries,), k1, dtype=torch.float32, device=db.device)
+    consts = torch.tensor([[float(enc("URL", f"url{i:03d}"))]
+                           for i in range(n_queries)], dtype=torch.float32,
+                          device=db.device)
+    g = db._column_card("sessions", "OS")
+    values, codes = cols["SessionTime"], cols["OS"]
+    batched = (values, freq, ek, cols["URL"].to(torch.float32)[None, :],
+               codes, ks, consts)
+    fused = (values, striped.unit, striped.strat, striped.freq_table,
+             striped.valid, (cols["URL"],), codes, ks, consts)
+    return batched, fused, g, striped
+
+
+def weighted_sum_path_inputs(torch, db):
+    """kernels.ops.weighted_sum's inputs for the HT sums of SUM(SessionTime)
+    over the uniform family's whole block (k = K1): values, weights
+    w = 1/min(1, k/freq), mask = valid & entry_key < k."""
+    from repro_torch.core import executor as exec_lib
+    striped = db._striped_for("sessions", ())
+    k = torch.tensor(db.families["sessions"][()].ks[0], dtype=torch.float32,
+                     device=db.device)
+    freq, ek = exec_lib.derive_ht(striped.unit, striped.strat,
+                                  striped.freq_table)
+    weights = 1.0 / torch.clamp_max(k / freq, 1.0)
+    return (striped.columns["SessionTime"], weights,
+            striped.valid & (ek < k)), k, striped
+
+
+def phase_ops_path(torch, np, db) -> dict:
+    """The two kernels that no engine program reaches yet, driven through
+    their entry points (kernels.ops) at the main path's data, each with its
+    launch count set to 0 just before and read just after."""
+    from repro_torch.core import AggOp, Query
+    from repro_torch.core import estimators as est_lib
+    from repro_torch.core.types import CmpOp
+    from repro_torch.kernels import agg_scan, ops, ref
+    out = {}
+    batched, fused, g, striped = batched_path_inputs(torch, db, 32)
+    reset_launches()
+    mom = ops.agg_scan_batched(*batched, ((CmpOp.EQ,),), g)
+    db._sync()
+    out["agg_scan_batched"] = launch_counts()["agg_scan_batched"]
+    got = mom.stacked()
+    same = agg_scan.agg_scan_fused_cuda(*fused, ((CmpOp.EQ,),), (0,), g)
+    want = ref.agg_scan_batched_ref(*batched, ((CmpOp.EQ,),), g,
+                                    accumulate=torch.float64)
+    diff_fused = (got - same).abs().max().item()
+    b_worst = check_close(torch, "agg_scan_batched 32 x SUM WHERE URL=u "
+                          "GROUP BY OS", got, want, (0.0, 0.0),
+                          equals_fused=diff_fused == 0.0,
+                          launched=out["agg_scan_batched"] > 0)
+    # The answers: HT SUM per (URL, OS) against the exact sums.
+    tbl = db.tables["sessions"]
+    est = est_lib.estimate(AggOp.SUM, mom)
+    stderr, _, _ = est_lib.ci(est, 0.95)
+    half = est_lib.z_value(0.95) * stderr
+    n_url = db._column_card("sessions", "URL")
+    url, os_ = tbl.columns["URL"].long(), tbl.columns["OS"].long()
+    exact = torch.zeros(n_url * g, dtype=torch.float64, device=db.device)
+    exact.index_add_(0, url * g + os_, tbl.columns["SessionTime"].double())
+    exact = exact.view(n_url, g)[batched[-1][:, 0].long()].float()
+    err = (est.value - exact).abs()
+    inside = (err <= 2.0 * half + 1e-4 * exact.abs()).float().mean()
+    log(f"  agg_scan_batched: launches={out['agg_scan_batched']} "
+        f"max |diff| to agg_scan_fused {diff_fused!r}; "
+        f"{inside.item():.4f} of 32 x {g} HT sums within 2 CI half-widths "
+        f"of the exact sums")
+    if diff_fused != 0.0 or inside.item() < 0.9:
+        raise AssertionError("agg_scan_batched path failed")
+
+    args, k, ustriped = weighted_sum_path_inputs(torch, db)
+    reset_launches()
+    sums = torch.stack(ops.weighted_sum(*args))
+    db._sync()
+    out["weighted_sum"] = launch_counts()["weighted_sum"]
+    want = torch.stack(ref.weighted_sum_ref(*args, accumulate=torch.float64))
+    w_worst = check_close(torch, "weighted_sum HT SUM(SessionTime)", sums,
+                          want, (0.0, 0.0), rtol=WS_RTOL, atol=WS_ATOL,
+                          launched=out["weighted_sum"] > 0)
+    q = Query("sessions", AggOp.SUM, "SessionTime")
+    mom = db._run_batched(db._scan_key("sessions", q, ())[0], [k.item()],
+                          [()])[0]
+    moments = torch.stack([mom.wsum[0, 0], mom.wxsum[0, 0],
+                           mom.wx2sum[0, 0]])
+    ratio = tol_ratio(torch, sums, moments, WS_RTOL, WS_ATOL)
+    est = est_lib.estimate(AggOp.SUM, est_lib.moments_slice(mom, 0))
+    stderr, _, _ = est_lib.ci(est, 0.95)
+    half = est_lib.z_value(0.95) * stderr[0].item()
+    truth = db.exact_query(q).groups[0].estimate
+    gap = abs(sums[1].item() - truth)
+    log(f"  weighted_sum: launches={out['weighted_sum']} sums={sums.tolist()} "
+        f"vs the fused scan's (wsum, wxsum, wx2sum) tol_ratio={ratio:.4f}; "
+        f"HT SUM {sums[1].item()!r} exact {truth!r} gap {gap!r} "
+        f"(2 CI half-widths {2 * half!r})")
+    if ratio > 1.0 or gap > 2.0 * half + 1e-4 * abs(truth):
+        raise AssertionError("weighted_sum path failed")
+    log("phase 3c ok")
+    return {"launches": out, "agg_scan_batched": b_worst + (diff_fused,),
+            "weighted_sum": w_worst}
 
 
 # ----------------------------------------------------------------- phase 4
@@ -623,27 +1000,43 @@ def scan_inputs(torch, db, q):
     return phi, db._striped_for(q.table, phi), args, struct, slots, g
 
 
-def bound_for(args, ops_struct, mom, out_bytes) -> tuple[float, str]:
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
     """Least time for one call: bytes (each input read once, each output
     written once) over 3.35 TB/s against float32 operations over 67
-    TFLOP/s, counting this run's selected rows. mom is [..., 7, G]."""
-    (values, unit, strat, ftab, valid, acols, codes, ks, consts) = args
-    n = unit.shape[0]
-    streams = [t for t in (values, unit, strat, valid, codes, *acols)
-               if t is not None]
-    nbytes = sum(n * t.element_size() for t in streams) + \
-        4 * (ftab.numel() + ks.numel() + consts.numel()) + out_bytes
-    n_atoms = sum(len(c) for c in ops_struct)
-    selected = float(mom[..., 0, :].sum())
-    ops = n * (2 + n_atoms) * ks.numel() + 20.0 * selected
+    TFLOP/s."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound_for(args, ops_struct, mom, out_bytes) -> tuple[float, str]:
+    """The fused and quantile scans' bound, counting this run's selected
+    rows (mom is [..., 7, G])."""
+    (values, unit, strat, ftab, valid, acols, codes, ks, consts) = args
+    n = unit.shape[0]
+    n_atoms = sum(len(c) for c in ops_struct)
+    selected = float(mom[..., 0, :].sum())
+    return bound(nbytes(values, unit, strat, valid, codes, *acols, ftab, ks,
+                        consts) + out_bytes,
+                 n * (2 + n_atoms) * ks.numel() + 20.0 * selected)
+
+
+def log_time(name, label, striped, g, ms, plain_ms, bnd, card, extra=""):
+    log(f"  {name} {label}: slots={striped.n_local} G={g} kernel_ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]}) "
+        f"bound_share={bnd[0] / ms:.3f} library_ms=None (no single PyTorch "
+        f"call computes this function){extra} card={card}")
+
+
 def phase_times(torch, db, card: str) -> dict:
     from repro_torch.core import AggOp, Atom, CmpOp, Predicate, Query
-    from repro_torch.kernels import agg_scan, ref
+    from repro_torch.core.types import CmpOp as Op
+    from repro_torch.kernels import agg_scan, ref, weighted_sum
     t = "sessions"
     genre = Predicate.where(Atom("Genre", CmpOp.EQ, "genre03"))
     fused_shapes = [
@@ -674,8 +1067,8 @@ def phase_times(torch, db, card: str) -> dict:
                group_by=("URL",))),
     ]
     fused, quant = agg_scan.agg_scan_fused_cuda, agg_scan.quantile_scan_cuda
-    before = launch_counts(agg_scan)
-    rows = {"agg_scan_fused": [], "quantile_scan": []}
+    before = launch_counts()
+    rows = {name: [] for name in KERNELS}
     for label, q in fused_shapes:
         phi, striped, args, struct, slots, g = scan_inputs(torch, db, q)
         out = fused(*args, struct, slots, g)
@@ -683,15 +1076,12 @@ def phase_times(torch, db, card: str) -> dict:
                        warmup=3, reps=20)
         plain_ms = time_cuda(torch, lambda: ref.agg_scan_fused_ref(
             *args, struct, slots, g), warmup=1, reps=5)
-        bound_ms, bound_by = bound_for(args, struct, out, 4 * out.numel())
-        log(f"  agg_scan_fused {label}: family={phi} slots={striped.n_local} "
-            f"Q=1 G={g} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={bound_ms:.4f} ({bound_by}) "
-            f"bound_share={bound_ms / ms:.3f} library_ms=None (no single "
-            f"PyTorch call computes this function) card={card}")
+        bnd = bound_for(args, struct, out, 4 * out.numel())
+        log_time("agg_scan_fused", f"{label} family={phi} Q=1", striped, g,
+                 ms, plain_ms, bnd, card)
         rows["agg_scan_fused"].append(
             {"label": label, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": bound_ms, "bound_by": bound_by})
+             "bound_ms": bnd[0], "bound_by": bnd[1]})
     for label, q in quantile_shapes:
         phi, striped, args, struct, slots, g = scan_inputs(torch, db, q)
         lo, hi = db._family_range("sessions", phi, q.value_column)
@@ -703,20 +1093,15 @@ def phase_times(torch, db, card: str) -> dict:
             *qargs, struct, slots, g), warmup=1, reps=5)
         # The histogram half alone as one library call: bincount of the
         # flat (group, bin) index weighted by w (inputs made outside).
-        flat, w = ref.histogram_terms(*qargs, struct, slots)
+        flat, w = ref.histogram_terms(*qargs, struct, slots, g)
         lib_ms = time_cuda(torch, lambda: torch.bincount(
             flat, weights=w, minlength=g * 256), warmup=2, reps=10)
-        bound_ms, bound_by = bound_for(args, struct, mom,
-                                       4 * (mom.numel() + hist.numel()))
-        log(f"  quantile_scan {label}: family={phi} slots={striped.n_local} "
-            f"G={g} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={bound_ms:.4f} ({bound_by}) "
-            f"bound_share={bound_ms / ms:.3f} library_ms=None (no single "
-            f"PyTorch call computes moments and a grouped histogram) "
-            f"hist_bincount_ms={lib_ms:.4f} card={card}")
+        bnd = bound_for(args, struct, mom, 4 * (mom.numel() + hist.numel()))
+        log_time("quantile_scan", f"{label} family={phi}", striped, g, ms,
+                 plain_ms, bnd, card, f" hist_bincount_ms={lib_ms:.4f}")
         rows["quantile_scan"].append(
             {"label": label, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": bound_ms, "bound_by": bound_by,
+             "bound_ms": bnd[0], "bound_by": bnd[1],
              "hist_bincount_ms": lib_ms})
     # Q = 32 in one launch against 32 launches at Q = 1 (one template, the
     # City family's whole block, 32 constants).
@@ -737,10 +1122,112 @@ def phase_times(torch, db, card: str) -> dict:
     log(f"  agg_scan_fused Q=32 one launch: {q32_ms:.4f} ms; 32 launches at "
         f"Q=1: {q1x32_ms:.4f} ms (family={phi} slots={striped.n_local}, "
         f"COUNT WHERE City=c) card={card}")
-    agg_scan.agg_scan_fused_cuda.launches, \
-        agg_scan.quantile_scan_cuda.launches = before   # not main-path work
     rows["q32_ms"], rows["q1x32_ms"] = q32_ms, q1x32_ms
+
+    # agg_scan: the wide COUNT template's inputs on the URL block at K1.
+    wide = Query(t, AggOp.COUNT, group_by=("OS",), predicate=not_in(
+        Atom, CmpOp, Predicate, "URL", "url", 500, 200))
+    phi = ("URL",)
+    striped = db._striped_for(t, phi)
+    inputs, g, _ = wide_args(torch, db, wide, phi, db.families[t][phi].ks[0])
+    out = agg_scan.agg_scan_cuda(*inputs, g)
+    ms = time_cuda(torch, lambda: agg_scan.agg_scan_cuda(*inputs, g),
+                   warmup=3, reps=20)
+    plain_ms = time_cuda(torch, lambda: ref.agg_scan_ref(*inputs, g),
+                         warmup=1, reps=5)
+    bnd = bound(nbytes(*inputs, out), 20.0 * float(out[0].sum()))
+    log_time("agg_scan", "COUNT(*) WHERE URL NOT IN (200 URLs) GROUP BY OS "
+             "(URL family)", striped, g, ms, plain_ms, bnd, card)
+    rows["agg_scan"].append({"label": "COUNT(*) WHERE URL NOT IN (200 URLs) "
+                             "GROUP BY OS, URL block", "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": bnd[0],
+                             "bound_by": bnd[1]})
+
+    # agg_scan_batched: phase 3c's inputs at Q = 1 and Q = 32 (A = 1).
+    for n_q in (1, 32):
+        args, _, g, striped = batched_path_inputs(torch, db, n_q)
+        eq = ((Op.EQ,),)
+        out = agg_scan.agg_scan_batched_cuda(*args, eq, g)
+        ms = time_cuda(torch, lambda: agg_scan.agg_scan_batched_cuda(
+            *args, eq, g), warmup=3, reps=20)
+        plain_ms = time_cuda(torch, lambda: ref.agg_scan_batched_ref(
+            *args, eq, g), warmup=1, reps=3)
+        n = args[1].shape[0]
+        bnd = bound(nbytes(*args, out),
+                    n * 3.0 * n_q + 20.0 * float(out[:, 0].sum()))
+        label = f"Q={n_q} SUM(SessionTime) WHERE URL=u GROUP BY OS"
+        log_time("agg_scan_batched", label + " (URL family)", striped, g, ms,
+                 plain_ms, bnd, card)
+        rows["agg_scan_batched"].append(
+            {"label": label + ", URL block", "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bnd[0], "bound_by": bnd[1]})
+
+    # weighted_sum: phase 3c's inputs on the uniform block.
+    args, _, striped = weighted_sum_path_inputs(torch, db)
+    fn = weighted_sum.weighted_sum_cuda
+    sums = fn(*args)
+    ms = time_cuda(torch, lambda: fn(*args), warmup=3, reps=20)
+    plain_ms = time_cuda(torch, lambda: ref.weighted_sum_ref(*args),
+                         warmup=1, reps=5)
+    bnd = bound(nbytes(*args) + 12, 5.0 * float(args[2].sum()))
+    log_time("weighted_sum", "HT SUM(SessionTime) (uniform family)", striped,
+             1, ms, plain_ms, bnd, card)
+    rows["weighted_sum"].append(
+        {"label": "HT SUM(SessionTime), uniform block", "ms": ms,
+         "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1]})
+    del sums
+    reset_launches(before)      # timing launches are not main-path work
     return rows
+
+
+def kernels_record(worst, record, main, batch, ops_path, times,
+                   card: str) -> list[dict]:
+    """The kernels' JSON record: one entry per kernel, its launches on its
+    path, its worst disagreement with its plain version over every phase,
+    and its times at the main path's shapes."""
+    sources = {
+        "agg_scan": ("agg_scan.cu", "agg_scan.py:128"),
+        "agg_scan_batched": ("agg_scan_batched.cu", "agg_scan.py:220"),
+        "weighted_sum": ("weighted_sum.cu", "weighted_sum.py:42"),
+        "agg_scan_fused": ("agg_scan_fused.cu", "agg_scan.py:411"),
+        "quantile_scan": ("quantile_scan.cu", "agg_scan.py:557")}
+    kernels = []
+    for kname, (src, line) in sources.items():
+        rep = times[kname][0]
+        errs = [worst[kname]]
+        if kname in record:
+            errs.append((record[kname]["max_abs_diff"],
+                         record[kname]["tol_ratio"]))
+        if kname in ops_path:
+            errs.append(ops_path[kname])
+        entry = {
+            "name": kname, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/kernels/{line}",
+            "launches": (main["launches"][kname]
+                         if kname in MAIN_PATH_KERNELS
+                         else ops_path["launches"][kname]),
+            "path": ("BlinkDB.query" if kname in MAIN_PATH_KERNELS
+                     else f"kernels.ops.{kname}"),
+            "max_abs_err": max(e[0] for e in errs),
+            "max_abs_diff": max(e[0] for e in errs),
+            "max_tol_ratio": max(e[1] for e in errs),
+            "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+            "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+            "library_ms": None, "shape": rep["label"], "card": card,
+        }
+        if kname in MAIN_PATH_KERNELS:
+            entry["batch_launches"] = batch["launches"][kname]
+        if kname == "agg_scan_fused":
+            entry.update(q32_ms=times["q32_ms"], q1x32_ms=times["q1x32_ms"])
+        elif kname == "quantile_scan":
+            entry["hist_bincount_ms"] = rep["hist_bincount_ms"]
+        elif kname == "agg_scan_batched":
+            entry.update(q32_ms=times[kname][1]["ms"],
+                         max_abs_diff_vs_fused=max(worst[kname][2],
+                                                   ops_path[kname][2]))
+        kernels.append(entry)
+    return kernels
 
 
 def main() -> int:
@@ -775,11 +1262,15 @@ def main() -> int:
 
     log("phase 2: kernels vs their plain versions")
     worst = {"agg_scan_fused": phase_kernel_vs_plain(torch, np, "cuda"),
-             "quantile_scan": phase_quantile_vs_plain(torch, np, "cuda")}
+             "quantile_scan": phase_quantile_vs_plain(torch, np, "cuda"),
+             "agg_scan": phase_agg_scan_vs_plain(torch, np, "cuda"),
+             "agg_scan_batched": phase_batched_vs_plain(torch, np, "cuda"),
+             "weighted_sum": phase_weighted_sum_vs_plain(torch, np, "cuda")}
 
     log("phase 3: main path, BlinkDB.query")
     record = {"scans": [],
               "agg_scan_fused": {"max_abs_diff": 0.0, "tol_ratio": 0.0},
+              "agg_scan": {"max_abs_diff": 0.0, "tol_ratio": 0.0},
               "quantile_scan": {"max_abs_diff": 0.0, "tol_ratio": 0.0,
                                 "max_bin_gap": 0.0}}
     main = phase_main_path(torch, np, args.rows, record)
@@ -787,31 +1278,13 @@ def main() -> int:
     log("phase 3b: main path, BlinkDB.query_batch")
     batch = phase_batch(torch, np, main["db"])
 
+    log("phase 3c: kernels.ops.agg_scan_batched and kernels.ops.weighted_sum")
+    ops_path = phase_ops_path(torch, np, main["db"])
+
     log(f"phase 4: times at the main path's shapes ({card})")
     times = phase_times(torch, main["db"], card)
-    sources = {"agg_scan_fused": ("agg_scan_fused.cu", "agg_scan.py:411"),
-               "quantile_scan": ("quantile_scan.cu", "agg_scan.py:557")}
-    kernels = []
-    for i, (kname, (src, line)) in enumerate(sources.items()):
-        rep = times[kname][0]
-        err = max(worst[kname][0], record[kname]["max_abs_diff"])
-        entry = {
-            "name": kname, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{src}",
-            "replaces": f"src/repro/kernels/{line}",
-            "launches": main["launches"][i],
-            "batch_launches": batch["launches"][i],
-            "max_abs_err": err, "max_abs_diff": err,
-            "max_tol_ratio": max(worst[kname][1], record[kname]["tol_ratio"]),
-            "ms": rep["ms"], "plain_ms": rep["plain_ms"],
-            "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-            "library_ms": None, "shape": rep["label"], "card": card,
-        }
-        if kname == "agg_scan_fused":
-            entry.update(q32_ms=times["q32_ms"], q1x32_ms=times["q1x32_ms"])
-        else:
-            entry["hist_bincount_ms"] = rep["hist_bincount_ms"]
-        kernels.append(entry)
+    kernels = kernels_record(worst, record, main, batch, ops_path, times,
+                             card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

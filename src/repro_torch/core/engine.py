@@ -287,7 +287,8 @@ class BlinkDB:
                        k: float) -> tuple[est_lib.GroupedMoments,
                                           tuple[torch.Tensor, torch.Tensor]]:
         """ONE quantile-scan launch producing the grouped moments and the
-        histogram quantile (value, density) over the family's range."""
+        histogram quantile (value, density) over the family's range (the
+        selected rows' range for a template of 126 atoms or more)."""
         striped = self._striped_for(table_name, phi)
         key, vals = self._scan_key(table_name, q, phi)
         fn = self._quantile_programs.get(key)

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
@@ -47,9 +48,23 @@ _NDTRI_Q2 = (1.0, 6.02427039364742014255E0, 3.67983563856160859403E0,
 
 
 def _fma_f32(a, b, c) -> np.float32:
-    """Fused multiply-add rounded once to float32 (a float32 product is exact
-    in float64, so one float64 add and one rounding reproduce a true FMA)."""
-    return np.float32(np.float64(a) * np.float64(b) + np.float64(c))
+    """Fused multiply-add of float32 operands rounded once to float32. The
+    float32 product is exact in float64; the float64 sum s is not, so its
+    exact residual (TwoSum) decides the one case where rounding s to
+    float32 would round twice: s on a float32 midpoint with a nonzero
+    residual goes to the neighbour on the residual's side."""
+    p = float(np.float64(a) * np.float64(b))
+    cd = float(c)
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    r = np.float32(s)
+    if err != 0.0 and math.isfinite(s):
+        below = r if float(r) <= s else np.nextafter(r, np.float32(-np.inf))
+        above = np.nextafter(below, np.float32(np.inf))
+        if np.isfinite(above) and (float(below) + float(above)) * 0.5 == s:
+            r = above if err > 0.0 else below
+    return r
 
 
 def _polyval_f32(coeffs, x: np.float32) -> np.float32:

@@ -13,6 +13,13 @@ and dictionary-encoded data columns at their narrow int8/int16 width. The
 derived HT state, freq = freq_table[strat] and entry_key = unit·freq, is
 re-derived by every scan. Pad slots carry unit=+inf, so their entry_key is
 +inf and they fail every prefix test.
+
+A template wider than the scan kernels' constant block (the reference's
+CONST_LANES = 128 lanes: k and 127 atoms for the fused scan; k, lo, hi and
+125 atoms for the quantile scan) takes the reference's wide path: the HT
+state and the predicate are evaluated with torch ops, and the grouped
+reduction runs in the agg_scan kernel (or, for QUANTILE, in one quantile
+scan over the selection as a single atom column).
 """
 from __future__ import annotations
 
@@ -24,10 +31,13 @@ import torch
 from repro_torch.core import estimators as est_lib
 from repro_torch.core.sampling import SampleFamily
 from repro_torch.core.types import QUANTILE_BINS, CmpOp, Predicate, cmp_fns
-from repro_torch.kernels import agg_scan as kernel_lib
 from repro_torch.kernels import ops as kops
 
 _CMP = cmp_fns()
+# The reference kernels' per-query constant block: lane 0 holds k, the
+# quantile scan's lanes 1 and 2 hold lo and hi, the rest the atoms' constants
+# (kernels/agg_scan.py MAX_ATOMS = 127 is what the port's kernels hold).
+_CONST_LANES = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +54,62 @@ def bind_predicate(pred: Predicate, encode) -> tuple[tuple[BoundAtom, ...], ...]
         tuple(BoundAtom(a.column, a.op, float(encode(a.column, a.value)))
               for a in conj.atoms)
         for conj in pred.disjuncts)
+
+
+def predicate_mask(columns: dict[str, torch.Tensor],
+                   bound: tuple[tuple[BoundAtom, ...], ...]) -> torch.Tensor:
+    """Evaluate a bound DNF predicate over column tensors -> bool[n]; no
+    conjunction at all is FALSE, as in the reference."""
+    if not bound:
+        any_col = next(iter(columns.values()))
+        return torch.zeros(any_col.shape, dtype=torch.bool,
+                           device=any_col.device)
+    struct, vals = pred_structure(bound)
+    return eval_pred(struct, columns, vals)
+
+
+def scan_moments(columns: dict[str, torch.Tensor], freq: torch.Tensor,
+                 bound_pred: tuple[tuple[BoundAtom, ...], ...],
+                 value_col: str | None, group_col: str | None, n_groups: int,
+                 k: float, prefix_mask: torch.Tensor,
+                 *, use_pallas: bool = False) -> est_lib.GroupedMoments:
+    """One scan over a family prefix from its materialized HT state: the
+    predicate within `prefix_mask`, reduced by selection_moments."""
+    k = torch.tensor(k, dtype=torch.float32, device=freq.device)
+    return selection_moments(predicate_mask(columns, bound_pred) & prefix_mask,
+                             freq, k, columns, value_col, group_col, n_groups,
+                             use_pallas=use_pallas)
+
+
+def agg_scan_inputs(sel: torch.Tensor, freq: torch.Tensor, k: torch.Tensor,
+                    cols: dict[str, torch.Tensor], value_col: str | None,
+                    group_col: str | None) -> tuple:
+    """(values, rates, selection, group codes) of one query's selection as
+    kops.agg_scan takes them: rates = min(1, k/freq) with k a float32
+    scalar tensor; values and codes at their stored widths, None for COUNT
+    (every value 1) and for an ungrouped scan (one group)."""
+    return (cols[value_col] if value_col is not None else None,
+            torch.clamp_max(k / freq, 1.0), sel,
+            cols[group_col] if group_col is not None else None)
+
+
+def selection_moments(sel: torch.Tensor, freq: torch.Tensor, k: torch.Tensor,
+                      cols: dict[str, torch.Tensor], value_col: str | None,
+                      group_col: str | None, n_groups: int,
+                      *, use_pallas: bool = True) -> est_lib.GroupedMoments:
+    """Grouped HT moments of a selection. `use_pallas=True` reduces through
+    kernels.ops.agg_scan (the CUDA kernel on the card, its plain version on
+    the CPU), the reference's drop-in for estimators.grouped_moments, which
+    `use_pallas=False` runs."""
+    values, rates, sel, gcodes = agg_scan_inputs(sel, freq, k, cols,
+                                                 value_col, group_col)
+    if use_pallas:
+        return kops.agg_scan(values, rates, sel, gcodes, n_groups)
+    if values is None:
+        values = torch.ones_like(freq)
+    if gcodes is None:
+        gcodes = torch.zeros(freq.shape, dtype=torch.int8, device=freq.device)
+    return est_lib.grouped_moments(values, rates, sel, gcodes, n_groups)
 
 
 # Shape granularity of the striped layout: rows are padded up to a multiple
@@ -152,6 +218,44 @@ def scan_args(striped: StripedFamily) -> tuple:
             striped.freq_table, striped.valid)
 
 
+def derive_ht(unit: torch.Tensor, strat: torch.Tensor,
+              freq_table: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(freq, entry_key) derived from the stored sampling primitives, the
+    torch mirror of the kernels' derivation: the same float32 gather and
+    multiply."""
+    freq = freq_table[strat.to(torch.int64)]
+    return freq, unit * freq
+
+
+def query_selection(pred: torch.Tensor, k: torch.Tensor, unit, strat,
+                    freq_table, valid) -> tuple[torch.Tensor, torch.Tensor]:
+    """(freq, selection) of one query: derive_ht's freq, and the predicate
+    mask `pred` within the valid slots of the prefix entry_key < k (k a
+    float32 scalar tensor). With selection_moments these are the
+    reference's jnp steps of the wide path."""
+    freq, ek = derive_ht(unit, strat, freq_table)
+    return freq, pred & valid & (ek < k)
+
+
+def run_query_striped(striped: StripedFamily, bound_pred,
+                      value_col: str | None, group_col: str | None,
+                      n_groups: int, k: float, mesh=None,
+                      use_pallas: bool = False) -> est_lib.GroupedMoments:
+    """Un-compiled execution of one query over a striped family (tests and
+    one-off scans): the steps of the engine's wide path, with the bound
+    predicate's mask. One device only; a mesh comes with the multi-device
+    slice of the port."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "run_query_striped over a mesh comes with the multi-device "
+            "slice of the port (ROADMAP queue 1 item 9)")
+    k_t = torch.tensor(k, dtype=torch.float32, device=striped.unit.device)
+    freq, sel = query_selection(predicate_mask(striped.columns, bound_pred),
+                                k_t, *scan_args(striped)[1:])
+    return selection_moments(sel, freq, k_t, striped.columns, value_col,
+                             group_col, n_groups, use_pallas=use_pallas)
+
+
 def pred_structure(bound: tuple[tuple[BoundAtom, ...], ...]):
     """Split a bound predicate into (static structure, constants):
     structure = ((column, op), ...) per conjunction; constants = matching
@@ -210,16 +314,38 @@ def dedup_atom_slots(atoms) -> tuple[tuple[str, ...], tuple[int, ...]]:
 
 
 def _kernel_template(struct):
-    """(ops_struct, atom column names, atom slots) of a template the scan
-    kernels take; a template with more atoms than their descriptor holds
-    is refused on either device."""
+    """(ops_struct, atom column names, atom slots) of a template as the
+    scan kernels take it."""
     atoms = flat_atoms(struct)
-    if len(atoms) > kernel_lib.MAX_ATOMS:
-        raise NotImplementedError(
-            f"template has {len(atoms)} predicate atoms; the scan kernels "
-            f"hold at most {kernel_lib.MAX_ATOMS}")
     ops_struct = tuple(tuple(op for _, op in conj) for conj in struct)
     return (ops_struct, *dedup_atom_slots(atoms))
+
+
+def fits_const_block(struct, lanes_taken: int) -> bool:
+    """Whether a template's constants fit the reference kernels' constant
+    block beside `lanes_taken` per-query lanes (1 for the fused scan: k;
+    3 for the quantile scan: k, lo, hi). Wider templates take the wide
+    path, as the reference's jnp fallback does."""
+    return len(flat_atoms(struct)) + lanes_taken <= _CONST_LANES
+
+
+def _make_wide_batched_fn(struct, value_col, group_col, n_groups):
+    """The batched program of a template over 127 atoms: per query, the
+    wide path's torch steps (query_selection over eval_pred_flat), then one
+    agg_scan launch for the grouped reduction (selection_moments). Query
+    q's moments do not depend on the batch."""
+
+    def fn(ks, pred_consts, cols, unit, strat, freq_table, valid):
+        out = []
+        for q in range(ks.shape[0]):
+            freq, sel = query_selection(
+                eval_pred_flat(struct, cols, pred_consts[q]), ks[q], unit,
+                strat, freq_table, valid)
+            out.append(selection_moments(sel, freq, ks[q], cols, value_col,
+                                         group_col, n_groups).stacked())
+        return est_lib.GroupedMoments.from_stacked(torch.stack(out))
+
+    return fn
 
 
 def make_batched_query_fn(struct, value_col: str | None,
@@ -230,7 +356,10 @@ def make_batched_query_fn(struct, value_col: str | None,
     caps), pred_consts f32[Q, A] (per-query constants in flat_atoms order),
     Q at most 64. One launch of the fused kernel (kernels/ops.py: the CUDA
     kernel on the card, its plain version on the CPU); query q of it has
-    the bits of the same query launched alone."""
+    the bits of the same query launched alone. A template over 127 atoms
+    runs the wide path instead: one agg_scan launch per query."""
+    if not fits_const_block(struct, 1):
+        return _make_wide_batched_fn(struct, value_col, group_col, n_groups)
     ops_struct, acol_names, atom_slots = _kernel_template(struct)
 
     def fn(ks, pred_consts, cols, unit, strat, freq_table, valid):
@@ -259,8 +388,8 @@ def make_query_fn(struct, value_col: str | None, group_col: str | None,
     fn(k, pred_vals, cols, unit, strat, freq_table, valid) -> GroupedMoments
     over the primitive layout. k and the predicate constants are arguments,
     so every instantiation of the template reuses it. The scan is the
-    batched program at Q = 1. A template with more atoms than the kernel's
-    descriptor holds is refused on either device."""
+    batched program at Q = 1 (for a template over 127 atoms, the wide
+    path's agg_scan launch)."""
     batched = make_batched_query_fn(struct, value_col, group_col, n_groups)
 
     def fn(k, pred_vals, cols, unit, strat, freq_table, valid):
@@ -276,9 +405,23 @@ def make_query_fn(struct, value_col: str | None, group_col: str | None,
 # ---------------------------------------------------------------------------
 
 def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """a·b + c rounded once to float32, as a fused multiply-add (the float32
-    product is exact in float64)."""
-    return (a.double() * b.double() + c.double()).to(torch.float32)
+    """a·b + c rounded once to float32, as a fused multiply-add. The
+    float32 product is exact in float64; the float64 sum s is not, so its
+    exact residual (TwoSum) decides the one case where rounding s to
+    float32 would round twice: s on a float32 midpoint with a nonzero
+    residual goes to the neighbour on the residual's side."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    r = s.to(torch.float32)
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=r.device)
+    below = torch.where(r.double() > s, torch.nextafter(r, -inf), r)
+    above = torch.nextafter(below, inf)
+    tie = ((below.double() + above.double()) * 0.5 == s) & (err != 0) \
+        & torch.isfinite(above)
+    return torch.where(tie, torch.where(err > 0, above, below), r)
 
 
 def _cumsum_bins(hist: torch.Tensor) -> torch.Tensor:
@@ -339,6 +482,16 @@ def hist_to_quantile(hist: torch.Tensor, lo, hi, q
     return torch.where(empty, zero, qval), torch.where(empty, zero, density)
 
 
+def _masked_range(v: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """f32[2] (min, max) of v where sel; an empty selection gives the
+    finite range (0, 0), so every group then reports (0, 0)."""
+    inf = torch.tensor(float("inf"), dtype=v.dtype, device=v.device)
+    rng = (torch.stack([torch.where(sel, v, inf).min(),
+                        torch.where(sel, v, -inf).max()]) if v.numel()
+           else torch.stack([inf, -inf]))
+    return torch.where(torch.isfinite(rng), rng, torch.zeros_like(rng))
+
+
 def grouped_quantile(values: torch.Tensor, weights: torch.Tensor,
                      gcodes: torch.Tensor, n_groups: int, q: float,
                      accumulate: torch.dtype = torch.float32
@@ -351,13 +504,7 @@ def grouped_quantile(values: torch.Tensor, weights: torch.Tensor,
     f32 = torch.float32
     n_bins = QUANTILE_BINS
     v = values.to(f32)
-    sel = weights > 0
-    inf = torch.tensor(float("inf"), dtype=f32, device=v.device)
-    lo = torch.where(sel, v, inf).min() if v.numel() else inf
-    hi = torch.where(sel, v, -inf).max() if v.numel() else -inf
-    # Empty selection: force a finite range; every group then reports (0, 0).
-    lo = torch.where(torch.isfinite(lo), lo, torch.zeros_like(lo))
-    hi = torch.where(torch.isfinite(hi), hi, torch.zeros_like(hi))
+    lo, hi = _masked_range(v, weights > 0)
     span = torch.clamp_min(hi - lo, 1e-12)
     # Clipped before the cast: equal to the reference's cast-then-clip on
     # every row with positive weight, and defined on the others.
@@ -368,6 +515,15 @@ def grouped_quantile(values: torch.Tensor, weights: torch.Tensor,
     return hist_to_quantile(hist.to(f32).reshape(n_groups, n_bins), lo, hi, q)
 
 
+def selected_range(values: torch.Tensor,
+                   sel: torch.Tensor) -> tuple[float, float]:
+    """(min, max) as host floats of the selected values as float32: the
+    reference's data range (the rows with positive weight); (0, 0) when
+    nothing is selected."""
+    lo, hi = _masked_range(values.to(torch.float32), sel).tolist()
+    return lo, hi
+
+
 def make_quantile_fn(struct, value_col: str | None, group_col: str | None,
                      n_groups: int):
     """The one-pass QUANTILE program of one (family × template): returns
@@ -376,8 +532,18 @@ def make_quantile_fn(struct, value_col: str | None, group_col: str | None,
     launch gives the grouped moments and the HT-weighted histogram over the
     family-global range [lo, hi] (the engine's `_family_range`); the
     quantile is read off that histogram. This is the reference's kernel
-    path (`use_pallas=True`) on either device; its jnp path bins over the
-    data's range instead."""
+    path (`use_pallas=True`) on either device.
+
+    A template of 126 atoms or more does not fit the reference kernel's
+    constant block beside k, lo and hi, and takes the reference's jnp path
+    instead, which bins over the data's range: the selection (valid, prefix
+    and predicate) is evaluated with torch ops, lo and hi are the min and
+    max of the selected values (the `lo`, `hi` arguments are unused), and
+    one quantile-scan launch takes the selection as its single atom column
+    (template ((EQ,),), constant 1). The moments equal agg_scan's over the
+    same selection bit for bit, so query_batch stays equal to query()."""
+    if not fits_const_block(struct, 3):
+        return _make_wide_quantile_fn(struct, value_col, group_col, n_groups)
     ops_struct, acol_names, atom_slots = _kernel_template(struct)
 
     def fn(k, pred_vals, level, lo, hi, cols, unit, strat, freq_table, valid):
@@ -388,6 +554,26 @@ def make_quantile_fn(struct, value_col: str | None, group_col: str | None,
             tuple(cols[c] for c in acol_names),
             cols[group_col] if group_col is not None else None,
             ks, lo, hi, consts, ops_struct, atom_slots, n_groups)
+        qval, dens = hist_to_quantile(hist, lo, hi, level)
+        return mom, qval, dens
+
+    return fn
+
+
+def _make_wide_quantile_fn(struct, value_col, group_col, n_groups):
+    """make_quantile_fn's program for a template of 126 atoms or more."""
+
+    def fn(k, pred_vals, level, lo, hi, cols, unit, strat, freq_table, valid):
+        ks, consts = _query_consts(k, pred_vals, unit.device)
+        _, sel = query_selection(eval_pred_flat(struct, cols, consts[0]),
+                                 ks[0], unit, strat, freq_table, valid)
+        values = cols[value_col]
+        lo, hi = selected_range(values, sel)
+        one = torch.ones((1, 1), dtype=torch.float32, device=unit.device)
+        mom, hist = kops.quantile_scan(
+            values, unit, strat, freq_table, valid, (sel,),
+            cols[group_col] if group_col is not None else None,
+            ks, lo, hi, one, ((CmpOp.EQ,),), (0,), n_groups)
         qval, dens = hist_to_quantile(hist, lo, hi, level)
         return mom, qval, dens
 

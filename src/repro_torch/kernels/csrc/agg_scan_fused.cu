@@ -5,8 +5,8 @@
 // Replaces the TPU kernel `agg_scan_fused_pallas`
 // (src/repro/kernels/agg_scan.py:411, body `_fused_scan_kernel` :340 with
 // `_derive_freq` :293 and `_eval_dnf` :317). The row semantics, the
-// moments pass and the chunk reduction live in scan_common.cuh, which the
-// quantile kernel shares.
+// moments pass and the chunk reduction live in scan_common.cuh, which every
+// kernel of the port includes (Params is this kernel's row producer).
 //
 // What bounds it: device-memory bytes. The scan streams each row's
 // primitives once (values, unit, strat, valid, group code, each distinct

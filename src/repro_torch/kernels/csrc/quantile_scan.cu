@@ -64,7 +64,7 @@ hist_partials(const __grid_constant__ HistParams h) {
   const int g0 = blockIdx.x * kHistGroups;
   const int g_hi = min(g0 + kHistGroups, p.G);
   const long long chunk = blockIdx.y;
-  scan::load_ftab(p, s_ftab);
+  p.load_shared(s_ftab);
   for (int j = 0; j < kHistGroups; ++j) s_hist[j][tid] = 0.0f;
   const float k = p.ks[0];
   const float span = fmaxf(h.hi - h.lo, 1e-12f);

@@ -14,20 +14,32 @@ from repro_torch.core.types import QUANTILE_BINS, cmp_fns
 _CMP = cmp_fns()
 
 
-def agg_scan_ref(values: torch.Tensor, rates: torch.Tensor,
-                 mask: torch.Tensor, group_codes: torch.Tensor, n_groups: int,
+def agg_scan_ref(values: torch.Tensor | None, rates: torch.Tensor,
+                 mask: torch.Tensor, group_codes: torch.Tensor | None,
+                 n_groups: int,
                  accumulate: torch.dtype = torch.float32) -> torch.Tensor:
     """Fused predicate + HT-weighted grouped moments: f32[7, n_groups] in
     GroupedMoments field order (n, wsum, wxsum, wx2sum, var_count, var_sum,
     var_sum2). Per-row terms are float32; `accumulate` is the dtype the
     index_add_ sums run in (float64 gives an order-independent yardstick
-    for the kernel's float32 sums at full size)."""
+    for the kernel's float32 sums at full size). Rows whose code lies
+    outside [0, n_groups) land in no group, as the reference's one-hot and
+    segment_sum drop them. values None reads every value as 1 (COUNT);
+    group_codes None puts every row in group 0."""
+    if values is None:
+        values = torch.ones_like(rates)
+    if group_codes is None:
+        group_codes = torch.zeros(rates.shape, dtype=torch.int32,
+                                  device=rates.device)
+    g = group_codes.to(torch.int64)
+    keep = (g >= 0) & (g < n_groups)
+    if not bool(keep.all()):
+        values, rates, mask, g = values[keep], rates[keep], mask[keep], g[keep]
     m = mask.to(torch.float32)
     r = rates.to(torch.float32)
     x = values.to(torch.float32)
     w = m / r
     vfac = m * (1.0 - r) / (r * r)
-    g = group_codes.to(torch.int64)
 
     def seg(v):
         out = torch.zeros(n_groups, dtype=accumulate, device=v.device)
@@ -36,6 +48,19 @@ def agg_scan_ref(values: torch.Tensor, rates: torch.Tensor,
     return torch.stack([seg(m), seg(w), seg(w * x), seg(w * x * x),
                         seg(vfac), seg(vfac * x), seg(vfac * x * x)]
                        ).to(torch.float32)
+
+
+def weighted_sum_ref(values: torch.Tensor, weights: torch.Tensor,
+                     mask: torch.Tensor, accumulate: torch.dtype = torch.float32
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Masked HT-weighted reductions: (Σ w·m, Σ w·m·x, Σ w·m·x²), float32
+    scalars (the reference's `weighted_sum_ref`). Per-row terms are
+    float32; `accumulate` is the dtype the sums run in."""
+    m = mask.to(torch.float32)
+    w = weights.to(torch.float32) * m
+    x = values.to(torch.float32)
+    return tuple(t.to(accumulate).sum().to(torch.float32)
+                 for t in (w, w * x, w * x * x))
 
 
 def dnf_mask(atom_cols, ops_struct, consts: torch.Tensor, shape,
@@ -67,7 +92,8 @@ def agg_scan_batched_ref(values: torch.Tensor, freq: torch.Tensor,
       rates_q  = min(1, ks[q] / freq)
     then the 7-statistic grouped reduction of agg_scan_ref. Atom i
     (flattened template order) compares atom_cols[i] against
-    pred_consts[q, i]. Returns f32[Q, 7, n_groups]."""
+    pred_consts[q, i]; codes outside [0, n_groups) land in no group.
+    Returns f32[Q, 7, n_groups]."""
     ks = ks.to(torch.float32)
     pred_consts = pred_consts.to(torch.float32)
     freq = freq.to(torch.float32)
@@ -119,12 +145,13 @@ def histogram_terms(values: torch.Tensor | None, unit: torch.Tensor,
                     valid: torch.Tensor, atom_cols,
                     group_codes: torch.Tensor | None, k: torch.Tensor,
                     lo: float, hi: float, pred_consts: torch.Tensor,
-                    ops_struct, atom_slots
+                    ops_struct, atom_slots, n_groups: int
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """(flat index g·256 + bin, weight) of every row for the quantile
     scan's histogram: the weight is w = m / r (0 off the query's prefix and
-    predicate), the bin int(clip((v - lo) / max(hi - lo, 1e-12) · 256,
-    0, 255)), clipped in float32 before the cast."""
+    predicate, and for codes outside [0, n_groups)), the bin
+    int(clip((v - lo) / max(hi - lo, 1e-12) · 256, 0, 255)), clipped in
+    float32 before the cast."""
     device = unit.device
     v = (values.to(torch.float32) if values is not None else
          torch.ones(unit.shape, dtype=torch.float32, device=device))
@@ -143,7 +170,10 @@ def histogram_terms(values: torch.Tensor | None, unit: torch.Tensor,
                                         device=device) - lo_t, 1e-12)
     bins = torch.clamp((v - lo_t) / span * QUANTILE_BINS, 0.0,
                        QUANTILE_BINS - 1).to(torch.int64)
-    return g * QUANTILE_BINS + bins, w
+    # A code outside [0, G) lands in no group: weight 0 at index 0.
+    keep = (g >= 0) & (g < n_groups)
+    w = torch.where(keep, w, torch.zeros_like(w))
+    return torch.where(keep, g * QUANTILE_BINS + bins, torch.zeros_like(g)), w
 
 
 def quantile_scan_ref(values: torch.Tensor | None, unit: torch.Tensor,
@@ -168,7 +198,7 @@ def quantile_scan_ref(values: torch.Tensor | None, unit: torch.Tensor,
                              ops_struct, atom_slots, n_groups, accumulate)[0]
     flat, w = histogram_terms(values, unit, strat, freq_table, valid,
                               atom_cols, group_codes, k, lo, hi, pred_consts,
-                              ops_struct, atom_slots)
+                              ops_struct, atom_slots, n_groups)
     hist = torch.zeros(n_groups * QUANTILE_BINS, dtype=accumulate,
                        device=unit.device)
     hist.index_add_(0, flat, w.to(accumulate))

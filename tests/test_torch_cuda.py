@@ -115,16 +115,28 @@ def test_engine_on_card_matches_engine_on_cpu(cuda_device):
 
 @pytest.mark.cuda
 def test_engine_on_card_refuses_128_atoms(cuda_device):
-    db = BlinkDB(EngineConfig(k1=800.0, m=3), device=cuda_device)
-    db.register_table("sessions", table_lib.from_columns(
-        "sessions", synth.sessions_table(20_000, seed=3)))
-    db.add_family("sessions", ())
+    """The fused kernel's wrapper refuses a 128-atom template and counts no
+    launch; the engine on the card does not refuse it: it answers through
+    agg_scan (the wide path) with no fused launch, and agrees with the
+    engine on the CPU."""
+    dbs = []
+    for dev in ("cpu", cuda_device):
+        db = BlinkDB(EngineConfig(k1=800.0, m=3), device=dev)
+        db.register_table("sessions", table_lib.from_columns(
+            "sessions", synth.sessions_table(20_000, seed=3)))
+        db.add_family("sessions", ())
+        dbs.append(db)
     q = Query("sessions", AggOp.COUNT, predicate=Predicate.where(
         *[Atom("dt", CmpOp.GE, i % 3) for i in range(128)]))
     before = agg_scan.agg_scan_fused_cuda.launches
-    with pytest.raises(NotImplementedError, match="at most 127"):
-        db.query(q)
+    wide = agg_scan.agg_scan_cuda.launches
+    b = dbs[1].query(q)
     assert agg_scan.agg_scan_fused_cuda.launches == before
+    assert agg_scan.agg_scan_cuda.launches > wide
+    a = dbs[0].query(q)
+    assert (b.sample_phi, b.sample_k) == (a.sample_phi, a.sample_k)
+    np.testing.assert_allclose([g.estimate for g in b.groups],
+                               [g.estimate for g in a.groups], rtol=1e-4)
     t = _case(np.random.default_rng(9), 4099, 6, 1, 128, cuda_device)
     with pytest.raises(ValueError, match="atoms"):
         _call(agg_scan.agg_scan_fused_cuda, t, ((CmpOp.GE,) * 128,),
@@ -216,3 +228,144 @@ def test_engine_quantile_and_batch_on_card(cuda_device):
             np.testing.assert_allclose([gb.estimate, gb.ci_low, gb.ci_high],
                                        [ga.estimate, ga.ci_low, ga.ci_high],
                                        rtol=1e-4)
+
+
+# ------------------------------------------- agg_scan, agg_scan_batched,
+# ------------------------------------------- weighted_sum
+
+def _rate_case(rng, n, n_groups, dtype, device):
+    """agg_scan inputs: rates from a frequency table, a random mask, and
+    codes with a few outside [0, n_groups) that must land in no group."""
+    values = (rng.integers(0, 100, n) if dtype == np.int32
+              else rng.normal(5, 2, n)).astype(dtype)
+    freq = rng.integers(1, 500, n).astype(np.float32)
+    codes = rng.integers(-2, n_groups + 2, n).astype(np.int32)
+    host = (values, np.minimum(1.0, 100.0 / freq).astype(np.float32),
+            rng.random(n) < 0.5, codes)
+    return tuple(torch.from_numpy(a).to(device) for a in host)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, n_groups, dtype", [
+    (1, 1, np.float32), (4099, 6, np.float16), (100_003, 600, np.int32),
+    (100_003, 6, np.float32)])
+def test_agg_scan_kernel_matches_plain_and_repeats_bitwise(cuda_device, n,
+                                                           n_groups, dtype):
+    args = _rate_case(np.random.default_rng(n + n_groups), n, n_groups, dtype,
+                      cuda_device)
+    before = agg_scan.agg_scan_cuda.launches
+    got = agg_scan.agg_scan_cuda(*args, n_groups)
+    again = agg_scan.agg_scan_cuda(*args, n_groups)
+    assert agg_scan.agg_scan_cuda.launches == before + 2
+    want = ref.agg_scan_ref(*args, n_groups, accumulate=torch.float64)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_groups", [1, 6, 500])
+def test_agg_scan_equals_quantile_moments_over_a_selection(cuda_device,
+                                                           n_groups):
+    """The wide QUANTILE path's promise: quantile_scan over a selection
+    given as one atom column has the moments of agg_scan over the same
+    selection and rates, bit for bit."""
+    rng = np.random.default_rng(50 + n_groups)
+    t = _case(rng, 100_003, n_groups, 1, 2, cuda_device)
+    k = t["ks"][:1]
+    freq = t["freq_table"][t["strat"].long()]
+    sel = t["valid"] & (t["unit"] * freq < k[0]) & (t["atom_cols"][0] > 3)
+    rates = torch.clamp_max(k[0] / freq, 1.0)
+    got = agg_scan.agg_scan_cuda(t["values"], rates, sel, t["group_codes"],
+                                 n_groups)
+    lo, hi = t["values"].min().item(), t["values"].max().item()
+    mom, _ = agg_scan.quantile_scan_cuda(
+        t["values"], t["unit"], t["strat"], t["freq_table"], t["valid"],
+        (sel,), t["group_codes"], k, lo, hi,
+        torch.ones((1, 1), device=cuda_device), ((CmpOp.EQ,),), (0,),
+        n_groups)
+    assert torch.equal(got, mom)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_groups", [1, 6])
+def test_agg_scan_kernel_absent_values_and_codes(cuda_device, n_groups):
+    """values None (COUNT) reads 1 and group_codes None is group 0: the
+    kernel's bits equal its bits on explicit ones and zeros."""
+    values, rates, mask, codes = _rate_case(np.random.default_rng(80),
+                                            100_003, n_groups, np.float32,
+                                            cuda_device)
+    ones, zeros = torch.ones_like(rates), torch.zeros_like(codes)
+    for args, full in (((None, rates, mask, codes), (ones, rates, mask, codes)),
+                       ((values, rates, mask, None),
+                        (values, rates, mask, zeros)),
+                       ((None, rates, mask, None), (ones, rates, mask, zeros))):
+        got = agg_scan.agg_scan_cuda(*args, n_groups)
+        assert torch.equal(got, agg_scan.agg_scan_cuda(*full, n_groups))
+        torch.testing.assert_close(
+            got, ref.agg_scan_ref(*args, n_groups, accumulate=torch.float64),
+            rtol=RTOL, atol=ATOL)
+
+
+def _batched_from_fused(t, n_atoms):
+    """agg_scan_batched inputs with freq = freq_table[strat] and
+    entry_key = where(valid, unit·freq, inf), the atoms as f32 rows."""
+    freq = t["freq_table"][t["strat"].long()]
+    ek = torch.where(t["valid"], t["unit"] * freq,
+                     torch.full_like(freq, float("inf")))
+    atoms = torch.stack([t["atom_cols"][0].float()] * n_atoms) if n_atoms \
+        else torch.zeros((0, freq.shape[0]), device=freq.device)
+    return t["values"], freq, ek, atoms, t["group_codes"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q, n_atoms, n_groups", [(1, 0, 1), (7, 1, 6),
+                                                  (65, 127, 6), (64, 1, 500)])
+def test_batched_kernel_matches_plain_and_fused_bitwise(cuda_device, q,
+                                                        n_atoms, n_groups):
+    rng = np.random.default_rng(60 + q + n_atoms)
+    t = _case(rng, 100_003, n_groups, q, n_atoms, cuda_device)
+    struct = ((CmpOp.GE,) * n_atoms,) if n_atoms else ()
+    args = (*_batched_from_fused(t, n_atoms), t["ks"], t["pred_consts"],
+            struct, n_groups)
+    before = agg_scan.agg_scan_batched_cuda.launches
+    got = agg_scan.agg_scan_batched_cuda(*args)
+    again = agg_scan.agg_scan_batched_cuda(*args)
+    assert agg_scan.agg_scan_batched_cuda.launches == \
+        before + 2 * -(-q // agg_scan.MAX_QUERIES)
+    want = ref.agg_scan_batched_ref(*args, accumulate=torch.float64)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, again)
+    fused = torch.cat([
+        _call(agg_scan.agg_scan_fused_cuda,
+              dict(t, ks=t["ks"][i:i + 64], pred_consts=t["pred_consts"][i:i + 64]),
+              struct, (0,) * n_atoms, n_groups)
+        for i in range(0, q, 64)])
+    assert (got - fused).abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+def test_batched_kernel_refuses_128_atoms(cuda_device):
+    t = _case(np.random.default_rng(70), 4099, 6, 1, 128, cuda_device)
+    before = agg_scan.agg_scan_batched_cuda.launches
+    with pytest.raises(ValueError, match="atoms"):
+        agg_scan.agg_scan_batched_cuda(*_batched_from_fused(t, 128), t["ks"],
+                                       t["pred_consts"], ((CmpOp.GE,) * 128,),
+                                       6)
+    assert agg_scan.agg_scan_batched_cuda.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 127, 9999, 1_000_003])
+def test_weighted_sum_kernel_matches_plain_and_repeats_bitwise(cuda_device, n):
+    from repro_torch.kernels import weighted_sum
+    rng = np.random.default_rng(n)
+    host = (rng.normal(0, 3, n).astype(np.float32),
+            (rng.random(n) + 0.5).astype(np.float32), rng.random(n) < 0.6)
+    args = tuple(torch.from_numpy(a).to(cuda_device) for a in host)
+    before = weighted_sum.weighted_sum_cuda.launches
+    got = torch.stack(weighted_sum.weighted_sum_cuda(*args))
+    again = torch.stack(ops.weighted_sum(*args))
+    assert weighted_sum.weighted_sum_cuda.launches == before + 2
+    want = torch.stack(ref.weighted_sum_ref(*args))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-2)
+    assert torch.equal(got, again)

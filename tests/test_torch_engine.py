@@ -21,6 +21,7 @@ from repro_torch import state
 from repro_torch.core import elp
 from repro_torch.core import table as table_lib
 from repro_torch.data import synth
+from repro_torch.kernels import agg_scan
 
 N_ROWS, SEED = 50_000, 0
 
@@ -197,18 +198,25 @@ def test_later_slices_raise_not_implemented(engines):
 
 def test_template_over_kernel_atom_limit_raises(engines):
     """A template of 128 atoms does not fit the fused kernel's descriptor
-    (127); the port refuses it on every device and runs no other scan."""
-    _, port = engines
-    q = P.Query("sessions", P.AggOp.COUNT, group_by=("OS",),
-                predicate=P.Predicate.where(
-                    *[P.Atom("dt", P.CmpOp.GE, i % 3) for i in range(128)]),
-                bound=P.ErrorBound(0.1))
-    with pytest.raises(NotImplementedError, match="at most 127"):
-        port.query(q)
-    q127 = P.Query("sessions", P.AggOp.COUNT, group_by=("OS",),
-                   predicate=P.Predicate.where(
-                       *[P.Atom("dt", P.CmpOp.GE, i % 3) for i in range(127)]))
-    assert port.query(q127).groups
+    (127): the kernel's argument check raises for it, the engine does not.
+    The engine answers it as the reference does, on the wide path (torch
+    predicate, agg_scan reduction); 127 atoms stay on the fused kernel.
+    Both match the reference's answers."""
+    ref, port = engines
+    for n_atoms in (128, 127):
+        qs = [m.Query("sessions", m.AggOp.COUNT, group_by=("OS",),
+                      predicate=m.Predicate.where(
+                          *[m.Atom("dt", m.CmpOp.GE, i % 3)
+                            for i in range(n_atoms)]),
+                      bound=m.ErrorBound(0.1)) for m in (R, P)]
+        _assert_same_answer(ref.query(qs[0]), port.query(qs[1]))
+    one = torch.ones(4)
+    with pytest.raises(ValueError, match="atoms"):
+        agg_scan.check_fused_args(
+            None, one, torch.zeros(4, dtype=torch.int8), one,
+            torch.ones(4, dtype=torch.bool),
+            (torch.zeros(4, dtype=torch.int8),), None, torch.ones(1),
+            torch.zeros(1, 128), ((P.CmpOp.GE,) * 128,), None, 1)
 
 
 def test_disjunctive_avg_rejected_like_reference(engines):

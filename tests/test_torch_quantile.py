@@ -200,9 +200,28 @@ def test_quantile_cuda_wrapper_refuses_cpu_tensors():
 
 
 def test_make_quantile_fn_refuses_128_atoms():
-    struct = ((("dt", CmpOp.GE),) * 128,)
-    with pytest.raises(NotImplementedError, match="at most 127"):
-        exec_lib.make_quantile_fn(struct, "SessionTime", None, 1)
+    """The quantile kernel refuses a 128-atom template; make_quantile_fn
+    never hands it one, and answers it: from 126 atoms on it scans the
+    torch-evaluated selection as a single atom column (the reference's
+    wide path). This checks the refusal and that the answer has its
+    shapes; tests/test_torch_wide_templates.py holds the wide answers
+    against the reference."""
+    rng = np.random.default_rng(12)
+    c = _case(rng, 3000, 3, 1)
+    t = _torch(c)
+    with pytest.raises(ValueError, match="atoms"):
+        ops.quantile_scan(t["values"], t["unit"], t["strat"],
+                          t["freq_table"], t["valid"], t["atom_cols"] * 128,
+                          t["group_codes"], t["k"], t["lo"], t["hi"],
+                          torch.zeros(1, 128), ((CmpOp.GE,) * 128,),
+                          tuple(range(128)), 3)
+    cols = {"v": t["values"], "g": t["group_codes"], "a": t["atom_cols"][0]}
+    struct = ((("a", CmpOp.GE),) * 128,)
+    fn = exec_lib.make_quantile_fn(struct, "v", "g", 3)
+    mom, qv, dens = fn(200.0, ((0.0,) * 128,), 0.5, t["lo"], t["hi"], cols,
+                       t["unit"], t["strat"], t["freq_table"], t["valid"])
+    assert mom.n.shape == qv.shape == dens.shape == (3,)
+    assert float(mom.n.sum()) > 0 and torch.isfinite(qv).all()
 
 
 # ------------------------------------------------------ hist_to_quantile
