@@ -11,8 +11,10 @@ Phases, each reported on its own lines:
      (seconds, ptxas resources);
   2. kernels vs plain: each kernel on the card against its plain PyTorch
      version (rtol 2e-5, atol 1e-3; weighted_sum rtol 1e-4, atol 1e-2)
-     over a sweep of rows, queries, groups, strata, dtypes, templates,
-     ghosts and group codes outside [0, G); bit-identical repeat launches;
+     over a sweep of rows, queries, groups (the main path's 1, 6, 200 and
+     500, and the edges of the kernels' modes: 8/9, 32/33, 128/129,
+     256/257), strata, dtypes, templates, ghosts and group codes outside
+     [0, G); bit-identical repeat launches;
      each query of a Q = 7 or 64 launch bit-identical to the same query
      launched alone; the quantile kernel's moments bit-identical to
      agg_scan_fused at Q = 1 and to agg_scan over a selection given as one
@@ -25,10 +27,11 @@ Phases, each reported on its own lines:
      130 cities and, for QUANTILE, 126 URLs) — every scan held against its
      plain version on the same tensors, every answer against exact_query,
      the launch counts of agg_scan_fused, quantile_scan and agg_scan read
-     around the run;
+     around the run, those of the first two also by group count;
   3b. batch: 36 queries of five templates (QUANTILE and a 130-atom template
      among them) through BlinkDB.query_batch on a fresh engine, then
-     through query() on that engine: every answer bit-identical;
+     through query() on that engine: every answer bit-identical (launches
+     by group count as in phase 3);
   3c. the kernels' own entry points, kernels.ops.agg_scan_batched (32
      instantiations of SUM(SessionTime) WHERE URL = u GROUP BY OS on the
      URL family's materialized HT state) and kernels.ops.weighted_sum (the
@@ -36,8 +39,10 @@ Phases, each reported on its own lines:
      launch count read around it: held against agg_scan_fused (bit for
      bit; rtol 1e-4 for weighted_sum's ungrouped sums), the plain version
      and exact_query;
-  4. times: each kernel at the main path's shapes against its bound and
-     its plain version; agg_scan_fused and agg_scan_batched at Q = 32.
+  4. times: each kernel at the main path's shapes (agg_scan_fused and
+     quantile_scan at G = 1, 6, 200 and 500) against its bound and its
+     plain version, quantile_scan beside the yardstick agg_scan_fused +
+     torch.bincount; agg_scan_fused and agg_scan_batched at Q = 32.
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Any failed check raises: the script then
 exits non-zero and prints no result. Without a CUDA device it exits 2.
@@ -45,6 +50,8 @@ exits non-zero and prints no result. Without a CUDA device it exits 2.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -81,10 +88,12 @@ def card_line() -> str:
 # ----------------------------------------------------------------- phase 2
 
 def make_case(torch, np, rng, device, n, g, q, n_cols, n_atoms, strata, sdt,
-              cdt, adt, ghost=0.1, values=True, codes=True):
+              cdt, adt, ghost=0.1, values=True, codes=True, small_k=False):
     """Scan-kernel inputs on the card: (values, unit, strat, freq_table,
     valid, atom_cols, group_codes, ks, pred_consts). Pad rows (unit=+inf)
-    and ghost rows (valid=False) are in every case."""
+    and ghost rows (valid=False) are in every case. small_k orders the rows
+    by entry key, as a sample block is, and puts each query's K at 1-5% of
+    the rows, so most warps of the block hold no prefix row."""
     u = rng.random(n).astype(np.float32)
     u[-max(1, n // 50):] = np.inf
     t = {
@@ -97,9 +106,17 @@ def make_case(torch, np, rng, device, n, g, q, n_cols, n_atoms, strata, sdt,
         "ks": rng.uniform(20, 400, q).astype(np.float32),
         "consts": rng.integers(0, 8, (q, n_atoms)).astype(np.float32),
     }
+    cols = [rng.integers(0, 8, n).astype(adt) for _ in range(n_cols)]
+    if small_k:
+        ek = np.where(t["va"], t["u"] * t["ft"][t["s"]], np.inf)
+        order = np.argsort(ek, kind="stable")
+        for k in ("v", "u", "s", "va", "c"):
+            t[k] = t[k][order]
+        cols = [c[order] for c in cols]
+        t["ks"] = np.quantile(ek[order][:n // 2],
+                              rng.uniform(0.02, 0.1, q)).astype(np.float32)
     t = {k: torch.from_numpy(a).to(device) for k, a in t.items()}
-    cols = tuple(torch.from_numpy(rng.integers(0, 8, n).astype(adt)
-                                  ).to(device) for _ in range(n_cols))
+    cols = tuple(torch.from_numpy(c).to(device) for c in cols)
     return (t["v"] if values else None, t["u"], t["s"], t["ft"], t["va"],
             cols, t["c"] if codes else None, t["ks"], t["consts"])
 
@@ -118,8 +135,13 @@ def sweep_cases(torch, np, device, quantile=False):
     eq, gt, le, ge, ne = CmpOp.EQ, CmpOp.GT, CmpOp.LE, CmpOp.GE, CmpOp.NE
     n = 100_003
     out = []
+    # G edges at Q = 1: the quantile kernel's one-pass limit (32/33), the
+    # moments' register/shared mode (8/9), the first kernel's group tiles
+    # (128/129, 256/257); the main path's 1, 6, 200 and 500 at every Q.
+    edges = (1, 6, 32, 33, 200, 500) if quantile else \
+        (1, 6, 8, 9, 128, 129, 200, 256, 257, 500)
     for q in ((1,) if quantile else (1, 7, 64)):
-        for g in (1, 6, 500):
+        for g in (edges if q == 1 else (1, 6, 200, 500)):
             cdt = np.int16 if g > 127 else np.int8
             out.append((f"Q={q} G={g} dnf2(dup col)",
                         case(n, g, q, 1, 2, 37, np.int8, cdt, np.int8),
@@ -145,6 +167,10 @@ def sweep_cases(torch, np, device, quantile=False):
     out.append(("all ghosts", case(n, 4, 1 if quantile else 2, 1, 1, 37,
                                    np.int8, np.int8, np.int8, ghost=1.1),
                 ((gt,),), (0,), 4))
+    out.append(("100 atoms, rows in entry-key order, small K",
+                case(n, 6, 1 if quantile else 3, 1, 100, 37, np.int8,
+                     np.int8, np.int8, small_k=True),
+                ((ge,) * 100,), (0,) * 100, 6))
     return out
 
 
@@ -409,6 +435,41 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in wrappers().items()}
 
 
+BY_GROUPS = ("agg_scan_fused", "quantile_scan")
+
+
+@contextlib.contextmanager
+def launches_by_groups(counts: dict):
+    """While active, counts the launches of the fused and quantile wrappers
+    by their n_groups into counts[name][G]. Each wrapper is replaced by a
+    counting one for the phase: a wrapper adds one to the `launches` of the
+    module-level name it is bound to, which is then the counting wrapper
+    (functools.wraps starts it at the wrapper's count), so launch_counts()
+    reads it there during the phase, and the wrapper gets the count back
+    when it is restored."""
+    from repro_torch.kernels import agg_scan
+
+    def counted(name, fn):
+        @functools.wraps(fn)
+        def call(*args, **kw):
+            before = call.launches
+            out = fn(*args, **kw)
+            g = kw.get("n_groups", args[-1] if args else 1)
+            per = counts.setdefault(name, {})
+            per[g] = per.get(g, 0) + call.launches - before
+            return out
+        return call
+    saved = {name: getattr(agg_scan, f"{name}_cuda") for name in BY_GROUPS}
+    for name, fn in saved.items():
+        setattr(agg_scan, f"{name}_cuda", counted(name, fn))
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            fn.launches = getattr(agg_scan, f"{name}_cuda").launches
+            setattr(agg_scan, f"{name}_cuda", fn)
+
+
 def reset_launches(counts=None) -> None:
     for name, fn in wrappers().items():
         fn.launches = counts[name] if counts else 0
@@ -638,6 +699,31 @@ def sample_bin_width(torch, db, q, ans) -> float:
     return (hi - lo) / 256.0
 
 
+def sessions_engine(engine_cls, n_rows: int, device):
+    """The smoke's workload: the sessions table of n_rows base rows (seed
+    0), an engine of engine_cls with EngineConfig() defaults, the families
+    City, URL and uniform, their striped blocks resident on the device.
+    Returns (db, table, blocks, host clock at each step)."""
+    from repro_torch.core import EngineConfig
+    from repro_torch.core import table as table_lib
+    from repro_torch.data import synth
+    t0 = time.perf_counter()
+    raw = synth.sessions_table(n_rows, seed=0)
+    t1 = time.perf_counter()
+    tbl = table_lib.from_columns("sessions", raw)
+    del raw
+    t2 = time.perf_counter()
+    db = engine_cls(EngineConfig(), device=device)
+    db.register_table("sessions", tbl)
+    for phi in (("City",), ("URL",), ()):
+        db.add_family("sessions", phi)
+    t3 = time.perf_counter()
+    blocks = {phi: db._striped_for("sessions", phi)
+              for phi in db.families["sessions"]}
+    db._sync()
+    return db, tbl, blocks, (t0, t1, t2, t3, time.perf_counter())
+
+
 def phase_main_path(torch, np, n_rows: int, record, device="cuda") -> dict:
     """The rule for every answer, fixed before the first chip run: COUNT,
     SUM and AVG need 90% of all their groups within 2 CI half-widths of
@@ -645,25 +731,10 @@ def phase_main_path(torch, np, n_rows: int, record, device="cuda") -> dict:
     plus one bin width of each side's histogram range (the sample's
     range, and exact_query's range of the selected rows)."""
     from repro_torch.core import (AggOp, Atom, CmpOp, Conjunction,
-                                  EngineConfig, ErrorBound, Predicate, Query,
-                                  TimeBound)
-    from repro_torch.core import table as table_lib
-    from repro_torch.data import synth
+                                  ErrorBound, Predicate, Query, TimeBound)
 
-    t0 = time.perf_counter()
-    raw = synth.sessions_table(n_rows, seed=0)
-    t1 = time.perf_counter()
-    tbl = table_lib.from_columns("sessions", raw)
-    del raw
-    t2 = time.perf_counter()
-    db = checked_engine(torch, record)(EngineConfig(), device=device)
-    db.register_table("sessions", tbl)
-    for phi in (("City",), ("URL",), ()):
-        db.add_family("sessions", phi)
-    t3 = time.perf_counter()
-    blocks = {phi: db._striped_for("sessions", phi) for phi in db.families["sessions"]}
-    db._sync()
-    t4 = time.perf_counter()
+    db, tbl, blocks, (t0, t1, t2, t3, t4) = sessions_engine(
+        checked_engine(torch, record), n_rows, device)
     base_bytes = sum(c.numel() * c.element_size() for c in tbl.columns.values())
     block_bytes = {phi: b.device_bytes() for phi, b in blocks.items()}
     log(f"  data: {n_rows} base rows; synth {t1 - t0:.1f}s, encode "
@@ -678,59 +749,61 @@ def phase_main_path(torch, np, n_rows: int, record, device="cuda") -> dict:
     queries = main_path_queries(Query, AggOp, Atom, CmpOp, Conjunction,
                                 Predicate, ErrorBound, TimeBound)
     reset_launches()
+    by_g = {}
     results, covered, total = [], 0, 0
-    for label, q in queries:
-        n_scans = len(record["scans"])
-        before = launch_counts()
-        ans = db.query(q)
-        launched = launches_since(before)
-        scans = record["scans"][n_scans:]
-        exact = {g.key: g.estimate for g in db.exact_query(q).groups}
-        if not ans.groups or not np.isfinite(
-                [[g.estimate, g.ci_low, g.ci_high] for g in ans.groups]).all():
-            raise AssertionError(f"{label}: empty or non-finite answer")
-        slack = 0.0
-        if q.agg is AggOp.QUANTILE:
-            exact_w = exact_bin_width(torch, db, q)
-            if ans.sample_phi == ("<exact>",):
-                slack = 2.0 * exact_w
-            else:
-                slack = sample_bin_width(torch, db, q, ans) + exact_w
-        rel, in_ci, outside = [], 0, []
-        for g in ans.groups:
-            truth = exact[g.key]
-            rel.append(abs(g.estimate - truth) / max(abs(truth), 1e-12))
-            half = max(g.ci_high - g.estimate, g.estimate - g.ci_low)
-            inside = abs(g.estimate - truth) <= \
-                2.0 * half + 1e-4 * abs(truth) + slack
-            in_ci += inside
-            if not inside:
-                outside.append((g.key, g.estimate, truth, half,
-                                g.n_selected))
-        for key, est, truth, half, n_sel in outside[:10]:
-            log(f"    outside: {label} group={key} estimate={est!r} "
-                f"exact={truth!r} ci_half={half!r} slack={slack!r} "
-                f"n_selected={n_sel} family={ans.sample_phi} "
-                f"K={ans.sample_k!r}")
-        if q.agg is AggOp.QUANTILE and in_ci < len(ans.groups):
-            raise AssertionError(
-                f"{label}: {len(ans.groups) - in_ci} groups farther than 2 CI "
-                f"half-widths plus one bin width per side from exact_query")
-        covered += in_ci
-        total += len(ans.groups)
-        ci_rel = max(((g.ci_high - g.ci_low) / 2.0 / max(abs(g.estimate), 1e-12))
-                     for g in ans.groups)
-        main_ms = 1e3 * ans.elapsed_s
-        log(f"  {label}: family={ans.sample_phi} K={ans.sample_k:.6g} "
-            f"rows_read={ans.rows_read} scan_ms={main_ms:.3f} "
-            f"bound_met={ans.bound_met} certified={ans.certified} "
-            f"scans={len(scans)} launches "
-            + " ".join(f"{k}={launched[k]}" for k in MAIN_PATH_KERNELS)
-            + f" groups={len(ans.groups)} "
-            f"max_realized_rel_err={max(rel):.3e} max_ci_rel_half={ci_rel:.3e} "
-            f"groups_within={in_ci}/{len(ans.groups)}"
-            + (f" bin_slack={slack:.6g}" if slack else ""))
-        results.append((label, q, ans))
+    with launches_by_groups(by_g):
+        for label, q in queries:
+            n_scans = len(record["scans"])
+            before = launch_counts()
+            ans = db.query(q)
+            launched = launches_since(before)
+            scans = record["scans"][n_scans:]
+            exact = {g.key: g.estimate for g in db.exact_query(q).groups}
+            if not ans.groups or not np.isfinite(
+                    [[g.estimate, g.ci_low, g.ci_high] for g in ans.groups]).all():
+                raise AssertionError(f"{label}: empty or non-finite answer")
+            slack = 0.0
+            if q.agg is AggOp.QUANTILE:
+                exact_w = exact_bin_width(torch, db, q)
+                if ans.sample_phi == ("<exact>",):
+                    slack = 2.0 * exact_w
+                else:
+                    slack = sample_bin_width(torch, db, q, ans) + exact_w
+            rel, in_ci, outside = [], 0, []
+            for g in ans.groups:
+                truth = exact[g.key]
+                rel.append(abs(g.estimate - truth) / max(abs(truth), 1e-12))
+                half = max(g.ci_high - g.estimate, g.estimate - g.ci_low)
+                inside = abs(g.estimate - truth) <= \
+                    2.0 * half + 1e-4 * abs(truth) + slack
+                in_ci += inside
+                if not inside:
+                    outside.append((g.key, g.estimate, truth, half,
+                                    g.n_selected))
+            for key, est, truth, half, n_sel in outside[:10]:
+                log(f"    outside: {label} group={key} estimate={est!r} "
+                    f"exact={truth!r} ci_half={half!r} slack={slack!r} "
+                    f"n_selected={n_sel} family={ans.sample_phi} "
+                    f"K={ans.sample_k!r}")
+            if q.agg is AggOp.QUANTILE and in_ci < len(ans.groups):
+                raise AssertionError(
+                    f"{label}: {len(ans.groups) - in_ci} groups farther than 2 CI "
+                    f"half-widths plus one bin width per side from exact_query")
+            covered += in_ci
+            total += len(ans.groups)
+            ci_rel = max(((g.ci_high - g.ci_low) / 2.0 / max(abs(g.estimate), 1e-12))
+                         for g in ans.groups)
+            main_ms = 1e3 * ans.elapsed_s
+            log(f"  {label}: family={ans.sample_phi} K={ans.sample_k:.6g} "
+                f"rows_read={ans.rows_read} scan_ms={main_ms:.3f} "
+                f"bound_met={ans.bound_met} certified={ans.certified} "
+                f"scans={len(scans)} launches "
+                + " ".join(f"{k}={launched[k]}" for k in MAIN_PATH_KERNELS)
+                + f" groups={len(ans.groups)} "
+                f"max_realized_rel_err={max(rel):.3e} max_ci_rel_half={ci_rel:.3e} "
+                f"groups_within={in_ci}/{len(ans.groups)}"
+                + (f" bin_slack={slack:.6g}" if slack else ""))
+            results.append((label, q, ans))
     launches = launch_counts()
     if device == "cuda" and min(launches[k] for k in MAIN_PATH_KERNELS) == 0:
         raise AssertionError(f"a kernel of the main path was launched no "
@@ -759,6 +832,9 @@ def phase_main_path(torch, np, n_rows: int, record, device="cuda") -> dict:
                 f"scan_share={scan_s / wall:.3f}")
     fr, qr, ar = (record["agg_scan_fused"], record["quantile_scan"],
                   record["agg_scan"])
+    log("  launches by G: " + "; ".join(
+        f"{k} " + " ".join(f"G={g}:{c}" for g, c in sorted(by_g.get(k, {}).items()))
+        for k in BY_GROUPS))
     log(f"phase 3 ok: {len(queries)} queries, launches "
         + " ".join(f"{k}={launches[k]}" for k in MAIN_PATH_KERNELS)
         + f", {covered}/{total} groups within the rule; "
@@ -768,7 +844,8 @@ def phase_main_path(torch, np, n_rows: int, record, device="cuda") -> dict:
         f"quantile moments max_abs_diff={qr['max_abs_diff']:.6e} "
         f"tol_ratio={qr['tol_ratio']:.4f} "
         f"quantile gap {qr['max_bin_gap']:.4f} bins")
-    return {"db": db, "launches": launches, "results": results}
+    return {"db": db, "launches": launches, "by_groups": by_g,
+            "results": results}
 
 
 # ---------------------------------------------------------------- phase 3b
@@ -821,10 +898,12 @@ def phase_batch(torch, np, main_db) -> dict:
     db._striped.update(main_db._striped)
     queries = batch_queries(Query, AggOp, Atom, CmpOp, Predicate, ErrorBound)
     reset_launches()
+    by_g = {}
     db._sync()
     t0 = time.perf_counter()
-    batched = db.query_batch(queries)
-    db._sync()
+    with launches_by_groups(by_g):
+        batched = db.query_batch(queries)
+        db._sync()
     batch_s = time.perf_counter() - t0
     batch_launches = launch_counts()
     reset_launches()
@@ -848,10 +927,14 @@ def phase_batch(torch, np, main_db) -> dict:
     log(f"  query_batch: {len(queries)} queries in {1e3 * batch_s:.3f} ms, "
         "launches " + " ".join(f"{k}={batch_launches[k]}"
                                for k in MAIN_PATH_KERNELS))
+    log("  batch launches by G: " + "; ".join(
+        f"{k} " + " ".join(f"G={g}:{c}" for g, c in sorted(by_g.get(k, {}).items()))
+        for k in BY_GROUPS))
     log(f"  query() on the same engine: {1e3 * single_s:.3f} ms, launches "
         + " ".join(f"{k}={single_launches[k]}" for k in MAIN_PATH_KERNELS))
     log(f"phase 3b ok: {same}/{len(queries)} answers bit-identical")
-    return {"launches": batch_launches, "single_launches": single_launches}
+    return {"launches": batch_launches, "by_groups": by_g,
+            "single_launches": single_launches}
 
 
 # ---------------------------------------------------------------- phase 3c
@@ -1033,10 +1116,11 @@ def log_time(name, label, striped, g, ms, plain_ms, bnd, card, extra=""):
         f"call computes this function){extra} card={card}")
 
 
-def phase_times(torch, db, card: str) -> dict:
+def timed_queries():
+    """The queries whose kernel inputs phase 4 times: (fused shapes,
+    quantile shapes), each a list of (label, Query); G = 6, 200, 500 and 1
+    for the fused scan, 6, 1, 1, 200 and 500 for the quantile scan."""
     from repro_torch.core import AggOp, Atom, CmpOp, Predicate, Query
-    from repro_torch.core.types import CmpOp as Op
-    from repro_torch.kernels import agg_scan, ref, weighted_sum
     t = "sessions"
     genre = Predicate.where(Atom("Genre", CmpOp.EQ, "genre03"))
     fused_shapes = [
@@ -1066,6 +1150,25 @@ def phase_times(torch, db, card: str) -> dict:
          Query(t, AggOp.QUANTILE, "Bitrate", quantile=0.9,
                group_by=("URL",))),
     ]
+    return fused_shapes, quantile_shapes
+
+
+def quantile_inputs(torch, db, q):
+    """scan_inputs of a QUANTILE query, its arguments with the family's
+    histogram range: (phi, striped, args, qargs, ops_struct, atom_slots,
+    n_groups)."""
+    phi, striped, args, struct, slots, g = scan_inputs(torch, db, q)
+    lo, hi = db._family_range("sessions", phi, q.value_column)
+    return phi, striped, args, (*args[:-1], lo, hi, args[-1]), struct, \
+        slots, g
+
+
+def phase_times(torch, db, card: str) -> dict:
+    from repro_torch.core import AggOp, Atom, CmpOp, Predicate, Query
+    from repro_torch.core.types import CmpOp as Op
+    from repro_torch.kernels import agg_scan, ref, weighted_sum
+    t = "sessions"
+    fused_shapes, quantile_shapes = timed_queries()
     fused, quant = agg_scan.agg_scan_fused_cuda, agg_scan.quantile_scan_cuda
     before = launch_counts()
     rows = {name: [] for name in KERNELS}
@@ -1080,12 +1183,11 @@ def phase_times(torch, db, card: str) -> dict:
         log_time("agg_scan_fused", f"{label} family={phi} Q=1", striped, g,
                  ms, plain_ms, bnd, card)
         rows["agg_scan_fused"].append(
-            {"label": label, "ms": ms, "plain_ms": plain_ms,
+            {"label": label, "G": g, "ms": ms, "plain_ms": plain_ms,
              "bound_ms": bnd[0], "bound_by": bnd[1]})
     for label, q in quantile_shapes:
-        phi, striped, args, struct, slots, g = scan_inputs(torch, db, q)
-        lo, hi = db._family_range("sessions", phi, q.value_column)
-        qargs = (*args[:-1], lo, hi, args[-1])
+        phi, striped, args, qargs, struct, slots, g = quantile_inputs(
+            torch, db, q)
         mom, hist = quant(*qargs, struct, slots, g)
         ms = time_cuda(torch, lambda: quant(*qargs, struct, slots, g),
                        warmup=3, reps=20)
@@ -1096,13 +1198,18 @@ def phase_times(torch, db, card: str) -> dict:
         flat, w = ref.histogram_terms(*qargs, struct, slots, g)
         lib_ms = time_cuda(torch, lambda: torch.bincount(
             flat, weights=w, minlength=g * 256), warmup=2, reps=10)
+        # The yardstick: the fused scan's moments plus bincount's histogram.
+        fused_ms = time_cuda(torch, lambda: fused(*args, struct, slots, g),
+                             warmup=3, reps=20)
         bnd = bound_for(args, struct, mom, 4 * (mom.numel() + hist.numel()))
         log_time("quantile_scan", f"{label} family={phi}", striped, g, ms,
-                 plain_ms, bnd, card, f" hist_bincount_ms={lib_ms:.4f}")
+                 plain_ms, bnd, card,
+                 f" hist_bincount_ms={lib_ms:.4f} fused_ms={fused_ms:.4f} "
+                 f"fused+bincount_ms={fused_ms + lib_ms:.4f}")
         rows["quantile_scan"].append(
-            {"label": label, "ms": ms, "plain_ms": plain_ms,
+            {"label": label, "G": g, "ms": ms, "plain_ms": plain_ms,
              "bound_ms": bnd[0], "bound_by": bnd[1],
-             "hist_bincount_ms": lib_ms})
+             "hist_bincount_ms": lib_ms, "fused_ms": fused_ms})
     # Q = 32 in one launch against 32 launches at Q = 1 (one template, the
     # City family's whole block, 32 constants).
     phi, striped, args, struct, slots, g = scan_inputs(torch, db, Query(
@@ -1218,10 +1325,22 @@ def kernels_record(worst, record, main, batch, ops_path, times,
         }
         if kname in MAIN_PATH_KERNELS:
             entry["batch_launches"] = batch["launches"][kname]
+        if kname in BY_GROUPS:
+            entry["by_G"] = [
+                {**{k: row[k] for k in ("G", "label", "ms", "plain_ms",
+                                        "bound_ms")},
+                 "launches": main["by_groups"].get(kname, {}).get(row["G"], 0),
+                 "batch_launches": batch["by_groups"].get(kname, {}).get(
+                     row["G"], 0)}
+                for row in times[kname]]
+            entry["launches_by_G"] = main["by_groups"].get(kname, {})
+            entry["batch_launches_by_G"] = batch["by_groups"].get(kname, {})
         if kname == "agg_scan_fused":
             entry.update(q32_ms=times["q32_ms"], q1x32_ms=times["q1x32_ms"])
         elif kname == "quantile_scan":
             entry["hist_bincount_ms"] = rep["hist_bincount_ms"]
+            entry["fused_plus_bincount_ms"] = (rep["fused_ms"]
+                                               + rep["hist_bincount_ms"])
         elif kname == "agg_scan_batched":
             entry.update(q32_ms=times[kname][1]["ms"],
                          max_abs_diff_vs_fused=max(worst[kname][2],
@@ -1257,7 +1376,8 @@ def main() -> int:
         log(f"  {lib.path.name}: nvcc "
             f"{'%.2fs' % built if built is not None else 'earlier build'}")
         for line in lib.build_log.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
+            if any(k in line for k in ("entry function", "registers",
+                                       "smem", "spill")):
                 log(f"  ptxas: {line.strip()}")
 
     log("phase 2: kernels vs their plain versions")

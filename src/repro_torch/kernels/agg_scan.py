@@ -40,10 +40,13 @@ MAX_ATOMS = 127          # template atoms the kernels' descriptor holds
 MAX_CONJUNCTIONS = 128
 MAX_STRATA = 4096        # frequency table held in shared memory
 MAX_QUERIES = 64         # queries per launch (the scratch grows with Q)
-_THREADS = 256           # block size (csrc kThreads)
-_STAGE = 256             # rows staged per step (csrc kStage)
-_BLOCKS_PER_SM = 8       # pass-1 blocks resident per SM (one wave)
+_STAGE = 1024            # rows a block takes per step (csrc kStep)
+_REG_GROUPS = 8          # register-mode group tiles up to here (kRegGroups)
+_MAX_TILE = 1024         # groups per shared-mode tile (kMaxTile)
+_ONE_PASS_GROUPS = 32    # quantile: histogram in the moments pass (kOnePassGroups)
+_BLOCKS_PER_SM = 8       # pass-1 blocks per SM (the chunk count)
 _SCRATCH_BYTES = 64 << 20   # per query and launch
+MAX_SHARED = 232_448     # dynamic shared bytes a block may have (H100)
 
 # Column dtype tags of the kernels (csrc enum).
 _VALUE_TAGS = {torch.float32: 0, torch.int8: 1, torch.int16: 2,
@@ -203,20 +206,24 @@ def launch_plan(n: int, q: int, g: int,
                 n_sms: int) -> tuple[int, int, int, int]:
     """(rows_per_chunk, n_chunks, group tile, blocks per chunk) of a Q-query
     launch on a card with `n_sms` multiprocessors. A block takes one query
-    and a tile of up to 256 groups; its 256 threads split over (group,
-    lane). The chunking and the group tile fix the order of the float sums
-    and depend on (n, G) and the card only: a query sums in the same order
-    alone as in a batch, and repeat launches on one card are bit-identical
-    (cards with other SM counts sum in another order). Only the number of
-    blocks per chunk, Q × group tiles, grows with Q."""
-    gt = min(_pow2_ceil(g), _THREADS)
+    and a tile of groups: 1, 2, 4 or 8 (register mode: each thread sums its
+    own rows) or up to 1024 (shared mode: one sum per group in shared
+    memory, added by the group's owner warp). The chunking and the group tile fix the order of the
+    float sums and depend on (n, G) and the card only: a query sums in the
+    same order alone as in a batch, and repeat launches on one card are
+    bit-identical (cards with other SM counts sum in another order). Only
+    the number of blocks per chunk, Q × group tiles, grows with Q."""
+    gt = _pow2_ceil(g) if g <= _REG_GROUPS else min(g, _MAX_TILE)
     rows, chunks = _chunks(n, n_sms, 4 * 7 * g)
     return rows, chunks, gt, q * -(-g // gt)
 
 
 def hist_plan(n: int, g: int, n_sms: int) -> tuple[int, int]:
-    """(rows_per_chunk, n_chunks) of the quantile kernel's histogram pass,
-    whose per-chunk scratch is G × 256 floats."""
+    """(rows_per_chunk, n_chunks) of the quantile kernel's histogram: up to
+    32 groups it rides the moments pass and takes its plan; above, its own
+    pass's per-chunk scratch is G × 256 floats, capped as the moments'."""
+    if g <= _ONE_PASS_GROUPS:
+        return launch_plan(n, 1, g, n_sms)[:2]
     return _chunks(n, n_sms, 4 * QUANTILE_BINS * g)
 
 

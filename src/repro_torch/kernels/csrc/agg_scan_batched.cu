@@ -17,8 +17,9 @@
 //
 // What bounds it: device-memory bytes (values, freq, entry_key and every
 // atom row, 4 B each, and the codes, read once per (query, group tile)
-// block; blocks of one chunk share them through L2). A first kernel: the
-// per-query blocks re-evaluate the DNF on every row.
+// block; blocks of one chunk share them through L2). The per-query blocks
+// re-read the chunk and re-evaluate the DNF on every row; sharing one
+// staged step across a chunk's queries is later work.
 //
 // The wrapper launches at most 64 queries at a time (scan::kMaxQ); a
 // query's bits do not depend on how many share its launch.
@@ -36,16 +37,31 @@ struct BatchedRows : scan::Plan, scan::Dnf {
   const void* codes; int codes_tag;
   const float* ks;                          // [Q]
 
-  static constexpr int kShared = 1;
+  __host__ __device__ int n_tab() const { return 0; }
   __device__ void load_shared(float*) const {}
-  __device__ int stage(const float*, int q, long long i, int g0, int g_hi,
-                       float* val, float* rate) const {
-    const int c = scan::load_i32(codes, codes_tag, i);
-    if (c < g0 || c >= g_hi || !(ek[i] < ks[q]) || !scan::eval_dnf(*this, q, i))
-      return -1;
-    *val = scan::load_f32(values, values_tag, i);
-    *rate = fminf(1.0f, ks[q] / freq[i]);
-    return c;
+  template <int R>
+  __device__ __forceinline__ void rows(const float*, int q,
+                                       const long long (&i)[R], int (&code)[R],
+                                       float (&val)[R], float (&rate)[R]) const {
+    int c[R];
+    float e[R], f[R];
+    bool m[R];
+    scan::load_i32<R>(codes, codes_tag, i, c);
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      e[j] = __ldg(ek + i[j]);
+      f[j] = __ldg(freq + i[j]);
+    }
+    const float k = __ldg(ks + q);
+    bool live = false;
+#pragma unroll
+    for (int j = 0; j < R; ++j) live |= e[j] < k;
+    scan::prefix_rows<R>(*this, q, i, live, values, values_tag, val, m);
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      code[j] = ((e[j] < k) & m[j]) ? c[j] : -1;
+      rate[j] = fminf(1.0f, k / f[j]);
+    }
   }
 };
 
@@ -77,6 +93,7 @@ extern "C" int agg_scan_batched_launch(
   p.ek = ek;
   p.codes = codes; p.codes_tag = codes_tag;
   p.ks = ks;
-  scan::launch_moments(p, n_chunks, out, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  const int rc = scan::launch_moments(p, n_chunks, out,
+                                      static_cast<cudaStream_t>(stream));
+  return rc != 0 ? rc : static_cast<int>(cudaGetLastError());
 }

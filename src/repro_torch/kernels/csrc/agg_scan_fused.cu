@@ -21,15 +21,23 @@
 // scatter; here the frequency table is gathered from shared memory and the
 // grouped sum is predicated adds.
 //
+// The first kernel reached 1-8% of that bound: each thread staged one row
+// per step through a chain of dependent, branch-guarded loads, and above
+// 128 groups every thread tested every staged row (PERF.md §6). The
+// moments pass of scan_common.cuh now issues the column loads of four rows
+// a thread together (the value and atom columns only in warps that hold a
+// prefix row), selects rows without branches, has each
+// thread sum its own rows for G <= 8 (in registers, or in its own
+// shared-memory column) with no barrier in the row loop, hands G > 8
+// groups to one owner warp each (one tile of up to 1024 groups), and
+// reduces the chunk partials with a fixed 32-lane tree instead of a
+// 1056-long chain.
+//
 // Determinism: no float atomics (scan_common.cuh). Each block takes one
 // query, so a query's sum order does not depend on Q: query q of a
 // Q-query launch gives the bits of the same query launched alone. The
 // blocks of one chunk sit next to each other in the grid and share the
 // chunk's rows through L2.
-//
-// A first kernel, right before fast: a G-wide group tile makes each thread
-// walk every staged row (rows x groups predicated work, as the TPU kernel's
-// one-hot did), and each (query, group tile) re-reads its chunk.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
@@ -62,6 +70,7 @@ extern "C" int agg_scan_fused_launch(
                          ks, consts, Q, G, n, rows_per_chunk, n_chunks, gt,
                          partial))
     return -1;
-  scan::launch_moments(p, n_chunks, out, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  const int rc = scan::launch_moments(p, n_chunks, out,
+                                      static_cast<cudaStream_t>(stream));
+  return rc != 0 ? rc : static_cast<int>(cudaGetLastError());
 }

@@ -8,128 +8,54 @@
 //   bin = int(clip((v - lo) / max(hi - lo, 1e-12) * 256, 0, 255))
 // clipped in float32 before the cast, and the row adds w = 1/r to
 // hist[group, bin]. The TPU kernel bins through a [bins, rows] one-hot
-// times the [rows, groups] one-hot on the MXU; here each bin is a thread.
+// times the [rows, groups] one-hot on the MXU.
 //
-// The moment half is the fused scan's moments pass at Q = 1, launched from
-// the same code with the same chunk plan (kernels/agg_scan.py launch_plan),
-// so its bits equal agg_scan_fused's for the same query.
+// What bounds it on this card: device-memory bytes, as the fused scan's,
+// plus the 256 x G x 4 B histogram written. The histogram adds one weight
+// per selected row; the first kernel spent 256 thread-steps on each (every
+// thread walked every selected row and kept its own bin's), read the block
+// a second time and made four launches.
 //
-// The histogram half is a second pass over the block with its own group
-// tile and chunking: a tile of 16 groups x 256 bins (16 KB) sits in shared
-// memory, and the per-chunk scratch [chunks, G, 256] is capped like the
-// moments' (64 MiB), where the moments' chunk plan would need
-// chunks x G x 1 KB (540 MB at G = 500). Each block stages 256 rows,
-// compacts the selected rows of its tile in row order (warp ballots), and
-// thread t adds the weights of bin t in that order; a second pass adds the
-// chunk partials in index order. No float atomics: repeat launches give
-// the same bits.
+// The design: one pass over the block, O(1) work per selected row. Up to
+// G = 32 (scan::kOnePassGroups) the histogram rides the moments pass
+// itself (scan_common.cuh), lanes that share a (group, bin) key found with
+// __match_any_sync and their weights added by the lowest of them in row
+// order. Up to G = 8, beside the register-mode moments, each warp adds its
+// own rows to its own histogram [G][256] (8 x 8 KB at most) and the warps'
+// histograms are added in warp order at the chunk's end, with no block
+// barrier in the row loop. From 9 to 32 groups the step is staged in
+// shared memory for the moments anyway, and warp w adds the staged rows
+// whose key is w mod 8 to the block's one histogram tile (up to 32 KB).
+// No float atomics, so repeat launches give the same bits. The moments
+// come from the same pass and the same code as agg_scan_fused's at Q = 1,
+// with the same chunk plan (kernels/agg_scan.py launch_plan), so their bits
+// equal its. One chunk reduction adds both partials: two launches per call.
+// The histogram's scratch is the moments' chunk count x G KB (34.6 MB at
+// G = 32 on 132 SMs), which is what caps the one-pass path at G = 32.
 //
-// What bounds it: device-memory bytes, as the fused scan, plus the
-// 256 x G x 4 B histogram written. The design reads the block twice (once
-// per half; the histogram's group tiles of one chunk run side by side and
-// share its rows through L2). Folding both halves into one pass is later
-// performance work.
+// Above G = 32 the moments pass runs alone and the histogram takes a second
+// pass over the block with its own chunk plan (kernels/agg_scan.py
+// hist_plan, scratch capped at 64 MiB) and tiles of 64 groups (64 KB of
+// shared memory); each tile's blocks stage every row of their chunk once
+// and add the tile's rows as above. Three launches per call.
+//
+// Occupancy traded for the shared histograms: with the 4096-entry table a
+// one-pass block takes up to 83 KB (the eight warp histograms at G = 5..8;
+// registers already hold that variant to two blocks per SM) or 70 KB at
+// G = 32 (three per SM); the separate histogram pass 100 KB (two per SM).
 //
 // Build as agg_scan_fused.cu: -fmad=false and no fast math, so the bin
 // index is computed with the reference's correctly rounded float32 ops.
 
 #include "scan_common.cuh"
 
-namespace {
-
-constexpr int kBins = 256;
-constexpr int kHistGroups = 16;   // groups per histogram tile
-static_assert(kBins == scan::kThreads, "thread t owns bin t");
-
-struct HistParams {
-  scan::Params p;                 // the query's scan at Q = 1
-  float lo, hi;
-  long long rows_per_chunk;
-  float* partial;                 // [n_chunks, G, kBins]
-};
-
-// Histogram pass 1. Grid (group tiles, chunks).
-__global__ void __launch_bounds__(scan::kThreads)
-hist_partials(const __grid_constant__ HistParams h) {
-  constexpr int kWarps = scan::kThreads / 32;
-  const scan::Params& p = h.p;
-  __shared__ float s_ftab[scan::kMaxStrata];
-  __shared__ float s_hist[kHistGroups][kBins];
-  __shared__ int s_key[scan::kStage];      // (group - g0) * kBins + bin
-  __shared__ float s_w[scan::kStage];
-  __shared__ int s_warp[kWarps + 1];       // warp offsets, then the total
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g0 = blockIdx.x * kHistGroups;
-  const int g_hi = min(g0 + kHistGroups, p.G);
-  const long long chunk = blockIdx.y;
-  p.load_shared(s_ftab);
-  for (int j = 0; j < kHistGroups; ++j) s_hist[j][tid] = 0.0f;
-  const float k = p.ks[0];
-  const float span = fmaxf(h.hi - h.lo, 1e-12f);
-  const long long row0 = chunk * h.rows_per_chunk;
-  const long long row_end = min(row0 + h.rows_per_chunk, p.n);
-  __syncthreads();
-
-  for (long long base = row0; base < row_end; base += scan::kStage) {
-    const long long i = base + tid;
-    bool take = false;
-    int key = 0;
-    float w = 0.0f;
-    if (i < row_end) {
-      const int c = p.codes ? scan::load_i32(p.codes, p.codes_tag, i) : 0;
-      float freq;
-      if (c >= g0 && c < g_hi && scan::row_selected(p, s_ftab, 0, i, &freq)) {
-        const float v = p.values ? scan::load_f32(p.values, p.values_tag, i) : 1.0f;
-        const float rate = fminf(1.0f, k / freq);
-        w = 1.0f / rate;
-        const float x = (v - h.lo) / span * static_cast<float>(kBins);
-        const float b = fminf(fmaxf(x, 0.0f), static_cast<float>(kBins - 1));
-        key = (c - g0) * kBins + static_cast<int>(b);
-        take = true;
-      }
-    }
-    // Compact the taken rows, keeping row order.
-    const unsigned ballot = __ballot_sync(0xffffffffu, take);
-    if (lane == 0) s_warp[warp] = __popc(ballot);
-    __syncthreads();
-    if (tid == 0) {
-      int run = 0;
-      for (int j = 0; j < kWarps; ++j) {
-        const int c = s_warp[j];
-        s_warp[j] = run;
-        run += c;
-      }
-      s_warp[kWarps] = run;
-    }
-    __syncthreads();
-    if (take) {
-      const int pos = s_warp[warp] + __popc(ballot & ((1u << lane) - 1u));
-      s_key[pos] = key;
-      s_w[pos] = w;
-    }
-    __syncthreads();
-    // Thread t adds the weights of bin t in row order.
-    const int taken = s_warp[kWarps];
-    for (int r = 0; r < taken; ++r) {
-      const int kk = s_key[r];
-      if (kk % kBins == tid) s_hist[kk / kBins][tid] += s_w[r];
-    }
-    __syncthreads();
-  }
-
-  float* out = h.partial + (chunk * p.G + g0) * kBins;
-  for (int j = 0; j < g_hi - g0; ++j) out[j * kBins + tid] = s_hist[j][tid];
-}
-
-}  // namespace
-
-// Launches the moments passes (Q = 1, chunk plan rows_per_chunk/n_chunks/gt)
-// and the histogram passes (hist_rows_per_chunk/hist_chunks) on `stream`;
-// returns cudaGetLastError() after them (0 = success), or -1 for arguments
-// the kernel does not take. Pointer conventions as agg_scan_fused_launch;
-// k and consts hold one query ([1], [1, n_atoms]).
+// Launches the scan on `stream`: G <= 32 one pass (moments and histogram)
+// with the moments' chunk plan, which hist_rows_per_chunk/hist_chunks must
+// repeat; above, the moments pass and a histogram pass with its own plan.
+// Then one chunk reduction of both. Returns cudaGetLastError() after them
+// (0 = success), or -1 for arguments the kernel does not take. Pointer
+// conventions as agg_scan_fused_launch; k and consts hold one query ([1],
+// [1, n_atoms]).
 extern "C" int quantile_scan_launch(
     const void* values, int values_tag, const float* unit,
     const void* strat, int strat_tag, const float* ftab, int n_strata,
@@ -142,25 +68,37 @@ extern "C" int quantile_scan_launch(
     float* partial, float* out,
     float lo, float hi, long long hist_rows_per_chunk, int hist_chunks,
     float* hist_partial, float* hist_out, void* stream) {
-  HistParams h;
-  if (!scan::fill_params(h.p, values, values_tag, unit, strat, strat_tag,
+  scan::Params p;
+  const bool one_pass = G <= scan::kOnePassGroups;
+  if (!scan::fill_params(p, values, values_tag, unit, strat, strat_tag,
                          ftab, n_strata, valid, codes, codes_tag, col_ptrs,
                          col_tags, n_cols, atom_slot, atom_op, n_atoms,
                          conj_end, n_conj, k, consts, 1, G, n, rows_per_chunk,
                          n_chunks, gt, partial) ||
-      hist_chunks < 1 || hist_chunks > 65535 || hist_rows_per_chunk < 1)
+      hist_chunks < 1 || hist_chunks > 65535 || hist_rows_per_chunk < 1 ||
+      (one_pass && (p.n_gtiles != 1 || hist_chunks != n_chunks ||
+                    hist_rows_per_chunk != rows_per_chunk)))
     return -1;
-  h.lo = lo;
-  h.hi = hi;
-  h.rows_per_chunk = hist_rows_per_chunk;
-  h.partial = hist_partial;
+  const scan::Hist h{lo, hi, hist_partial};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  scan::launch_moments(h.p, n_chunks, out, s);
-  const unsigned tiles = static_cast<unsigned>((G + kHistGroups - 1) / kHistGroups);
-  hist_partials<<<dim3(tiles, hist_chunks), scan::kThreads, 0, s>>>(h);
-  const long long per_chunk = static_cast<long long>(G) * kBins;
-  const long long blocks = (per_chunk + scan::kThreads - 1) / scan::kThreads;
-  scan::reduce_chunks<<<static_cast<unsigned>(blocks), scan::kThreads, 0, s>>>(
-      hist_partial, hist_out, hist_chunks, per_chunk);
+  int rc;
+  if (one_pass) {
+    rc = scan::launch_moments_pass<scan::Params, true>(p, h, n_chunks, s);
+  } else {
+    rc = scan::launch_moments_pass<scan::Params, false>(p, scan::Hist{},
+                                                        n_chunks, s);
+    scan::Params hp = p;
+    hp.rows_per_chunk = hist_rows_per_chunk;
+    hp.gt = scan::kHistTile;
+    hp.n_gtiles = (G + scan::kHistTile - 1) / scan::kHistTile;
+    if (rc == 0)
+      rc = scan::launch_pass<scan::Params, 0, false, true>(hp, h, hist_chunks,
+                                                           s);
+  }
+  if (rc != 0) return rc;
+  scan::launch_reduce(s, partial, out, n_chunks,
+                      static_cast<long long>(scan::kStats) * G, hist_partial,
+                      hist_out, hist_chunks,
+                      static_cast<long long>(G) * scan::kBins);
   return static_cast<int>(cudaGetLastError());
 }

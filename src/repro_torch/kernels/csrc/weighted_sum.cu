@@ -42,7 +42,10 @@ sum_partials(const __grid_constant__ SumParams p) {
   float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
   for (long long i = row0 + tid; i < row_end; i += scan::kThreads) {
     if (p.mask[i]) {
-      const float x = scan::load_f32(p.values, p.values_tag, i);
+      const long long at[1] = {i};
+      float xs[1];
+      scan::load_f32<1>(p.values, p.values_tag, at, xs);
+      const float x = xs[0];
       const float w = p.weights[i];
       const float wx = w * x;
       s0 += w;
@@ -79,7 +82,6 @@ extern "C" int weighted_sum_launch(
   SumParams p{values, values_tag, weights, mask, n, rows_per_chunk, partial};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   sum_partials<<<static_cast<unsigned>(n_chunks), scan::kThreads, 0, s>>>(p);
-  scan::reduce_chunks<<<1, scan::kThreads, 0, s>>>(partial, out, n_chunks,
-                                                   kSums);
+  scan::launch_reduce(s, partial, out, n_chunks, kSums);
   return static_cast<int>(cudaGetLastError());
 }

@@ -264,7 +264,10 @@ def test_launch_plan_covers_rows(n, q, g, n_sms):
     rows, chunks, gt, blocks = agg_scan.launch_plan(n, q, g, n_sms)
     assert rows % 256 == 0 and rows * chunks >= n
     assert chunks == 1 or rows * (chunks - 1) < n
-    assert gt <= 256 and 256 % gt == 0 and gt >= min(g, 256)
+    # register mode (a power of two up to 8 that covers G) or shared-mode
+    # tiles of up to 1024 groups
+    assert (gt <= 8) == (g <= 8) and gt <= 1024 and gt >= min(g, 1024)
+    assert gt > 8 or gt & (gt - 1) == 0
     # the scratch is capped per query: [chunks, 7, G] floats of 64 MiB
     assert chunks * 7 * g * 4 <= max(64 << 20, 7 * g * 4)
     assert blocks == q * -(-g // gt) and chunks <= 65535

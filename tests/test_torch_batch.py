@@ -66,6 +66,86 @@ def test_hist_plan_caps_the_histogram_scratch():
     assert rows % 256 == 0 and rows * chunks >= 20_000_000
 
 
+@pytest.mark.parametrize("n", [0, 1, 100_003, 20_000_000])
+@pytest.mark.parametrize("g", [1, 6, 8, 9, 32, 33, 64, 65, 200, 500, 1024,
+                               1025, 4096])
+@pytest.mark.parametrize("n_sms", [132, 114])
+def test_hist_plan_covers_rows_and_caps_scratch(n, g, n_sms):
+    """The histogram's chunks cover every row once, its scratch
+    [chunks, G, 256] floats stays within 64 MiB, and up to 32 groups (one
+    pass with the moments) it is the moments' plan."""
+    rows, chunks = agg_scan.hist_plan(n, g, n_sms)
+    assert rows % 1024 == 0 and rows * chunks >= n
+    assert chunks == 1 or rows * (chunks - 1) < n
+    assert chunks * g * 256 * 4 <= max(64 << 20, g * 256 * 4)
+    if g <= 32:
+        assert (rows, chunks) == agg_scan.launch_plan(n, 1, g, n_sms)[:2]
+    assert agg_scan.hist_plan(n, g, n_sms) == (rows, chunks)
+
+
+def _header_constants() -> dict:
+    """The `constexpr int kName = value;` constants of csrc/scan_common.cuh."""
+    import re
+    return {m[0]: int(m[1]) for m in
+            re.findall(r"constexpr int (k\w+) = (\d+);",
+                       agg_scan.HEADER.read_text())}
+
+
+def _shared_bytes(c: dict, n_tab: int, gt: int, moments: bool,
+                  hist: bool) -> int:
+    """Dynamic shared bytes of one scan pass: a copy of csrc/scan_common.cuh
+    `scan::layout` over the header's constants c. The producer's table of
+    n_tab floats, the moments of a group tile gt (shared mode) or the
+    threads' and warps' sums (register mode), the histogram tile (one per
+    warp beside register mode) and the staged step."""
+    def up4(x):
+        return -(-x // 4) * 4
+    threads, warps, bins = c["kThreads"], c["kThreads"] // 32, c["kBins"]
+    reg = moments and gt <= c["kRegGroups"]
+    priv = hist and reg
+    floats = up4(n_tab)
+    floats += up4(7 * gt) if moments and not reg else 0
+    floats += 7 * gt * threads if reg and gt >= c["kColGroups"] and not hist \
+        else 0
+    floats += warps * 7 * gt if reg else 0
+    floats += (warps if priv else 1) * gt * bins if hist else 0
+    floats += warps * 32 if priv else 0
+    staged = (moments and not reg) or (hist and not priv)
+    floats += 5 * threads * c["kRows"] + 2 * threads + warps if staged else 0
+    return 4 * floats
+
+
+@pytest.mark.parametrize("n_strata", [1, 300, 4096])
+def test_scan_passes_fit_shared_memory(n_strata):
+    """Every scan pass of a fused or quantile call fits a block's dynamic
+    shared memory, for every G in 1..4096: the moments pass at the plan's
+    group tile, and the quantile histogram in it up to kOnePassGroups or in
+    its own pass of kHistTile groups above."""
+    c = _header_constants()
+    for g in range(1, 4097):
+        gt = agg_scan.launch_plan(0, 1, g, 1)[2]
+        fused = [_shared_bytes(c, n_strata, gt, True, False)]
+        if g <= c["kOnePassGroups"]:
+            quantile = [_shared_bytes(c, n_strata, gt, True, True)]
+        else:
+            quantile = fused + [_shared_bytes(c, n_strata, c["kHistTile"],
+                                              False, True)]
+        for sizes in (fused, quantile):
+            assert max(sizes) <= agg_scan.MAX_SHARED, (g, sizes)
+
+
+def test_plan_constants_match_the_kernel_header():
+    """The Python plan mirrors csrc/scan_common.cuh's constants."""
+    const = _header_constants()
+    assert const["kThreads"] * const["kRows"] == agg_scan._STAGE
+    assert const["kRegGroups"] == agg_scan._REG_GROUPS
+    assert const["kMaxTile"] == agg_scan._MAX_TILE
+    assert const["kOnePassGroups"] == agg_scan._ONE_PASS_GROUPS
+    assert const["kBins"] == 256
+    assert const["kMaxShared"] == agg_scan.MAX_SHARED
+    assert const["kMaxQ"] == agg_scan.MAX_QUERIES
+
+
 # ---------------------------------------------------- make_batched_query_fn
 
 def _tables():

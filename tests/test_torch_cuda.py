@@ -50,7 +50,12 @@ def _call(fn, t, struct, slots, g, **kw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("q, n_groups", [(1, 1), (7, 6), (64, 500)])
+@pytest.mark.parametrize("q, n_groups", [
+    (1, 1), (7, 6), (64, 500),
+    # the register / shared mode edge, and the first kernel's tile edges
+    (1, 8), (1, 9), (1, 128), (1, 129), (1, 256), (1, 257), (1, 500),
+    # one shared-mode tile holds up to 1024 groups
+    (1, 1024), (1, 1025)])
 def test_kernel_matches_plain_and_repeats_bitwise(cuda_device, q, n_groups):
     rng = np.random.default_rng(q + n_groups)
     t = _case(rng, 100_003, n_groups, q, 2, cuda_device)
@@ -152,9 +157,13 @@ def _quantile_call(fn, t, struct, slots, g, **kw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_groups", [1, 6, 500])
+@pytest.mark.parametrize("n_groups", [1, 6, 32, 33, 200, 500])
 def test_quantile_kernel_matches_plain_and_repeats_bitwise(cuda_device,
                                                            n_groups):
+    """Up to 32 groups the histogram rides the moments pass (one read of
+    the block); from 33 it takes its own pass; both against the plain
+    version, repeat launches bit-identical, the moments equal to the fused
+    scan's at Q = 1."""
     rng = np.random.default_rng(30 + n_groups)
     t = _case(rng, 100_003, n_groups, 1, 2, cuda_device)
     struct, slots = ((CmpOp.EQ,), (CmpOp.GT,)), (0, 0)
@@ -178,7 +187,8 @@ def test_quantile_kernel_matches_plain_and_repeats_bitwise(cuda_device,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("q, n_groups", [(7, 6), (64, 500)])
+@pytest.mark.parametrize("q, n_groups", [(7, 1), (7, 6), (7, 200),
+                                         (64, 500)])
 def test_batched_query_slices_equal_single_launches(cuda_device, q, n_groups):
     rng = np.random.default_rng(40 + q)
     t = _case(rng, 100_003, n_groups, q, 2, cuda_device)
@@ -341,6 +351,53 @@ def test_batched_kernel_matches_plain_and_fused_bitwise(cuda_device, q,
               struct, (0,) * n_atoms, n_groups)
         for i in range(0, q, 64)])
     assert (got - fused).abs().max().item() == 0.0
+
+
+
+def _small_k_case(rng, n, n_groups, q, n_atoms, device):
+    """_case with its rows in entry-key order, as a sample block is, and
+    each query's K at 1-5% of the rows, so most warps hold no prefix row."""
+    t = _case(rng, n, n_groups, q, n_atoms, device)
+    ek = torch.where(t["valid"], t["unit"] * t["freq_table"][t["strat"].long()],
+                     torch.full_like(t["unit"], float("inf")))
+    ek, order = torch.sort(ek, stable=True)
+    for k in ("values", "unit", "strat", "valid", "group_codes"):
+        t[k] = t[k][order]
+    t["atom_cols"] = tuple(c[order] for c in t["atom_cols"])
+    at = torch.from_numpy(rng.uniform(0.01, 0.05, q) * n).long().to(device)
+    t["ks"] = ek[at]
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_groups", [1, 6, 200])
+def test_kernels_past_a_small_prefix_match_plain(cuda_device, n_groups):
+    """Warps with no row in the prefix skip their value and atom loads: a
+    100-atom template at a small K through the fused, batched and quantile
+    kernels against their plain versions, repeats bit-identical, batched
+    equal to fused and the quantile's moments to the fused scan's."""
+    rng = np.random.default_rng(80 + n_groups)
+    t = _small_k_case(rng, 100_003, n_groups, 3, 100, cuda_device)
+    struct, slots = ((CmpOp.GE,) * 100,), (0,) * 100
+    got = _call(agg_scan.agg_scan_fused_cuda, t, struct, slots, n_groups)
+    again = _call(agg_scan.agg_scan_fused_cuda, t, struct, slots, n_groups)
+    want = _call(ref.agg_scan_fused_ref, t, struct, slots, n_groups,
+                 accumulate=torch.float64)
+    assert want[:, 0].sum().item() > 0            # some rows are selected
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, again)
+    batched = agg_scan.agg_scan_batched_cuda(
+        *_batched_from_fused(t, 100), t["ks"], t["pred_consts"], struct,
+        n_groups)
+    assert (batched - got).abs().max().item() == 0.0
+    mom, hist = _quantile_call(agg_scan.quantile_scan_cuda, t, struct, slots,
+                               n_groups)
+    want_mom, want_hist = _quantile_call(ref.quantile_scan_ref, t, struct,
+                                         slots, n_groups,
+                                         accumulate=torch.float64)
+    torch.testing.assert_close(mom, want_mom, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(hist, want_hist, rtol=RTOL, atol=ATOL)
+    assert torch.equal(mom, got[0])
 
 
 @pytest.mark.cuda
