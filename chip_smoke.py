@@ -19,7 +19,13 @@ Phases, each reported on its own lines:
      launched alone; the quantile kernel's moments bit-identical to
      agg_scan_fused at Q = 1 and to agg_scan over a selection given as one
      atom column; agg_scan_batched equal to agg_scan_fused (max |diff| 0.0)
-     across its sweep; the wrappers refuse a 128-atom template;
+     across its sweep; the wrappers refuse a 128-atom template; agg_scan
+     at its edges: its branch-free divisions over every rate in [2^-60, 1],
+     a mask false everywhere or true in one row at a chunk's or a warp's
+     edge, a selection at a small K of rows in entry-key order
+     (against quantile_scan bit for bit), the same rows through its shared
+     pass (columns off 16-byte alignment) bit for bit, and two calls in a
+     row with separate outputs;
   3. main path: the Conviva-like sessions workload (paper §6.1) through
      BlinkDB.query — COUNT/SUM/AVG/QUANTILE, grouped and not, predicates, a
      disjunction, ERROR WITHIN and WITHIN SECONDS, and three templates
@@ -326,8 +332,95 @@ def phase_agg_scan_vs_plain(torch, np, device) -> tuple[float, float]:
             f"agg_scan: {torch.equal(mom, qmom)}")
         if not torch.equal(mom, qmom):
             raise AssertionError(f"quantile_scan and agg_scan differ: {label}")
+    worst = agg_scan_edge_cases(torch, np, device, worst)
     log(f"phase 2 agg_scan ok: max_abs_diff={worst[0]:.6e} max "
         f"tol_ratio={worst[1]:.4f} (rtol={RTOL}, atol={ATOL})")
+    return worst
+
+
+def misaligned(torch, t):
+    """A copy of t whose data starts one element past a 16-byte boundary
+    (agg_scan then takes the shared pass instead of its one-launch
+    kernel)."""
+    if t is None:
+        return None
+    view = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)[1:]
+    view = view[:t.numel()]
+    view.copy_(t)
+    return view
+
+
+def agg_scan_edge_cases(torch, np, device, worst) -> tuple:
+    """agg_scan's one-launch kernel at its edges: its branch-free
+    divisions against the correctly rounded ones over every rate in
+    [2^-60, 1]; a mask false everywhere (zeros) or true in one row at a
+    chunk's or a warp's edge (that row's float32 terms, bit for bit); rows
+    in entry-key order with K at 2-10% of them (the warps past the prefix
+    skip their divisions), against the plain version and bit for bit
+    against quantile_scan's moments; the same inputs through the shared
+    pass (columns off 16-byte alignment), bit for bit; two calls in a row
+    return separate outputs."""
+    from repro_torch.core.types import CmpOp
+    from repro_torch.kernels import agg_scan, ref
+    fn = agg_scan.agg_scan_cuda
+    bad = agg_scan.agg_scan_rounding_mismatches(device)
+    log(f"  branch-free divisions vs the correctly rounded ones over "
+        f"[2^-60, 1]: {bad} floats differ")
+    if bad:
+        raise AssertionError("agg_scan's fast divisions differ in bits")
+    rng = np.random.default_rng(12)
+    n = 100_003
+    for g in (1, 6):
+        values, rates, _, codes = rate_case(torch, np, rng, device, n, g,
+                                            np.float32)
+        codes = codes.clamp(0, g - 1)
+        rows = agg_scan.agg_scan_plan(n, g, agg_scan._n_sms(rates.device))[0]
+        for where, at in (("nowhere", None), ("last row of chunk 0", rows - 1),
+                          ("first row past a warp boundary", 32),
+                          ("first row of chunk 1", rows),
+                          ("last row", n - 1)):
+            mask = torch.zeros(n, dtype=torch.bool, device=device)
+            if at is not None:
+                mask[at] = True
+            for vals in (values, None):
+                got = fn(vals, rates, mask, codes, g)
+                want = ref.agg_scan_ref(vals, rates, mask, codes, g)
+                torch.cuda.synchronize()
+                worst = check_close(
+                    torch, f"G={g} mask {where}"
+                    f"{' COUNT' if vals is None else ''}", got, want, worst,
+                    bitwise_plain=torch.equal(got, want),
+                    zero_iff_empty=(got[0].sum().item() == 0) == (at is None))
+    for g in (1, 6):
+        args = make_case(torch, np, rng, device, n, g, 1, 1, 2, 37, np.int8,
+                         np.int8, np.int8, small_k=True)
+        values, unit, strat, ftab, valid, cols, codes, ks, consts = args
+        k = ks[:1]
+        freq = ftab[strat.long()]
+        sel = valid & (unit * freq < k[0]) & (cols[0] > 3)
+        rates = torch.clamp_max(k[0] / freq, 1.0)
+        got = fn(values, rates, sel, codes, g)
+        qmom, _ = agg_scan.quantile_scan_cuda(
+            values, unit, strat, ftab, valid, (sel,), codes, k,
+            values.min().item(), values.max().item(),
+            torch.ones((1, 1), device=device), ((CmpOp.EQ,),), (0,), g)
+        shifted = fn(*(misaligned(torch, t) for t in (values, rates, sel,
+                                                      codes)), g)
+        torch.cuda.synchronize()
+        want = ref.agg_scan_ref(values, rates, sel, codes, g,
+                                accumulate=torch.float64)
+        worst = check_close(torch, f"G={g} small K, rows in key order", got,
+                            want, worst, equals_quantile=torch.equal(got, qmom),
+                            shared_pass_equal=torch.equal(got, shifted))
+    a = rate_case(torch, np, rng, device, n, 6, np.float32)
+    b = rate_case(torch, np, rng, device, 2 * n, 6, np.float32)
+    first, second = fn(*a, 6), fn(*b, 6)
+    again_a, again_b = fn(*a, 6), fn(*b, 6)
+    torch.cuda.synchronize()
+    if first.data_ptr() == second.data_ptr() or not (
+            torch.equal(first, again_a) and torch.equal(second, again_b)):
+        raise AssertionError("agg_scan: two calls in a row share an output")
+    log("  two calls in a row: separate outputs, each its own answer")
     return worst
 
 

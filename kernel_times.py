@@ -12,14 +12,17 @@ from its own sources and its kernels are built into DIR/build/kernels; both
 versions run on the same tensors in one process, in the order baseline,
 this, this, baseline, so that two versions are compared on one card. The
 workload is chip_smoke.py's at 20M rows (sessions table, families City,
-URL and uniform); the shapes are its phase-4 shapes, and a fused scan of a
-100-atom NOT IN template at the URL family's smallest and largest K. For
-each (kernel, shape, version): the median ms of 20 launches by CUDA
-events, and the device time of
-each kernel the call launches (torch.profiler, mean over the profiled
-calls). Also prints ptxas's resource lines of every build, and with --sass
-writes each library's SASS (cuobjdump) into the given directory. Without a
-CUDA device it exits 2.
+URL and uniform); the shapes are its phase-4 shapes, a fused scan of a
+100-atom NOT IN template at the URL family's smallest and largest K, and
+agg_scan at the shapes the main path launches it (the 200-URL NOT IN at
+the URL family's largest and smallest K, the 130-city AVG NOT IN on the
+City family). For each (kernel, shape, version): the median ms of 20
+launches by CUDA events, the device time of each kernel the call launches
+(torch.profiler, mean over the profiled calls), their sum (device) and
+the host share of the call (the event median of the turns less device:
+the wrapper's host work). Also prints ptxas's resource lines of every
+build, and with --sass writes each library's SASS (cuobjdump) into the
+given directory. Without a CUDA device it exits 2.
 """
 from __future__ import annotations
 
@@ -116,13 +119,25 @@ def cases(torch, db, v):
                     f"GROUP BY OS, {which} K={k:g}", g,
                     lambda a=args, s=struct, sl=slots, g=g:
                     scans.agg_scan_fused_cuda(*a, s, sl, g)))
-    wide = Query("sessions", AggOp.COUNT, group_by=("OS",),
-                 predicate=smoke.not_in(Atom, CmpOp, Predicate, "URL", "url",
-                                        500, 200))
-    inputs, g, _ = smoke.wide_args(torch, db, wide, ("URL",),
-                                   db.families["sessions"][("URL",)].ks[0])
-    out.append(("agg_scan", "COUNT(*) WHERE URL NOT IN (200 URLs) GROUP BY "
-                "OS", g, lambda: scans.agg_scan_cuda(*inputs, g)))
+    # agg_scan at the shapes the main path launches it: the wide templates
+    # of chip_smoke.py phase 3 on the family each scans.
+    url_wide = Query("sessions", AggOp.COUNT, group_by=("OS",),
+                     predicate=smoke.not_in(Atom, CmpOp, Predicate, "URL",
+                                            "url", 500, 200))
+    city_wide = Query("sessions", AggOp.AVG, "SessionTime",
+                      predicate=smoke.not_in(Atom, CmpOp, Predicate, "City",
+                                             "city", 200, 130))
+    city = db.families["sessions"][("City",)]
+    for label, q, phi, k in (
+            ("COUNT(*) WHERE URL NOT IN (200 URLs) GROUP BY OS, largest "
+             f"K={url.ks[0]:g}", url_wide, ("URL",), url.ks[0]),
+            ("COUNT(*) WHERE URL NOT IN (200 URLs) GROUP BY OS, smallest "
+             f"K={url.ks[-1]:g}", url_wide, ("URL",), url.ks[-1]),
+            ("AVG(SessionTime) WHERE City NOT IN (130 cities), City family, "
+             f"largest K={city.ks[0]:g}", city_wide, ("City",), city.ks[0])):
+        inputs, g, _ = smoke.wide_args(torch, db, q, phi, k)
+        out.append(("agg_scan", label, g,
+                    lambda a=inputs, g=g: scans.agg_scan_cuda(*a, g)))
     for n_q in (1, 32):
         args, _, g, _ = smoke.batched_path_inputs(torch, db, n_q)
         out.append(("agg_scan_batched", f"Q={n_q} SUM(SessionTime) WHERE "
@@ -187,15 +202,20 @@ def main() -> int:
                                             reps=REPS))
         split = {name: profile_split(torch, fn, 10)
                  for name, fn in fns.items()}
+        host = {}
         for name in fns:
             parts = " ".join(f"[{k}]={v:.4f}" for k, v in
                              sorted(split[name].items(), key=lambda kv: -kv[1]))
+            device = sum(split[name].values())
+            host[name] = sorted(ms[name])[len(ms[name]) // 2] - device
             log(f"  {kname} {label} G={g} [{name}] ms="
-                + "/".join(f"{t:.4f}" for t in ms[name]) + f" split: {parts}")
+                + "/".join(f"{t:.4f}" for t in ms[name])
+                + f" device={device:.4f} host={host[name]:.4f} split: {parts}")
         if diff is not None:
             log(f"  {kname} {label} G={g} max |this - baseline| = {diff!r}")
         records.append({"kernel": kname, "shape": label, "G": g, "ms": ms,
-                        "split_ms": split, "max_abs_diff_vs_baseline": diff})
+                        "split_ms": split, "host_ms": host,
+                        "max_abs_diff_vs_baseline": diff})
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({"card": card, "rows": ROWS,

@@ -10,14 +10,16 @@ into build/kernels/ at its first use (never at import: the CPU tests import
 this module), and ctypes loads it. `build_all()` starts one nvcc per source
 at once. Each wrapper (`agg_scan_cuda`, `agg_scan_batched_cuda`,
 `agg_scan_fused_cuda`, `quantile_scan_cuda`) checks its arguments,
-allocates outputs and per-chunk scratch with torch.empty, launches on the
-current stream and raises if the launch failed. Its `launches` attribute
-counts the kernel's launches; nothing else touches it.
+allocates outputs and per-chunk scratch with torch.empty (agg_scan up to 8
+groups: a scratch buffer kept per stream), launches on the current stream
+and raises if the launch failed. Its `launches` attribute counts the
+kernel's launches; nothing else touches it.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -88,7 +90,8 @@ LIBRARIES = {
         CSRC_DIR / "agg_scan.cu", "agg_scan_launch",
         [_P, _I32, _P, _P,                # values, values_tag, rates, mask
          _P, _I32, _I32, _I64,            # codes, codes_tag, G, n
-         *_PLAN_ARGS, _P]),               # plan, stream
+         _I64, _I32, _I32,                # rows_per_chunk, n_chunks, gt
+         _P, _P, _P, _P]),                # partial, ticket, out, stream
     "agg_scan_batched": Library(
         CSRC_DIR / "agg_scan_batched.cu", "agg_scan_batched_launch",
         [_P, _I32, _P, _P,                # values, values_tag, freq, ek
@@ -423,8 +426,26 @@ def _raise_on(rc: int, name: str) -> None:
                            if rc > 0 else f"{name}: arguments refused")
 
 
+_SMS: dict[int, int] = {}
+# The current stream's handle without building a torch.cuda.Stream object
+# on every call; the public call where torch lacks it.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream_handle(device) -> int:
+    """The caller's current CUDA stream on `device`, as the kernels take it."""
+    if _raw_stream is not None:
+        return _raw_stream(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def _n_sms(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    """The multiprocessor count of a tensor's card, read once per card."""
+    n = _SMS.get(device.index)
+    if n is None:
+        n = _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
 
 
 def agg_scan_fused_cuda(values, unit, strat, freq_table, valid, atom_cols,
@@ -513,31 +534,92 @@ def quantile_scan_cuda(values, unit, strat, freq_table, valid, atom_cols,
 quantile_scan_cuda.launches = 0
 
 
+_STAGED_GROUPS = 8       # agg_scan.cu's one-launch kernel takes G <= 8
+_TICKET_BYTES = 16       # agg_scan scratch: the ticket word, then partials
+
+
+@functools.lru_cache(maxsize=1024)
+def agg_scan_plan(n: int, g: int, n_sms: int) -> tuple[int, int, int]:
+    """(rows_per_chunk, n_chunks, group tile) of an agg_scan launch:
+    launch_plan at Q = 1, kept per (n, G, card) so that a repeat call
+    does not plan again."""
+    return launch_plan(n, 1, g, n_sms)[:3]
+
+
+# One scratch buffer per (device, stream): agg_scan's ticket word (zero
+# between launches: the kernel's last block resets it) and its chunk
+# partials. Launches on one stream run in order, so they may share it;
+# another stream gets its own.
+_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _agg_scan_scratch(device, stream: int, nbytes: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() * 4 < nbytes:
+        buf = torch.zeros(-(-nbytes // 4), dtype=torch.int32, device=device)
+        _SCRATCH[key] = buf
+    return buf
+
+
+# The rates agg_scan.cu's row loop divides by without the compiler's range
+# checks: float bit patterns of [2^-60, 1] (its kFastMin and 1).
+FAST_RATE_BITS = (0x21800000, 0x3F800000)
+
+
+def agg_scan_rounding_mismatches(device) -> int:
+    """How many floats r in [2^-60, 1] give agg_scan.cu's branch-free
+    w = 1/r or vfac = (1 - r)/r² other bits than the correctly rounded
+    divisions of the shared pass (0: the kernel may use them). One launch
+    over all 503,316,481 of them."""
+    fn = build("agg_scan").agg_scan_check_rounding
+    fn.argtypes = [ctypes.c_uint, ctypes.c_uint, _P, _P]
+    fn.restype = ctypes.c_int
+    bad = torch.zeros(1, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        rc = fn(*FAST_RATE_BITS, bad.data_ptr(),
+                torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(rc, "agg_scan_check_rounding")
+    return int(bad.item())
+
+
 def agg_scan_cuda(values, rates, mask, group_codes,
                   n_groups: int) -> torch.Tensor:
-    """Launch the grouped-moments kernel on CUDA tensors: returns
+    """Launch the grouped-moments kernel on CUDA tensors: returns a fresh
     f32[7, n_groups]. Same arguments and semantics as ref.agg_scan_ref
     (codes outside [0, n_groups) land in no group; values None reads 1,
-    group_codes None is group 0)."""
+    group_codes None is group 0). Up to 8 groups: one launch, with the
+    scratch of _agg_scan_scratch (a column that is not 16-byte aligned
+    takes the shared pass instead, in two launches, same bits); above, the
+    shared pass and its chunk reduction, with scratch from torch.empty."""
     check_agg_scan_args(values, rates, mask, group_codes, n_groups)
     device = rates.device
     _check_cuda("agg_scan_cuda", [values, rates, mask, group_codes], device)
-    lib = build("agg_scan")
+    lib = LIBRARIES["agg_scan"].handle or build("agg_scan")
+    if device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return agg_scan_cuda(values, rates, mask, group_codes, n_groups)
     n = rates.shape[0]
-    with torch.cuda.device(device):
-        rows, chunks, gt, _ = launch_plan(n, 1, n_groups, _n_sms(device))
-        out = torch.empty((7, n_groups), dtype=torch.float32, device=device)
-        partial = torch.empty((chunks, 1, 7, n_groups), dtype=torch.float32,
+    rows, chunks, gt = agg_scan_plan(n, n_groups, _n_sms(device))
+    stream = _stream_handle(device)
+    out = torch.empty((7, n_groups), dtype=torch.float32, device=device)
+    if n_groups <= _STAGED_GROUPS:
+        scratch = _agg_scan_scratch(device, stream,
+                                    _TICKET_BYTES + 4 * chunks * 7 * n_groups)
+        ticket = scratch.data_ptr()
+        partial = ticket + _TICKET_BYTES
+    else:
+        scratch = torch.empty((chunks, 1, 7, n_groups), dtype=torch.float32,
                               device=device)
-        rc = lib.agg_scan_launch(
-            values.data_ptr() if values is not None else None,
-            _VALUE_TAGS[values.dtype] if values is not None else 0,
-            rates.data_ptr(), mask.data_ptr(),
-            group_codes.data_ptr() if group_codes is not None else None,
-            _INT_TAGS[group_codes.dtype] if group_codes is not None else 0,
-            n_groups, n, rows, chunks, gt,
-            partial.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream)
+        ticket, partial = None, scratch.data_ptr()
+    rc = lib.agg_scan_launch(
+        values.data_ptr() if values is not None else None,
+        _VALUE_TAGS[values.dtype] if values is not None else 0,
+        rates.data_ptr(), mask.data_ptr(),
+        group_codes.data_ptr() if group_codes is not None else None,
+        _INT_TAGS[group_codes.dtype] if group_codes is not None else 0,
+        n_groups, n, rows, chunks, gt, partial, ticket, out.data_ptr(),
+        stream)
     _raise_on(rc, "agg_scan")
     agg_scan_cuda.launches += 1
     return out

@@ -316,6 +316,128 @@ def test_agg_scan_kernel_absent_values_and_codes(cuda_device, n_groups):
             rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["nowhere", "last row of chunk 0",
+                                   "first row past a warp boundary",
+                                   "first row of chunk 1", "last row"])
+@pytest.mark.parametrize("n_groups", [1, 6])
+def test_agg_scan_mask_at_the_edges(cuda_device, n_groups, where):
+    """A mask false everywhere gives zeros; a mask true in one row at the
+    edge of a chunk or a warp gives that row's float32 terms, bit for bit
+    the plain version's (one term a group: no order to differ in)."""
+    n = 100_003
+    values, rates, _, codes = _rate_case(np.random.default_rng(90), n,
+                                         n_groups, np.float32, cuda_device)
+    codes = codes.clamp(0, n_groups - 1)
+    rows = agg_scan.agg_scan_plan(n, n_groups, agg_scan._n_sms(cuda_device))[0]
+    at = {"nowhere": None, "last row of chunk 0": rows - 1,
+          "first row past a warp boundary": 32, "first row of chunk 1": rows,
+          "last row": n - 1}[where]
+    mask = torch.zeros(n, dtype=torch.bool, device=cuda_device)
+    if at is not None:
+        mask[at] = True
+    for vals in (values, None):
+        got = agg_scan.agg_scan_cuda(vals, rates, mask, codes, n_groups)
+        assert torch.equal(got, ref.agg_scan_ref(vals, rates, mask, codes,
+                                                 n_groups))
+        assert (got[0].sum().item() == 0) == (at is None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_groups", [1, 6, 8])
+def test_agg_scan_small_prefix_equals_quantile_moments(cuda_device, n_groups):
+    """Rows in entry-key order and K at 1-5% of them, as the wide path scans
+    a block at a small K: most warps hold no selected row and skip their
+    divisions. Against the plain version, and bit for bit against the
+    quantile kernel's moments over the same selection."""
+    rng = np.random.default_rng(95 + n_groups)
+    t = _small_k_case(rng, 100_003, n_groups, 1, 2, cuda_device)
+    k = t["ks"][:1]
+    freq = t["freq_table"][t["strat"].long()]
+    sel = t["valid"] & (t["unit"] * freq < k[0]) & (t["atom_cols"][0] > 3)
+    rates = torch.clamp_max(k[0] / freq, 1.0)
+    got = agg_scan.agg_scan_cuda(t["values"], rates, sel, t["group_codes"],
+                                 n_groups)
+    want = ref.agg_scan_ref(t["values"], rates, sel, t["group_codes"],
+                            n_groups, accumulate=torch.float64)
+    assert 0 < want[0].sum().item() < 0.1 * sel.numel()
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    lo, hi = t["values"].min().item(), t["values"].max().item()
+    mom, _ = agg_scan.quantile_scan_cuda(
+        t["values"], t["unit"], t["strat"], t["freq_table"], t["valid"],
+        (sel,), t["group_codes"], k, lo, hi,
+        torch.ones((1, 1), device=cuda_device), ((CmpOp.EQ,),), (0,),
+        n_groups)
+    assert torch.equal(got, mom)
+
+
+@pytest.mark.cuda
+def test_agg_scan_calls_in_a_row_and_on_two_streams(cuda_device):
+    """Two calls in a row on one stream return two fresh outputs, each with
+    its own answer (the calls share the stream's scratch in order); a call
+    on a second stream, beside one on the first, takes its own scratch."""
+    a = _rate_case(np.random.default_rng(91), 100_003, 6, np.float32,
+                   cuda_device)
+    b = _rate_case(np.random.default_rng(92), 200_003, 6, np.float32,
+                   cuda_device)
+    want_a = agg_scan.agg_scan_cuda(*a, 6).clone()
+    want_b = agg_scan.agg_scan_cuda(*b, 6).clone()
+    got_a = agg_scan.agg_scan_cuda(*a, 6)
+    got_b = agg_scan.agg_scan_cuda(*b, 6)
+    assert got_a.data_ptr() != got_b.data_ptr()
+    torch.cuda.synchronize()
+    assert torch.equal(got_a, want_a) and torch.equal(got_b, want_b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        on_side = [agg_scan.agg_scan_cuda(*b, 6) for _ in range(4)]
+    on_main = [agg_scan.agg_scan_cuda(*a, 6) for _ in range(4)]
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, want_b) for x in on_side)
+    assert all(torch.equal(x, want_a) for x in on_main)
+
+
+@pytest.mark.cuda
+def test_agg_scan_fast_divisions_are_the_shared_pass_bits(cuda_device):
+    """The one-launch kernel's branch-free w = 1/r and vfac = (1 - r)/r²
+    equal the correctly rounded divisions, bit for bit, for every float
+    rate in [2^-60, 1] (the range its warps check before using them)."""
+    assert agg_scan.agg_scan_rounding_mismatches(cuda_device) == 0
+
+
+def _misaligned(t):
+    """A copy of t whose data starts one element past a 16-byte boundary."""
+    if t is None:
+        return None
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    view = buf[1:1 + t.numel()]
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_groups", range(1, 10))
+def test_agg_scan_one_launch_and_shared_pass_agree_bitwise(cuda_device,
+                                                           n_groups):
+    """Up to 8 groups on 16-byte-aligned columns agg_scan takes its
+    one-launch kernel, otherwise the shared pass of scan_common.cuh: the
+    same rows give the same bits either way, against the plain version."""
+    dtype = np.float16 if n_groups % 3 == 0 else np.float32
+    values, rates, mask, codes = _rate_case(
+        np.random.default_rng(100 + n_groups), 100_003, n_groups, dtype,
+        cuda_device)
+    if n_groups % 2:
+        codes = codes.to(torch.int8)
+    args = (None if n_groups == 2 else values, rates, mask, codes)
+    got = agg_scan.agg_scan_cuda(*args, n_groups)
+    shifted = agg_scan.agg_scan_cuda(*map(_misaligned, args), n_groups)
+    assert torch.equal(got, shifted)
+    torch.testing.assert_close(
+        got, ref.agg_scan_ref(*args, n_groups, accumulate=torch.float64),
+        rtol=RTOL, atol=ATOL)
+
+
 def _batched_from_fused(t, n_atoms):
     """agg_scan_batched inputs with freq = freq_table[strat] and
     entry_key = where(valid, unit·freq, inf), the atoms as f32 rows."""
