@@ -19,7 +19,9 @@ Phases, each reported on its own lines:
      launched alone; the quantile kernel's moments bit-identical to
      agg_scan_fused at Q = 1 and to agg_scan over a selection given as one
      atom column; agg_scan_batched equal to agg_scan_fused (max |diff| 0.0)
-     across its sweep; the wrappers refuse a 128-atom template; agg_scan
+     across its sweep (Q = 1, 7, 9, 64 and 65, 0, 1 and 127 atoms, n off
+     16-byte alignment and a ragged last chunk); the wrappers refuse a
+     128-atom template; agg_scan
      at its edges: its branch-free divisions over every rate in [2^-60, 1],
      a mask false everywhere or true in one row at a chunk's or a warp's
      edge, a selection at a small K of rows in entry-key order
@@ -37,7 +39,7 @@ Phases, each reported on its own lines:
   3b. batch: 36 queries of five templates (QUANTILE and a 130-atom template
      among them) through BlinkDB.query_batch on a fresh engine, then
      through query() on that engine: every answer bit-identical (launches
-     by group count as in phase 3);
+     by group count as in phase 3, and agg_scan_fused's by query count);
   3c. the kernels' own entry points, kernels.ops.agg_scan_batched (32
      instantiations of SUM(SessionTime) WHERE URL = u GROUP BY OS on the
      URL family's materialized HT state) and kernels.ops.weighted_sum (the
@@ -444,10 +446,13 @@ def phase_batched_vs_plain(torch, np, device) -> tuple[float, float, float]:
     worst, fused_diff = (0.0, 0.0), 0.0
     fn, fused = agg_scan.agg_scan_batched_cuda, agg_scan.agg_scan_fused_cuda
     rng = np.random.default_rng(10)
-    cases = [(q, a, 6) for q in (1, 7, 64, 65) for a in (0, 1, 127)]
-    cases.append((64, 1, 500))
-    for q, a, g in cases:
-        args = make_case(torch, np, rng, device, 100_003, g, q, 1, a, 37,
+    # n = 100,003 and 2,049,003: atom rows off 16-byte alignment (n % 4 =
+    # 3), and a ragged last chunk (2,048-row chunks at 2,049,003).
+    cases = [(q, a, 6, 100_003) for q in (1, 7, 64, 65) for a in (0, 1, 127)]
+    cases += [(64, 1, 500, 100_003), (7, 1, 1, 2_049_003),
+              (7, 1, 6, 2_049_003), (9, 127, 6, 2_049_003)]
+    for q, a, g, n in cases:
+        args = make_case(torch, np, rng, device, n, g, q, 1, a, 37,
                          np.int8, np.int16 if g > 127 else np.int8, np.int8)
         struct = ((CmpOp.GE,) * a,) if a else ()
         mat = materialized(torch, args, a)
@@ -462,7 +467,8 @@ def phase_batched_vs_plain(torch, np, device) -> tuple[float, float, float]:
                                         accumulate=torch.float64)
         diff = (got - same).abs().max().item()
         fused_diff = max(fused_diff, diff)
-        worst = check_close(torch, f"Q={q} A={a} G={g}", got, want, worst,
+        worst = check_close(torch, f"Q={q} A={a} G={g} n={n}", got, want,
+                            worst,
                             bit_identical_repeat=torch.equal(got, again),
                             equals_fused=diff == 0.0)
         if a == agg_scan.MAX_ATOMS:
@@ -532,10 +538,12 @@ BY_GROUPS = ("agg_scan_fused", "quantile_scan")
 
 
 @contextlib.contextmanager
-def launches_by_groups(counts: dict):
+def launches_by_groups(counts: dict, by_queries=None):
     """While active, counts the launches of the fused and quantile wrappers
-    by their n_groups into counts[name][G]. Each wrapper is replaced by a
-    counting one for the phase: a wrapper adds one to the `launches` of the
+    by their n_groups into counts[name][G], and with `by_queries` the fused
+    wrapper's launches by their query count Q into by_queries[Q]. Each
+    wrapper is replaced by a counting one for the phase: a wrapper adds
+    one to the `launches` of the
     module-level name it is bound to, which is then the counting wrapper
     (functools.wraps starts it at the wrapper's count), so launch_counts()
     reads it there during the phase, and the wrapper gets the count back
@@ -550,6 +558,9 @@ def launches_by_groups(counts: dict):
             g = kw.get("n_groups", args[-1] if args else 1)
             per = counts.setdefault(name, {})
             per[g] = per.get(g, 0) + call.launches - before
+            if by_queries is not None and name == "agg_scan_fused":
+                q = (kw["ks"] if "ks" in kw else args[7]).shape[0]
+                by_queries[q] = by_queries.get(q, 0) + call.launches - before
             return out
         return call
     saved = {name: getattr(agg_scan, f"{name}_cuda") for name in BY_GROUPS}
@@ -991,10 +1002,10 @@ def phase_batch(torch, np, main_db) -> dict:
     db._striped.update(main_db._striped)
     queries = batch_queries(Query, AggOp, Atom, CmpOp, Predicate, ErrorBound)
     reset_launches()
-    by_g = {}
+    by_g, by_q = {}, {}
     db._sync()
     t0 = time.perf_counter()
-    with launches_by_groups(by_g):
+    with launches_by_groups(by_g, by_q):
         batched = db.query_batch(queries)
         db._sync()
     batch_s = time.perf_counter() - t0
@@ -1023,21 +1034,27 @@ def phase_batch(torch, np, main_db) -> dict:
     log("  batch launches by G: " + "; ".join(
         f"{k} " + " ".join(f"G={g}:{c}" for g, c in sorted(by_g.get(k, {}).items()))
         for k in BY_GROUPS))
+    bands = {"Q=1": [1], "Q=2-7": range(2, 8), "Q>=8": range(8, 65)}
+    log("  batch agg_scan_fused launches by Q: " + ", ".join(
+        f"{name}: {sum(by_q.get(q, 0) for q in qs)}"
+        for name, qs in bands.items()) + " (" + " ".join(
+        f"Q={q}:{c}" for q, c in sorted(by_q.items())) + ")")
     log(f"  query() on the same engine: {1e3 * single_s:.3f} ms, launches "
         + " ".join(f"{k}={single_launches[k]}" for k in MAIN_PATH_KERNELS))
     log(f"phase 3b ok: {same}/{len(queries)} answers bit-identical")
     return {"launches": batch_launches, "by_groups": by_g,
-            "single_launches": single_launches}
+            "fused_by_queries": by_q, "single_launches": single_launches}
 
 
 # ---------------------------------------------------------------- phase 3c
 
-def batched_path_inputs(torch, db, n_queries: int):
+def batched_path_inputs(torch, db, n_queries: int, ks=None):
     """kernels.ops.agg_scan_batched's inputs for n_queries instantiations of
-    SUM(SessionTime) WHERE URL = u GROUP BY OS over the URL family's whole
-    block (k = K1): the materialized HT state (pads and ghosts at entry_key
-    inf), the URL column as one float32 atom row. Also the fused scan's
-    inputs for the same queries."""
+    SUM(SessionTime) WHERE URL = u GROUP BY OS (query i: u = url{i:03d})
+    over the URL family's whole block: the materialized HT state (pads and
+    ghosts at entry_key inf), the URL column as one float32 atom row, and
+    each query's K from `ks` (default: every query at K1). Also the fused
+    scan's inputs for the same queries."""
     from repro_torch.core import executor as exec_lib
     phi = ("URL",)
     striped = db._striped_for("sessions", phi)
@@ -1047,7 +1064,8 @@ def batched_path_inputs(torch, db, n_queries: int):
     ek = torch.where(striped.valid, ek, torch.full_like(ek, float("inf")))
     cols = striped.columns
     enc = db._encode("sessions")
-    ks = torch.full((n_queries,), k1, dtype=torch.float32, device=db.device)
+    ks = torch.tensor([k1] * n_queries if ks is None else list(ks),
+                      dtype=torch.float32, device=db.device)
     consts = torch.tensor([[float(enc("URL", f"url{i:03d}"))]
                            for i in range(n_queries)], dtype=torch.float32,
                           device=db.device)
@@ -1429,7 +1447,8 @@ def kernels_record(worst, record, main, batch, ops_path, times,
             entry["launches_by_G"] = main["by_groups"].get(kname, {})
             entry["batch_launches_by_G"] = batch["by_groups"].get(kname, {})
         if kname == "agg_scan_fused":
-            entry.update(q32_ms=times["q32_ms"], q1x32_ms=times["q1x32_ms"])
+            entry.update(q32_ms=times["q32_ms"], q1x32_ms=times["q1x32_ms"],
+                         batch_launches_by_Q=batch["fused_by_queries"])
         elif kname == "quantile_scan":
             entry["hist_bincount_ms"] = rep["hist_bincount_ms"]
             entry["fused_plus_bincount_ms"] = (rep["fused_ms"]

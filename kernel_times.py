@@ -16,11 +16,13 @@ URL and uniform); the shapes are its phase-4 shapes, a fused scan of a
 100-atom NOT IN template at the URL family's smallest and largest K, and
 agg_scan at the shapes the main path launches it (the 200-URL NOT IN at
 the URL family's largest and smallest K, the 130-city AVG NOT IN on the
-City family). For each (kernel, shape, version): the median ms of 20
-launches by CUDA events, the device time of each kernel the call launches
-(torch.profiler, mean over the profiled calls), their sum (device) and
-the host share of the call (the event median of the turns less device:
-the wrapper's host work). Also prints ptxas's resource lines of every
+City family), and agg_scan_batched at phase 3c's inputs for Q = 1, 7, 32
+and 64 queries at K1 and 32 queries at 32 distinct K (batched_shapes),
+with each call's device time a query. For each (kernel, shape, version):
+the median ms of 20 launches by CUDA events, the device time of each
+kernel the call launches (torch.profiler, mean over the profiled calls),
+their sum (device) and the host share of the call (the event median of
+the turns less device: the wrapper's host work). Also prints ptxas's resource lines of every
 build, and with --sass writes each library's SASS (cuobjdump) into the
 given directory. Without a CUDA device it exits 2.
 """
@@ -88,6 +90,19 @@ def profile_split(torch, fn, calls: int) -> dict:
     return out
 
 
+def batched_shapes(ladder):
+    """(Q, ks or None for every query at K1, label) of the agg_scan_batched
+    calls: phase 3c's Q = 1 and 32 at K1, Q = 7 (no power of two), Q = 64
+    (the largest launch) and Q = 32 with 32 distinct K spanning the URL
+    family's ladder (its 16 rungs K1/2^i and the 16 geometric midpoints
+    K1/2^(i + 1/2)), so that the prefix differs per query as in
+    query_batch's final pass."""
+    spread = [ladder[0] / 2.0 ** (i / 2.0) for i in range(32)]
+    return [(1, None, "K1"), (7, None, "K1"), (32, None, "K1"),
+            (32, spread, f"32 K from {spread[0]:g} to {spread[-1]:.4g}"),
+            (64, None, "K1")]
+
+
 def cases(torch, db, v):
     """(kernel, label, G, fn) of every timed call for the version v =
     (agg_scan module, weighted_sum module)."""
@@ -138,10 +153,10 @@ def cases(torch, db, v):
         inputs, g, _ = smoke.wide_args(torch, db, q, phi, k)
         out.append(("agg_scan", label, g,
                     lambda a=inputs, g=g: scans.agg_scan_cuda(*a, g)))
-    for n_q in (1, 32):
-        args, _, g, _ = smoke.batched_path_inputs(torch, db, n_q)
+    for n_q, ks, which in batched_shapes(url.ks):
+        args, _, g, _ = smoke.batched_path_inputs(torch, db, n_q, ks)
         out.append(("agg_scan_batched", f"Q={n_q} SUM(SessionTime) WHERE "
-                    "URL=u GROUP BY OS", g,
+                    f"URL=u GROUP BY OS, {which}", g,
                     lambda a=args, g=g: scans.agg_scan_batched_cuda(
                         *a, ((Op.EQ,),), g)))
     args, _, _ = smoke.weighted_sum_path_inputs(torch, db)
@@ -208,9 +223,14 @@ def main() -> int:
                              sorted(split[name].items(), key=lambda kv: -kv[1]))
             device = sum(split[name].values())
             host[name] = sorted(ms[name])[len(ms[name]) // 2] - device
+            per_q = ""
+            if kname == "agg_scan_batched":
+                n_q = int(label.split()[0].removeprefix("Q="))
+                per_q = f" device/query={device / n_q:.5f}"
             log(f"  {kname} {label} G={g} [{name}] ms="
                 + "/".join(f"{t:.4f}" for t in ms[name])
-                + f" device={device:.4f} host={host[name]:.4f} split: {parts}")
+                + f" device={device:.4f} host={host[name]:.4f}{per_q} "
+                f"split: {parts}")
         if diff is not None:
             log(f"  {kname} {label} G={g} max |this - baseline| = {diff!r}")
         records.append({"kernel": kname, "shape": label, "G": g, "ms": ms,

@@ -11,9 +11,9 @@ this module), and ctypes loads it. `build_all()` starts one nvcc per source
 at once. Each wrapper (`agg_scan_cuda`, `agg_scan_batched_cuda`,
 `agg_scan_fused_cuda`, `quantile_scan_cuda`) checks its arguments,
 allocates outputs and per-chunk scratch with torch.empty (agg_scan up to 8
-groups: a scratch buffer kept per stream), launches on the current stream
-and raises if the launch failed. Its `launches` attribute counts the
-kernel's launches; nothing else touches it.
+groups and agg_scan_batched: a scratch buffer kept per stream), launches
+on the current stream and raises if the launch failed. Its `launches`
+attribute counts the kernel's launches; nothing else touches it.
 """
 from __future__ import annotations
 
@@ -83,8 +83,6 @@ _SCAN_ARGS = [
     _P, _P, _I32,                  # valid, codes, codes_tag
     *_DNF_ARGS,
 ]
-_PLAN_ARGS = [_I64, _I32, _I32,    # rows_per_chunk, n_chunks, gt
-              _P, _P]              # partial, out
 LIBRARIES = {
     "agg_scan": Library(
         CSRC_DIR / "agg_scan.cu", "agg_scan_launch",
@@ -97,7 +95,8 @@ LIBRARIES = {
         [_P, _I32, _P, _P,                # values, values_tag, freq, ek
          _P, _I32, *_DNF_ARGS,            # codes, codes_tag, template
          _P, _P, _I32, _I32, _I64,        # ks, consts, Q, G, n
-         *_PLAN_ARGS, _P]),               # plan, stream
+         _I64, _I32, _I32,                # rows_per_chunk, n_chunks, gt
+         _P, _P, _P, _P]),                # bits, partial, out, stream
     "weighted_sum": Library(
         CSRC_DIR / "weighted_sum.cu", "weighted_sum_launch",
         [_P, _I32, _P, _P,                # values, values_tag, weights, mask
@@ -553,13 +552,19 @@ def agg_scan_plan(n: int, g: int, n_sms: int) -> tuple[int, int, int]:
 _SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
 
 
-def _agg_scan_scratch(device, stream: int, nbytes: int) -> torch.Tensor:
+def _stream_scratch(cache: dict, device, stream: int,
+                    nbytes: int) -> torch.Tensor:
+    """The cache's zeroed buffer for (device, stream), grown to nbytes."""
     key = (device.index, stream)
-    buf = _SCRATCH.get(key)
+    buf = cache.get(key)
     if buf is None or buf.numel() * 4 < nbytes:
         buf = torch.zeros(-(-nbytes // 4), dtype=torch.int32, device=device)
-        _SCRATCH[key] = buf
+        cache[key] = buf
     return buf
+
+
+def _agg_scan_scratch(device, stream: int, nbytes: int) -> torch.Tensor:
+    return _stream_scratch(_SCRATCH, device, stream, nbytes)
 
 
 # The rates agg_scan.cu's row loop divides by without the compiler's range
@@ -628,49 +633,92 @@ def agg_scan_cuda(values, rates, mask, group_codes,
 agg_scan_cuda.launches = 0
 
 
+_SEL_GROUPS = 8          # agg_scan_batched.cu selects, then adds, up to here
+
+# agg_scan_batched's scratch per (device, stream): the selection bits, then
+# the chunk partials. Launches on one stream run in order and may share it.
+_BATCHED_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def batched_launches(q_all: int) -> list[tuple[int, int]]:
+    """(first query, queries) of each launch of a Q-query agg_scan_batched
+    call: at most 64 a launch, tiling [0, Q) in order. Every launch takes
+    the plan agg_scan_plan(n, G, card), whatever its query count."""
+    return [(q0, min(MAX_QUERIES, q_all - q0))
+            for q0 in range(0, q_all, MAX_QUERIES)]
+
+
+def batched_scratch(q: int, g: int, rows: int, chunks: int) -> tuple[int, int]:
+    """(bits, partial) bytes of a launch of q queries: up to 8 groups, the
+    selection, one 32-bit word per (query, chunk, thread of 256, window of
+    32 of the thread's rows_per_chunk / 256 rows), none above; and the
+    chunk partials [chunks, q, 7, G]."""
+    windows = -(-rows // (256 * 32))
+    return (q * chunks * 256 * windows * 4 if g <= _SEL_GROUPS else 0,
+            4 * chunks * q * 7 * g)
+
+
+@functools.lru_cache(maxsize=256)
+def batched_template(ops_struct: tuple) -> tuple:
+    """(C arguments after col_ptrs, the host arrays they point into) of a
+    template whose flattened atom a reads atom row a: column tags, atom
+    slots and compares, conjunction ends. Kept per template, so a repeat
+    call packs nothing; two templates of one shape get their own."""
+    n_atoms = sum(len(c) for c in ops_struct)
+    dnf, keep = _dnf_head([0] * n_atoms, [_VALUE_TAGS[torch.float32]] * n_atoms,
+                          ops_struct, range(n_atoms))
+    return dnf[1:], keep
+
+
 def agg_scan_batched_cuda(values, freq, entry_key, atom_cols, group_codes,
                           ks, pred_consts, ops_struct,
                           n_groups: int) -> torch.Tensor:
     """Launch the Q-query shared scan over materialized freq/entry_key on
-    CUDA tensors: returns f32[Q, 7, n_groups]. Same arguments and semantics
-    as ref.agg_scan_batched_ref; atom_cols [A, n] is read as float32 rows.
-    Q may pass 64: the queries go in launches of at most 64, and a query's
-    bits do not depend on how many share its launch."""
+    CUDA tensors: returns a fresh f32[Q, 7, n_groups]. Same arguments and
+    semantics as ref.agg_scan_batched_ref; atom_cols [A, n] is read as
+    float32 rows. Q may pass 64: the queries go in launches of at most 64
+    (batched_launches), each with the plan of agg_scan_plan, so a query's
+    bits do not depend on how many share its launch. Scratch (selection
+    bits and chunk partials) is kept per stream."""
     check_batched_args(values, freq, entry_key, atom_cols, group_codes, ks,
                        pred_consts, ops_struct, n_groups)
     device = freq.device
     _check_cuda("agg_scan_batched_cuda", [values, freq, entry_key, atom_cols,
                                           group_codes], device)
-    lib = build("agg_scan_batched")
+    lib = LIBRARIES["agg_scan_batched"].handle or build("agg_scan_batched")
+    if device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return agg_scan_batched_cuda(values, freq, entry_key, atom_cols,
+                                         group_codes, ks, pred_consts,
+                                         ops_struct, n_groups)
     n, q_all = freq.shape[0], ks.shape[0]
     n_atoms = atom_cols.shape[0]
-    with torch.cuda.device(device):
-        atoms = atom_cols.to(torch.float32).contiguous()
-        ks = ks.to(torch.float32).contiguous()
-        consts = pred_consts.to(torch.float32).contiguous()
-        dnf, keep = _dnf_head([atoms.data_ptr() + 4 * n * a
-                               for a in range(n_atoms)],
-                              [_VALUE_TAGS[torch.float32]] * n_atoms,
-                              ops_struct, range(n_atoms))
-        out = torch.empty((q_all, 7, n_groups), dtype=torch.float32,
-                          device=device)
-        stream = torch.cuda.current_stream(device).cuda_stream
-        n_sms = _n_sms(device)
-        for q0 in range(0, q_all, MAX_QUERIES):
-            q = min(MAX_QUERIES, q_all - q0)
-            rows, chunks, gt, _ = launch_plan(n, q, n_groups, n_sms)
-            partial = torch.empty((chunks, q, 7, n_groups),
-                                  dtype=torch.float32, device=device)
-            rc = lib.agg_scan_batched_launch(
-                values.data_ptr(), _VALUE_TAGS[values.dtype], freq.data_ptr(),
-                entry_key.data_ptr(), group_codes.data_ptr(),
-                _INT_TAGS[group_codes.dtype], *dnf,
-                ks[q0:].data_ptr(), consts[q0:].data_ptr(), q, n_groups, n,
-                rows, chunks, gt, partial.data_ptr(), out[q0:].data_ptr(),
-                stream)
-            _raise_on(rc, "agg_scan_batched")
-            agg_scan_batched_cuda.launches += 1
-        del keep
+    atoms = atom_cols.to(torch.float32)
+    ks = ks.to(torch.float32).contiguous()
+    consts = pred_consts.to(torch.float32).contiguous()
+    rows, chunks, gt = agg_scan_plan(n, n_groups, _n_sms(device))
+    template, keep = batched_template(tuple(map(tuple, ops_struct)))
+    ptrs = (ctypes.c_uint64 * max(n_atoms, 1))(
+        *[atoms.data_ptr() + 4 * n * a for a in range(n_atoms)])
+    stream = _stream_handle(device)
+    out = torch.empty((q_all, 7, n_groups), dtype=torch.float32,
+                      device=device)
+    bits, partial = batched_scratch(min(q_all, MAX_QUERIES), n_groups, rows,
+                                    chunks)
+    scratch = _stream_scratch(_BATCHED_SCRATCH, device, stream,
+                              bits + partial).data_ptr()
+    for q0, q in batched_launches(q_all):
+        rc = lib.agg_scan_batched_launch(
+            values.data_ptr(), _VALUE_TAGS[values.dtype], freq.data_ptr(),
+            entry_key.data_ptr(), group_codes.data_ptr(),
+            _INT_TAGS[group_codes.dtype], ctypes.addressof(ptrs), *template,
+            ks.data_ptr() + 4 * q0, consts.data_ptr() + 4 * q0 * n_atoms, q,
+            n_groups, n, rows, chunks, gt,
+            scratch if bits else None, scratch + bits,
+            out.data_ptr() + 4 * q0 * 7 * n_groups, stream)
+        _raise_on(rc, "agg_scan_batched")
+        agg_scan_batched_cuda.launches += 1
+    del keep
     return out
 
 

@@ -476,6 +476,115 @@ def test_batched_kernel_matches_plain_and_fused_bitwise(cuda_device, q,
 
 
 
+def _batched_and_fused(t, struct, n_atoms, n_groups):
+    """agg_scan_batched on t's materialized state, and agg_scan_fused on t
+    (in launches of 64 queries)."""
+    got = agg_scan.agg_scan_batched_cuda(
+        *_batched_from_fused(t, n_atoms), t["ks"], t["pred_consts"], struct,
+        n_groups)
+    q = t["ks"].shape[0]
+    fused = torch.cat([
+        _call(agg_scan.agg_scan_fused_cuda,
+              dict(t, ks=t["ks"][i:i + 64],
+                   pred_consts=t["pred_consts"][i:i + 64]),
+              struct, (0,) * n_atoms, n_groups)
+        for i in range(0, q, 64)])
+    return got, fused
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_groups", [1, 6])
+@pytest.mark.parametrize("q", [1, 7, 8, 9, 33, 64])
+def test_batched_select_then_add_equals_fused_bitwise(cuda_device, q,
+                                                      n_groups):
+    """Query counts at and around the powers of two, one atom (the one-atom
+    selection) and a two-conjunction template (the general one): equal to
+    the fused scan at max |diff| 0.0 and within the plain version's
+    tolerance."""
+    rng = np.random.default_rng(100 + q + n_groups)
+    for struct in (((CmpOp.EQ,),), ((CmpOp.GE, CmpOp.LT), (CmpOp.EQ,))):
+        n_atoms = sum(len(c) for c in struct)
+        t = _case(rng, 100_003, n_groups, q, n_atoms, cuda_device)
+        got, fused = _batched_and_fused(t, struct, n_atoms, n_groups)
+        want = ref.agg_scan_batched_ref(
+            *_batched_from_fused(t, n_atoms), t["ks"], t["pred_consts"],
+            struct, n_groups, accumulate=torch.float64)
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+        assert (got - fused).abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q, n_groups", [(9, 1), (33, 6)])
+def test_batched_slices_equal_queries_launched_alone(cuda_device, q,
+                                                     n_groups):
+    rng = np.random.default_rng(110 + q)
+    t = _case(rng, 100_003, n_groups, q, 1, cuda_device)
+    mat = _batched_from_fused(t, 1)
+    struct = ((CmpOp.EQ,),)
+    batched = agg_scan.agg_scan_batched_cuda(*mat, t["ks"], t["pred_consts"],
+                                             struct, n_groups)
+    for i in range(q):
+        one = agg_scan.agg_scan_batched_cuda(
+            *mat, t["ks"][i:i + 1], t["pred_consts"][i:i + 1], struct,
+            n_groups)
+        assert torch.equal(batched[i], one[0]), i
+
+
+@pytest.mark.cuda
+def test_batched_repeats_and_calls_in_a_row(cuda_device):
+    """Repeat launches are bit-identical; two calls in a row on one stream
+    (sharing its scratch in order) return separate outputs, each its own
+    answer."""
+    rng = np.random.default_rng(120)
+    a = _case(rng, 100_003, 6, 33, 1, cuda_device)
+    b = _case(rng, 200_003, 6, 64, 1, cuda_device)
+    struct = ((CmpOp.EQ,),)
+
+    def run(t):
+        return agg_scan.agg_scan_batched_cuda(
+            *_batched_from_fused(t, 1), t["ks"], t["pred_consts"], struct, 6)
+    want_a, want_b = run(a).clone(), run(b).clone()
+    got_a, got_b = run(a), run(b)
+    assert got_a.data_ptr() != got_b.data_ptr()
+    torch.cuda.synchronize()
+    assert torch.equal(got_a, want_a) and torch.equal(got_b, want_b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4097, 1_000_001, 2_049_003, 20_000_003])
+def test_batched_unaligned_rows_and_ragged_last_chunk(cuda_device, n):
+    """Row counts that are no multiple of 4 (atom rows off 16-byte
+    alignment) and whose last chunk is ragged: equal to the fused scan.
+    At 20M rows a chunk is 76 rows a thread, three windows of 32."""
+    rng = np.random.default_rng(130)
+    t = _case(rng, n, 6, 9, 1, cuda_device)
+    n_sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    rows, _, _ = agg_scan.agg_scan_plan(n, 6, n_sms)
+    assert n % 4 and n % rows
+    got, fused = _batched_and_fused(t, ((CmpOp.EQ,),), 1, 6)
+    assert got[:, 0].sum().item() > 0
+    assert (got - fused).abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_groups", [1, 6])
+def test_batched_queries_selecting_no_row_give_zeros(cuda_device, n_groups):
+    """Queries whose constant no row holds, or whose K is below every
+    entry key, add nothing: their sums are +0; the others equal the fused
+    scan's."""
+    rng = np.random.default_rng(140 + n_groups)
+    t = _case(rng, 100_003, n_groups, 12, 1, cuda_device)
+    t["pred_consts"][::3] = 99.0            # atoms are 0..7
+    t["ks"][1::3] = 0.0                     # entry keys are > 0
+    got, fused = _batched_and_fused(t, ((CmpOp.EQ,),), 1, n_groups)
+    assert (got - fused).abs().max().item() == 0.0
+    dead = torch.zeros(12, dtype=torch.bool)
+    dead[::3] = dead[1::3] = True
+    assert torch.equal(got[dead], torch.zeros_like(got[dead]))
+    assert not torch.signbit(got[dead]).any()
+    assert got[~dead][:, 0].sum().item() > 0
+
+
 def _small_k_case(rng, n, n_groups, q, n_atoms, device):
     """_case with its rows in entry-key order, as a sample block is, and
     each query's K at 1-5% of the rows, so most warps hold no prefix row."""
