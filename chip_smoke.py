@@ -47,10 +47,22 @@ Phases, each reported on its own lines:
      launch count read around it: held against agg_scan_fused (bit for
      bit; rtol 1e-4 for weighted_sum's ungrouped sums), the plain version
      and exact_query;
+  3d. sample creation: BlinkDB.build_samples (the §3.2 optimizer) on a
+     fresh engine over phase 3's table with conviva_templates, and on a
+     5M-row lineitem table with tpch_templates (K1 at the same ratio of
+     rows to K1), budget 0.5, each with its host seconds (statistics,
+     solver, family builds); the forced family (City, URL) of tens of
+     thousands of strata, whose frequency table the fused and quantile
+     kernels read through L2; 16 ERROR WITHIN queries through query()
+     (each scan against its plain version, each answer against
+     exact_query under phase 3's rule), then query_batch on fresh engines
+     equal to query() bit for bit; launches by group count and by where
+     the table sits;
   4. times: each kernel at the main path's shapes (agg_scan_fused and
      quantile_scan at G = 1, 6, 200 and 500) against its bound and its
      plain version, quantile_scan beside the yardstick agg_scan_fused +
-     torch.bincount; agg_scan_fused and agg_scan_batched at Q = 32.
+     torch.bincount; agg_scan_fused and agg_scan_batched at Q = 32; the
+     fused and quantile kernels on the (City, URL) family of phase 3d.
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Any failed check raises: the script then
 exits non-zero and prints no result. Without a CUDA device it exits 2.
@@ -179,6 +191,12 @@ def sweep_cases(torch, np, device, quantile=False):
                 case(n, 6, 1 if quantile else 3, 1, 100, 37, np.int8,
                      np.int8, np.int8, small_k=True),
                 ((ge,) * 100,), (0,) * 100, 6))
+    # More strata than shared memory holds: the table is read through L2.
+    for strata, sdt in ((4097, np.int16), (12_000, np.int16),
+                        (70_000, np.int32)):
+        out.append((f"strata={strata} {np.dtype(sdt).name} (L2 table)",
+                    case(n, 6, 1 if quantile else 3, 2, 2, strata, sdt,
+                         np.int8, np.int16), ((le, ne),), (0, 1), 6))
     return out
 
 
@@ -538,10 +556,13 @@ BY_GROUPS = ("agg_scan_fused", "quantile_scan")
 
 
 @contextlib.contextmanager
-def launches_by_groups(counts: dict, by_queries=None):
+def launches_by_groups(counts: dict, by_queries=None, by_table=None):
     """While active, counts the launches of the fused and quantile wrappers
-    by their n_groups into counts[name][G], and with `by_queries` the fused
-    wrapper's launches by their query count Q into by_queries[Q]. Each
+    by their n_groups into counts[name][G], with `by_queries` the fused
+    wrapper's launches by their query count Q into by_queries[Q], and with
+    `by_table` both wrappers' launches by where their frequency table sits
+    into by_table[name]["shared" or "L2"] (more than SHARED_STRATA strata
+    are read through L2). Each
     wrapper is replaced by a counting one for the phase: a wrapper adds
     one to the `launches` of the
     module-level name it is bound to, which is then the counting wrapper
@@ -561,6 +582,11 @@ def launches_by_groups(counts: dict, by_queries=None):
             if by_queries is not None and name == "agg_scan_fused":
                 q = (kw["ks"] if "ks" in kw else args[7]).shape[0]
                 by_queries[q] = by_queries.get(q, 0) + call.launches - before
+            if by_table is not None:
+                where = ("L2" if args[3].shape[0] > agg_scan.SHARED_STRATA
+                         else "shared")
+                per = by_table.setdefault(name, {})
+                per[where] = per.get(where, 0) + call.launches - before
             return out
         return call
     saved = {name: getattr(agg_scan, f"{name}_cuda") for name in BY_GROUPS}
@@ -799,8 +825,59 @@ def sample_bin_width(torch, db, q, ans) -> float:
                                               ans.sample_k)
         lo, hi = exec_lib.selected_range(values, sel)
     else:
-        lo, hi = db._family_range("sessions", ans.sample_phi, q.value_column)
+        lo, hi = db._family_range(q.table, ans.sample_phi, q.value_column)
     return (hi - lo) / 256.0
+
+
+def hold_to_exact(torch, np, db, label, q, ans, scans, launched) -> int:
+    """Phase 3's rule for one answer against exact_query: raises for an
+    empty or non-finite answer, or for a QUANTILE group outside 2 CI
+    half-widths plus one bin width of each side's histogram; logs the
+    answer. Returns how many of its groups lie within 2 CI half-widths
+    (the caller holds COUNT, SUM and AVG to 90% of all groups)."""
+    from repro_torch.core import AggOp
+    exact = {g.key: g.estimate for g in db.exact_query(q).groups}
+    if not ans.groups or not np.isfinite(
+            [[g.estimate, g.ci_low, g.ci_high] for g in ans.groups]).all():
+        raise AssertionError(f"{label}: empty or non-finite answer")
+    slack = 0.0
+    if q.agg is AggOp.QUANTILE:
+        exact_w = exact_bin_width(torch, db, q)
+        if ans.sample_phi == ("<exact>",):
+            slack = 2.0 * exact_w
+        else:
+            slack = sample_bin_width(torch, db, q, ans) + exact_w
+    rel, in_ci, outside = [], 0, []
+    for g in ans.groups:
+        truth = exact[g.key]
+        rel.append(abs(g.estimate - truth) / max(abs(truth), 1e-12))
+        half = max(g.ci_high - g.estimate, g.estimate - g.ci_low)
+        inside = abs(g.estimate - truth) <= \
+            2.0 * half + 1e-4 * abs(truth) + slack
+        in_ci += inside
+        if not inside:
+            outside.append((g.key, g.estimate, truth, half, g.n_selected))
+    for key, est, truth, half, n_sel in outside[:10]:
+        log(f"    outside: {label} group={key} estimate={est!r} "
+            f"exact={truth!r} ci_half={half!r} slack={slack!r} "
+            f"n_selected={n_sel} family={ans.sample_phi} "
+            f"K={ans.sample_k!r}")
+    if q.agg is AggOp.QUANTILE and in_ci < len(ans.groups):
+        raise AssertionError(
+            f"{label}: {len(ans.groups) - in_ci} groups farther than 2 CI "
+            f"half-widths plus one bin width per side from exact_query")
+    ci_rel = max(((g.ci_high - g.ci_low) / 2.0 / max(abs(g.estimate), 1e-12))
+                 for g in ans.groups)
+    log(f"  {label}: family={ans.sample_phi} K={ans.sample_k:.6g} "
+        f"rows_read={ans.rows_read} scan_ms={1e3 * ans.elapsed_s:.3f} "
+        f"bound_met={ans.bound_met} certified={ans.certified} "
+        f"scans={len(scans)} launches "
+        + " ".join(f"{k}={launched[k]}" for k in MAIN_PATH_KERNELS)
+        + f" groups={len(ans.groups)} "
+        f"max_realized_rel_err={max(rel):.3e} max_ci_rel_half={ci_rel:.3e} "
+        f"groups_within={in_ci}/{len(ans.groups)}"
+        + (f" bin_slack={slack:.6g}" if slack else ""))
+    return in_ci
 
 
 def sessions_engine(engine_cls, n_rows: int, device):
@@ -862,51 +939,10 @@ def phase_main_path(torch, np, n_rows: int, record, device="cuda") -> dict:
             ans = db.query(q)
             launched = launches_since(before)
             scans = record["scans"][n_scans:]
-            exact = {g.key: g.estimate for g in db.exact_query(q).groups}
-            if not ans.groups or not np.isfinite(
-                    [[g.estimate, g.ci_low, g.ci_high] for g in ans.groups]).all():
-                raise AssertionError(f"{label}: empty or non-finite answer")
-            slack = 0.0
-            if q.agg is AggOp.QUANTILE:
-                exact_w = exact_bin_width(torch, db, q)
-                if ans.sample_phi == ("<exact>",):
-                    slack = 2.0 * exact_w
-                else:
-                    slack = sample_bin_width(torch, db, q, ans) + exact_w
-            rel, in_ci, outside = [], 0, []
-            for g in ans.groups:
-                truth = exact[g.key]
-                rel.append(abs(g.estimate - truth) / max(abs(truth), 1e-12))
-                half = max(g.ci_high - g.estimate, g.estimate - g.ci_low)
-                inside = abs(g.estimate - truth) <= \
-                    2.0 * half + 1e-4 * abs(truth) + slack
-                in_ci += inside
-                if not inside:
-                    outside.append((g.key, g.estimate, truth, half,
-                                    g.n_selected))
-            for key, est, truth, half, n_sel in outside[:10]:
-                log(f"    outside: {label} group={key} estimate={est!r} "
-                    f"exact={truth!r} ci_half={half!r} slack={slack!r} "
-                    f"n_selected={n_sel} family={ans.sample_phi} "
-                    f"K={ans.sample_k!r}")
-            if q.agg is AggOp.QUANTILE and in_ci < len(ans.groups):
-                raise AssertionError(
-                    f"{label}: {len(ans.groups) - in_ci} groups farther than 2 CI "
-                    f"half-widths plus one bin width per side from exact_query")
+            in_ci = hold_to_exact(torch, np, db, label, q, ans, scans,
+                                  launched)
             covered += in_ci
             total += len(ans.groups)
-            ci_rel = max(((g.ci_high - g.ci_low) / 2.0 / max(abs(g.estimate), 1e-12))
-                         for g in ans.groups)
-            main_ms = 1e3 * ans.elapsed_s
-            log(f"  {label}: family={ans.sample_phi} K={ans.sample_k:.6g} "
-                f"rows_read={ans.rows_read} scan_ms={main_ms:.3f} "
-                f"bound_met={ans.bound_met} certified={ans.certified} "
-                f"scans={len(scans)} launches "
-                + " ".join(f"{k}={launched[k]}" for k in MAIN_PATH_KERNELS)
-                + f" groups={len(ans.groups)} "
-                f"max_realized_rel_err={max(rel):.3e} max_ci_rel_half={ci_rel:.3e} "
-                f"groups_within={in_ci}/{len(ans.groups)}"
-                + (f" bin_slack={slack:.6g}" if slack else ""))
             results.append((label, q, ans))
     launches = launch_counts()
     if device == "cuda" and min(launches[k] for k in MAIN_PATH_KERNELS) == 0:
@@ -1166,6 +1202,293 @@ def phase_ops_path(torch, np, db) -> dict:
             "weighted_sum": w_worst}
 
 
+# ---------------------------------------------------------------- phase 3d
+
+LINEITEM_ROWS = 5_000_000    # cut for the smoke's time limit
+ROWS_PER_K1 = 200            # the smoke's ratio: 20M sessions rows, K1 = 1e5
+
+
+def conviva_templates(QueryTemplate):
+    """benchmarks/common.py conviva_templates: §2.3's workload, the
+    headline templates with the paper's weights."""
+    return [QueryTemplate(frozenset(c), w) for c, w in (
+        ({"City"}, 0.30), ({"Genre", "City"}, 0.25), ({"OS", "URL"}, 0.25),
+        ({"Genre"}, 0.10), ({"URL"}, 0.10))]
+
+
+def tpch_templates(QueryTemplate):
+    """benchmarks/common.py tpch_templates: TPC-H's 22 queries as 6
+    templates (paper §6.1)."""
+    return [QueryTemplate(frozenset(c), w) for c, w in (
+        ({"l_returnflag", "l_linestatus"}, 0.25), ({"l_suppkey"}, 0.20),
+        ({"l_partkey"}, 0.20), ({"l_shipmode"}, 0.15),
+        ({"l_partkey", "l_suppkey"}, 0.10), ({"l_returnflag"}, 0.10))]
+
+
+def sample_creation_queries(tbl, line):
+    """(table, label, Query) of phase 3d, all ERROR WITHIN:
+    benchmarks/common.py conviva_queries at 10%, the port's
+    launch/query.py four at its 5%, three on the forced (City, URL)
+    family, and four lineitem queries."""
+    from repro_torch.core import AggOp, Atom, CmpOp, ErrorBound, Predicate
+    from repro_torch.core import Query as Q
+    from repro_torch.launch import query as query_launch
+    t, b = "sessions", ErrorBound(0.10)
+    city, url = tbl.dictionaries["City"], tbl.dictionaries["URL"]
+    out = [(t, "AVG(SessionTime) GROUP BY City", Q(
+                t, AggOp.AVG, "SessionTime", group_by=("City",), bound=b)),
+           (t, f"COUNT WHERE City={city[0]}", Q(
+                t, AggOp.COUNT, bound=b,
+                predicate=Predicate.where(Atom("City", CmpOp.EQ, city[0])))),
+           (t, "SUM(SessionTime) WHERE Genre=genre03 GROUP BY City", Q(
+                t, AggOp.SUM, "SessionTime", group_by=("City",), bound=b,
+                predicate=Predicate.where(Atom("Genre", CmpOp.EQ,
+                                               "genre03")))),
+           (t, f"COUNT WHERE OS=os1 AND URL={url[1]}", Q(
+                t, AggOp.COUNT, bound=b, predicate=Predicate.where(
+                    Atom("OS", CmpOp.EQ, "os1"),
+                    Atom("URL", CmpOp.EQ, url[1])))),
+           (t, "AVG(Bitrate) GROUP BY OS", Q(
+                t, AggOp.AVG, "Bitrate", group_by=("OS",), bound=b))]
+    out += [(t, f"launch/query.py {name}", q)
+            for name, q in query_launch.queries(ErrorBound(0.05, 0.95))]
+    both = Predicate.where(Atom("City", CmpOp.EQ, "city001"),
+                           Atom("URL", CmpOp.EQ, "url001"))
+    out += [(t, "(City, URL) COUNT WHERE City=city001 AND URL=url001",
+             Q(t, AggOp.COUNT, predicate=both, bound=b)),
+            (t, "(City, URL) AVG(SessionTime) WHERE City=city000 AND "
+             "URL=url002", Q(t, AggOp.AVG, "SessionTime", bound=b,
+                             predicate=Predicate.where(
+                                 Atom("City", CmpOp.EQ, "city000"),
+                                 Atom("URL", CmpOp.EQ, "url002")))),
+            (t, "(City, URL) QUANTILE(SessionTime, 0.5) WHERE City=city001 "
+             "AND URL=url001", Q(t, AggOp.QUANTILE, "SessionTime",
+                                 quantile=0.5, predicate=both, bound=b))]
+    t = "lineitem"
+    supp, part = line.dictionaries["l_suppkey"], line.dictionaries["l_partkey"]
+    out += [(t, f"SUM(l_extendedprice) WHERE l_suppkey={supp[0]} GROUP BY "
+             "l_shipmode", Q(t, AggOp.SUM, "l_extendedprice", bound=b,
+                             group_by=("l_shipmode",),
+                             predicate=Predicate.where(
+                                 Atom("l_suppkey", CmpOp.EQ, supp[0])))),
+            (t, f"COUNT WHERE l_partkey={part[0]}", Q(
+                t, AggOp.COUNT, bound=b, predicate=Predicate.where(
+                    Atom("l_partkey", CmpOp.EQ, part[0])))),
+            (t, f"AVG(l_quantity) WHERE l_partkey={part[1]} AND "
+             f"l_suppkey={supp[1]}", Q(
+                t, AggOp.AVG, "l_quantity", bound=b,
+                predicate=Predicate.where(
+                    Atom("l_partkey", CmpOp.EQ, part[1]),
+                    Atom("l_suppkey", CmpOp.EQ, supp[1])))),
+            (t, "QUANTILE(l_extendedprice, 0.5) GROUP BY l_returnflag", Q(
+                t, AggOp.QUANTILE, "l_extendedprice", quantile=0.5,
+                group_by=("l_returnflag",), bound=ErrorBound(0.05)))]
+    return out
+
+
+FORCED = ("City", "URL")     # a family of tens of thousands of strata
+
+
+def timed_engine(engine_cls):
+    """engine_cls whose candidate statistics and family builds log their
+    host seconds into .timing["stats"] and .timing["builds"] as (φ, s)."""
+
+    class TimedDB(engine_cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.timing = {"stats": [], "builds": []}
+
+        def candidate_stats(self, table_name):
+            timing = self.timing
+            stats = super().candidate_stats(table_name)
+
+            def timed(phi):
+                t0 = time.perf_counter()
+                out = stats(phi)
+                timing["stats"].append((tuple(sorted(phi)),
+                                        time.perf_counter() - t0))
+                return out
+            return timed
+
+        def add_family(self, table_name, phi, seed=None, units=None):
+            t0 = time.perf_counter()
+            super().add_family(table_name, phi, seed=seed, units=units)
+            self.timing["builds"].append((tuple(sorted(phi)),
+                                          time.perf_counter() - t0))
+    return TimedDB
+
+
+def build_samples_logged(db, table, templates, budget) -> dict:
+    """db.build_samples with its host seconds logged: each φ's statistics,
+    the solver and each family build, and the striping of the blocks."""
+    from repro_torch.core import optimizer as opt_lib
+    timing = db.timing
+    timing.update(stats=[], builds=[])
+    solve = opt_lib.solve_greedy
+
+    def timed_solve(*a, **kw):
+        t0 = time.perf_counter()
+        out = solve(*a, **kw)
+        timing["solver"] = time.perf_counter() - t0
+        return out
+    opt_lib.solve_greedy = timed_solve
+    try:
+        t0 = time.perf_counter()
+        sol = db.build_samples(table, templates, budget)
+        total = time.perf_counter() - t0
+    finally:
+        opt_lib.solve_greedy = solve
+    tbl = db.tables[table]
+    t0 = time.perf_counter()
+    blocks = {phi: db._striped_for(table, phi) for phi in db.families[table]}
+    db._sync()
+    stripe = time.perf_counter() - t0
+    chosen = [tuple(sorted(c.phi)) for c in sol.chosen]
+    log(f"  {table}: {tbl.n_rows} rows, K1={db.config.k1:g}, budget "
+        f"{budget}: chosen {chosen}, storage_used {sol.storage_used:.6g} B = "
+        f"{sol.storage_used / tbl.nbytes:.4f} of the table "
+        f"({tbl.nbytes} B), objective {sol.objective:.6g}")
+    log(f"  {table} build_samples {total:.3f}s: candidate_stats "
+        f"{sum(t for _, t in timing['stats']):.3f}s ("
+        + " ".join(f"{p}={t:.3f}" for p, t in timing["stats"])
+        + f"), solver {timing['solver']:.4f}s, family builds "
+        + " ".join(f"{p}={t:.3f}s" for p, t in timing["builds"])
+        + f"; stripe+upload {stripe:.3f}s")
+    for phi, fam in db.families[table].items():
+        log(f"  {table} family {phi!s:24s} rows={fam.n_rows} "
+            f"slots={blocks[phi].n_local} strata={fam.n_distinct} "
+            f"freq_table={blocks[phi].freq_table.shape[0]} "
+            f"strat={blocks[phi].strat.dtype}")
+    return {"chosen": chosen, "share": sol.storage_used / tbl.nbytes,
+            "seconds": total}
+
+
+def phase_sample_creation(torch, np, main_db, record, device="cuda") -> dict:
+    """build_samples on fresh engines: the sessions table of phase 3 (its
+    encoded Table reused) under EngineConfig() and conviva_templates, and
+    lineitem_table at LINEITEM_ROWS rows with K1 at the same ratio of rows
+    to K1 and tpch_templates, both at budget 0.5; then the forced (City,
+    URL) family. The queries through query() on the chosen families, each
+    scan held against its plain version and each answer against
+    exact_query under phase 3's rule; then query_batch on fresh engines
+    over the same families, equal to query() there bit for bit."""
+    from repro_torch.core import BlinkDB, EngineConfig, QueryTemplate
+    from repro_torch.core import table as table_lib
+    from repro_torch.data import synth
+    t_phase = time.perf_counter()
+    checked = checked_engine(torch, record)
+    dbs = {}
+    db = timed_engine(checked)(EngineConfig(), device=device)
+    db.register_table("sessions", main_db.tables["sessions"])
+    dbs["sessions"] = db
+    built = {"sessions": build_samples_logged(
+        db, "sessions", conviva_templates(QueryTemplate), 0.5)}
+    t0 = time.perf_counter()
+    db.add_family("sessions", FORCED)
+    fblock = db._striped_for("sessions", FORCED)
+    db._sync()
+    log(f"  sessions forced family {FORCED}: "
+        f"strata={db.families['sessions'][FORCED].n_distinct} "
+        f"rows={db.families['sessions'][FORCED].n_rows} "
+        f"slots={fblock.n_local} strat={fblock.strat.dtype}; build+stripe "
+        f"{time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    line = table_lib.from_columns("lineitem",
+                                  synth.lineitem_table(LINEITEM_ROWS))
+    log(f"  lineitem: synth+encode {time.perf_counter() - t0:.3f}s")
+    ldb = timed_engine(checked)(
+        EngineConfig(k1=LINEITEM_ROWS / ROWS_PER_K1), device=device)
+    ldb.register_table("lineitem", line)
+    dbs["lineitem"] = ldb
+    built["lineitem"] = build_samples_logged(
+        ldb, "lineitem", tpch_templates(QueryTemplate), 0.5)
+
+    queries = sample_creation_queries(db.tables["sessions"], line)
+    reset_launches()
+    by_g, by_table = {}, {}
+    covered = total = 0
+    answers = []
+    with launches_by_groups(by_g, by_table=by_table):
+        for table, label, q in queries:
+            n_scans = len(record["scans"])
+            before = launch_counts()
+            ans = dbs[table].query(q)
+            launched = launches_since(before)
+            if label.startswith("(City, URL)") and ans.sample_phi != FORCED:
+                raise AssertionError(f"{label} answered on {ans.sample_phi}")
+            covered += hold_to_exact(torch, np, dbs[table], label, q, ans,
+                                     record["scans"][n_scans:], launched)
+            total += len(ans.groups)
+            answers.append(ans)
+    launches = launch_counts()
+    l2 = {k: v.get("L2", 0) for k, v in by_table.items()}
+    log("  launches by G: " + "; ".join(
+        f"{k} " + " ".join(f"G={g}:{c}" for g, c in sorted(by_g.get(k, {}).items()))
+        for k in BY_GROUPS) + "; by table: " + "; ".join(
+        f"{k} " + " ".join(f"{w}:{c}" for w, c in sorted(v.items()))
+        for k, v in sorted(by_table.items())))
+    if device == "cuda" and (min(launches[k] for k in BY_GROUPS) == 0 or
+                             min(l2.get(k, 0) for k in BY_GROUPS) == 0):
+        raise AssertionError(f"phase 3d launched a kernel no time (or none "
+                             f"with its table in L2): {launches} {by_table}")
+    if covered < 0.9 * total:
+        raise AssertionError(f"only {covered}/{total} groups within 2 CI "
+                             f"half-widths of exact_query")
+
+    # query_batch on fresh engines over the same families, then query()
+    # on those engines: every answer bit-identical.
+    reset_launches()
+    batch_by_g, batch_by_table = {}, {}
+    fresh = {}
+    for table, src in dbs.items():
+        f = BlinkDB(EngineConfig(k1=src.config.k1), device=device)
+        f.register_table(table, src.tables[table])
+        f.families[table] = dict(src.families[table])
+        f._generations.update(src._generations)
+        f._striped.update(src._striped)
+        fresh[table] = f
+    t0 = time.perf_counter()
+    batched = []
+    with launches_by_groups(batch_by_g, by_table=batch_by_table):
+        for table, f in fresh.items():
+            batched += f.query_batch([q for t, _, q in queries if t == table])
+        main_db._sync()
+    batch_s = time.perf_counter() - t0
+    batch_launches = launch_counts()
+    order = [(t, label, q) for table in fresh
+             for t, label, q in queries if t == table]
+    single, walls = [], []
+    for t, _, q in order:
+        t0 = time.perf_counter()
+        single.append(fresh[t].query(q))
+        fresh[t]._sync()
+        walls.append(time.perf_counter() - t0)
+    single_s = sum(walls)
+    for (t, label, q), a, b, wall in zip(order, batched, single, walls):
+        if answer_bits(a) != answer_bits(b):
+            raise AssertionError(f"query_batch and query() differ: {label}\n"
+                                 f"{answer_bits(a)}\n{answer_bits(b)}")
+        log(f"    {label} [query() after the batch]: "
+            f"query_ms={1e3 * wall:.3f} family={b.sample_phi} "
+            f"K={b.sample_k:.6g} scan_ms={1e3 * b.elapsed_s:.3f}")
+    log(f"  query_batch: {len(order)} queries in {1e3 * batch_s:.3f} ms "
+        f"(launches " + " ".join(f"{k}={batch_launches[k]}" for k in BY_GROUPS)
+        + "; by G " + "; ".join(
+            f"{k} " + " ".join(f"G={g}:{c}" for g, c in
+                               sorted(batch_by_g.get(k, {}).items()))
+            for k in BY_GROUPS)
+        + f"); query() on the same engines {1e3 * single_s:.3f} ms; "
+        f"{len(order)}/{len(order)} answers bit-identical")
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 3d ok: {len(queries)} queries, {covered}/{total} groups "
+        f"within the rule; launches "
+        + " ".join(f"{k}={launches[k]} (L2 table {l2.get(k, 0)})"
+                   for k in BY_GROUPS) + f"; {seconds:.1f}s")
+    return {"db": db, "launches": launches, "l2": l2, "by_groups": by_g,
+            "batch_l2": {k: v.get("L2", 0) for k, v in batch_by_table.items()},
+            "built": built, "seconds": seconds}
+
+
 # ----------------------------------------------------------------- phase 4
 
 def time_cuda(torch, fn, warmup: int, reps: int) -> float:
@@ -1398,11 +1721,81 @@ def phase_times(torch, db, card: str) -> dict:
     return rows
 
 
-def kernels_record(worst, record, main, batch, ops_path, times,
-                   card: str) -> list[dict]:
+def l2_queries():
+    """(label, Query) of the fused and quantile scans timed on the forced
+    (City, URL) family, whose table sits in L2."""
+    from repro_torch.core import AggOp, Atom, CmpOp, Predicate, Query
+    t = "sessions"
+    both = Predicate.where(Atom("City", CmpOp.EQ, "city001"),
+                           Atom("URL", CmpOp.EQ, "url001"))
+    return [
+        ("agg_scan_fused", "COUNT WHERE City=city001 AND URL=url001",
+         Query(t, AggOp.COUNT, predicate=both)),
+        ("agg_scan_fused", "AVG(SessionTime) WHERE City=city001 AND "
+         "URL=url001 GROUP BY OS",
+         Query(t, AggOp.AVG, "SessionTime", predicate=both,
+               group_by=("OS",))),
+        ("quantile_scan", "QUANTILE(SessionTime) WHERE City=city001 AND "
+         "URL=url001", Query(t, AggOp.QUANTILE, "SessionTime",
+                             predicate=both)),
+    ]
+
+
+def phase_times_l2(torch, db, card: str) -> dict:
+    """The fused and quantile kernels on the forced (City, URL) family's
+    whole block (its table read through L2): ms, plain ms, bound, and the
+    disagreement with the plain version summed in float64."""
+    from repro_torch.kernels import agg_scan, ref
+    before = launch_counts()
+    rows = {}
+    for kname, label, q in l2_queries():
+        k = db.families["sessions"][FORCED].ks[0]
+        args, struct, slots, g = kernel_args(torch, db, q, FORCED, k)
+        striped = db._striped_for("sessions", FORCED)
+        if kname == "agg_scan_fused":
+            fn = agg_scan.agg_scan_fused_cuda
+            call = (*args, struct, slots, g)
+            got = fn(*call)
+            want = ref.agg_scan_fused_ref(*call, accumulate=torch.float64)
+            plain = ref.agg_scan_fused_ref
+            out_bytes = 4 * got.numel()
+            mom = got
+        else:
+            fn = agg_scan.quantile_scan_cuda
+            lo, hi = db._family_range("sessions", FORCED, q.value_column)
+            call = (*args[:-1], lo, hi, args[-1], struct, slots, g)
+            got = torch.cat([t.flatten() for t in fn(*call)])
+            want = torch.cat([t.flatten() for t in ref.quantile_scan_ref(
+                *call, accumulate=torch.float64)])
+            plain = ref.quantile_scan_ref
+            mom = fn(*call)[0]
+            out_bytes = 4 * got.numel()
+        torch.cuda.synchronize()
+        diff = (got - want).abs().max().item()
+        if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+            raise AssertionError(f"{kname} with its table in L2 disagrees "
+                                 f"with the plain version: {label} {diff}")
+        ms = time_cuda(torch, lambda: fn(*call), warmup=3, reps=20)
+        plain_ms = time_cuda(torch, lambda: plain(*call), warmup=1, reps=3)
+        bnd = bound_for(args, struct, mom, out_bytes)
+        log_time(kname, f"{label} family={FORCED} (table in L2, "
+                 f"{args[3].shape[0]} strata)", striped, g, ms, plain_ms,
+                 bnd, card, f" max_abs_diff={diff:.3e}")
+        rows.setdefault(kname, []).append(
+            {"label": label, "G": g, "n_strata": args[3].shape[0], "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+             "max_abs_err": diff})
+    reset_launches(before)      # timing launches are not main-path work
+    return rows
+
+
+def kernels_record(worst, record, main, batch, ops_path, times, sample,
+                   l2_times, card: str) -> list[dict]:
     """The kernels' JSON record: one entry per kernel, its launches on its
     path, its worst disagreement with its plain version over every phase,
-    and its times at the main path's shapes."""
+    and its times at the main path's shapes; the fused and quantile
+    kernels also at the forced (City, URL) family's shapes, whose table
+    sits in L2 ("l2_table", with phase 3d's launches of that route)."""
     sources = {
         "agg_scan": ("agg_scan.cu", "agg_scan.py:128"),
         "agg_scan_batched": ("agg_scan_batched.cu", "agg_scan.py:220"),
@@ -1453,7 +1846,15 @@ def kernels_record(worst, record, main, batch, ops_path, times,
             entry["hist_bincount_ms"] = rep["hist_bincount_ms"]
             entry["fused_plus_bincount_ms"] = (rep["fused_ms"]
                                                + rep["hist_bincount_ms"])
-        elif kname == "agg_scan_batched":
+        if kname in l2_times:
+            entry["l2_table"] = [
+                {**row, "route": "cuda", "library_ms": None,
+                 "launches": sample["l2"].get(kname, 0),
+                 "batch_launches": sample["batch_l2"].get(kname, 0),
+                 "path": "BlinkDB.query (phase 3d)"}
+                for row in l2_times[kname]]
+            entry["sample_creation_launches"] = sample["launches"][kname]
+        if kname == "agg_scan_batched":
             entry.update(q32_ms=times[kname][1]["ms"],
                          max_abs_diff_vs_fused=max(worst[kname][2],
                                                    ops_path[kname][2]))
@@ -1474,6 +1875,7 @@ def main() -> int:
         return 2
     from repro_torch.kernels import agg_scan
 
+    t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     card = card_line()
     log(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1513,10 +1915,16 @@ def main() -> int:
     log("phase 3c: kernels.ops.agg_scan_batched and kernels.ops.weighted_sum")
     ops_path = phase_ops_path(torch, np, main["db"])
 
+    log("phase 3d: sample creation, BlinkDB.build_samples")
+    sample = phase_sample_creation(torch, np, main["db"], record)
+
     log(f"phase 4: times at the main path's shapes ({card})")
     times = phase_times(torch, main["db"], card)
+    l2_times = phase_times_l2(torch, sample["db"], card)
     kernels = kernels_record(worst, record, main, batch, ops_path, times,
-                             card)
+                             sample, l2_times, card)
+    log(f"smoke total {time.perf_counter() - t_start:.1f}s (phase 3d "
+        f"{sample['seconds']:.1f}s)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -18,7 +18,11 @@ agg_scan at the shapes the main path launches it (the 200-URL NOT IN at
 the URL family's largest and smallest K, the 130-city AVG NOT IN on the
 City family), and agg_scan_batched at phase 3c's inputs for Q = 1, 7, 32
 and 64 queries at K1 and 32 queries at 32 distinct K (batched_shapes),
-with each call's device time a query. For each (kernel, shape, version):
+with each call's device time a query, and the fused and quantile kernels
+over synthetic columns of the URL block's size whose frequency table has
+4096 strata (the most shared memory holds: both versions) or 4097 and
+12,000 (read through L2: this checkout only, as an earlier checkout
+refuses such a table). For each (kernel, shape, version):
 the median ms of 20 launches by CUDA events, the device time of each
 kernel the call launches (torch.profiler, mean over the profiled calls),
 their sum (device) and the host share of the call (the event median of
@@ -29,6 +33,7 @@ given directory. Without a CUDA device it exits 2.
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib.util
 import json
 import subprocess
@@ -44,6 +49,9 @@ import chip_smoke as smoke  # noqa: E402  (the workload and its shapes)
 log = smoke.log
 ROWS = 20_000_000     # base rows of chip_smoke.py's workload
 REPS = 20             # timed launches per turn
+STRATA_ROWS = 10_195_008   # the URL block's slots at ROWS
+STRATA = (4096, 4097, 12_000)
+SHARED_TABLE = 4096   # strata an earlier checkout's kernels take
 
 
 def load_version(root: Path, name: str):
@@ -103,9 +111,21 @@ def batched_shapes(ladder):
             (64, None, "K1")]
 
 
-def cases(torch, db, v):
+@functools.lru_cache(maxsize=None)
+def strata_case(n_strata: int):
+    """Fused-scan inputs at STRATA_ROWS rows, G = 6, one int8 atom column
+    and a table of n_strata strata (ids int16), shared by the versions."""
+    import numpy as np
+    import torch
+    return smoke.make_case(torch, np, np.random.default_rng(n_strata),
+                           "cuda", STRATA_ROWS, 6, 1, 1, 1, n_strata,
+                           np.int16, np.int8, np.int8)
+
+
+def cases(torch, db, v, this: bool = True):
     """(kernel, label, G, fn) of every timed call for the version v =
-    (agg_scan module, weighted_sum module)."""
+    (agg_scan module, weighted_sum module); fn is None for a call that an
+    earlier checkout (this=False) does not take."""
     from repro_torch.core import AggOp, Atom, CmpOp, Predicate, Query
     from repro_torch.core.types import CmpOp as Op
     scans, ws = v
@@ -161,7 +181,23 @@ def cases(torch, db, v):
                         *a, ((Op.EQ,),), g)))
     args, _, _ = smoke.weighted_sum_path_inputs(torch, db)
     out.append(("weighted_sum", "HT SUM(SessionTime), uniform block", 1,
-                lambda: torch.stack(ws.weighted_sum_cuda(*args))))
+                lambda a=args: torch.stack(ws.weighted_sum_cuda(*a))))
+    eq = ((Op.EQ,),)
+    for n_strata in STRATA:
+        args = strata_case(n_strata)
+        takes = this or n_strata <= SHARED_TABLE
+        where = "shared memory" if n_strata <= SHARED_TABLE else "L2"
+        out.append(("agg_scan_fused", f"synthetic, {n_strata} strata "
+                    f"(table in {where})", 6,
+                    (lambda a=args: scans.agg_scan_fused_cuda(
+                        *a, eq, (0,), 6)) if takes else None))
+        qargs = smoke.quantile_args(args)
+        out.append(("quantile_scan", f"synthetic, {n_strata} strata "
+                    f"(table in {where})", 6,
+                    (lambda a=qargs: torch.cat([t.flatten() for t in
+                                                scans.quantile_scan_cuda(
+                                                    *a, eq, (0,), 6)]))
+                    if takes else None))
     return out
 
 
@@ -203,18 +239,21 @@ def main() -> int:
     db, _, blocks, _ = smoke.sessions_engine(BlinkDB, ROWS, "cuda")
     for phi, b in blocks.items():
         log(f"  family {phi!s:10s} slots={b.n_local}")
-    per_version = {name: cases(torch, db, v) for name, v in versions.items()}
+    per_version = {name: cases(torch, db, v, this=name == "this")
+                   for name, v in versions.items()}
     records = []
     for i, (kname, label, g, _) in enumerate(per_version["this"]):
-        fns = {name: c[i][3] for name, c in per_version.items()}
+        fns = {name: c[i][3] for name, c in per_version.items()
+               if c[i][3] is not None}
         outs = {name: fn() for name, fn in fns.items()}
         torch.cuda.synchronize()
         diff = ((outs["this"] - outs["baseline"]).abs().max().item()
                 if "baseline" in outs else None)
         ms = {name: [] for name in fns}
         for name in order:
-            ms[name].append(smoke.time_cuda(torch, fns[name], warmup=3,
-                                            reps=REPS))
+            if name in fns:
+                ms[name].append(smoke.time_cuda(torch, fns[name], warmup=3,
+                                                reps=REPS))
         split = {name: profile_split(torch, fn, 10)
                  for name, fn in fns.items()}
         host = {}

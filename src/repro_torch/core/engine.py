@@ -2,24 +2,27 @@
 
     db = BlinkDB(EngineConfig(), device="cuda")
     db.register_table("sessions", table)
-    db.add_family("sessions", ("City",)); db.add_family("sessions", ())
+    db.build_samples("sessions", templates, storage_budget_fraction=0.5)
     ans = db.query(Query(..., bound=ErrorBound(0.1, 0.95)))
 
-The port answers COUNT, SUM, AVG and QUANTILE under ERROR WITHIN or WITHIN
-SECONDS on one device with closed-form CIs, one query at a time (`query`)
-or as a batch that shares its scans (`query_batch`): runtime family
-selection (§4.1), the ELP choice of the resolution K (§4.2) with the
-a-priori ERROR WITHIN ladder (pilot, certify at the top resolution,
-escalation, exact fallback), the fused scan and the one-pass quantile scan
-(executor → the CUDA kernels on the card), and HT estimation with Table-2
-error bars (§4.3). Joins, subsampling CIs, the optimizer, mutation and
-fault handling come with later slices and raise NotImplementedError here.
+The port builds sample families offline, chosen by the §3.2 optimizer
+(`build_samples`) or by hand (`add_family`), and answers COUNT, SUM, AVG
+and QUANTILE under ERROR WITHIN or WITHIN SECONDS on one device with
+closed-form CIs, one query at a time (`query`) or as a batch that shares
+its scans (`query_batch`): runtime family selection (§4.1), the ELP choice
+of the resolution K (§4.2) with the a-priori ERROR WITHIN ladder (pilot,
+certify at the top resolution, escalation, exact fallback), the fused scan
+and the one-pass quantile scan (executor → the CUDA kernels on the card),
+and HT estimation with Table-2 error bars (§4.3). Joins, subsampling CIs,
+mutation and fault handling come with later slices and raise
+NotImplementedError here.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
-from typing import Sequence
+from typing import Callable, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -27,12 +30,13 @@ import torch
 from repro_torch.core import elp as elp_lib
 from repro_torch.core import estimators as est_lib
 from repro_torch.core import executor as exec_lib
+from repro_torch.core import optimizer as opt_lib
 from repro_torch.core import sampling as samp_lib
 from repro_torch.core import table as table_lib
 from repro_torch.core.selection import rewrite_disjuncts, select_family
 from repro_torch.core.types import (AggOp, Answer, BoundUnreachableError,
                                     ColumnKind, ErrorBound, GroupResult,
-                                    Query, TimeBound)
+                                    Query, QueryTemplate, TimeBound)
 
 
 @dataclasses.dataclass
@@ -41,6 +45,7 @@ class EngineConfig:
     c: float = 2.0               # resolution shrink factor
     m: int | None = None         # resolutions per family (None: log_c K1)
     uniform_fraction: float = 0.5
+    max_strat_cols: int = 3      # §6.3: optimizer capped at 3 columns
     probe_resolutions: int = 2
     reuse_elp: bool = True       # cache ELP decisions per template (§4.4)
     seed: int = 0
@@ -118,6 +123,7 @@ class BlinkDB:
         self._quantile_ranges: dict = {}     # (table, phi, column) -> range
         self._elp_cache: dict = {}    # elp key -> ElpDecision
         self._generations: dict[tuple[str, tuple[str, ...]], int] = {}
+        self.last_solution: opt_lib.Solution | None = None
 
     def family_generation(self, table_name: str, phi: tuple[str, ...]) -> int:
         """Monotone content version of one sample family (0 = never built)."""
@@ -146,6 +152,74 @@ class BlinkDB:
             self.families[name] = {}
         self.tables[name] = tbl.to(self.device)
         self.families.setdefault(name, {})
+
+    def candidate_stats(self, table_name: str
+                        ) -> Callable[[frozenset[str]], tuple[float, float, float]]:
+        """stats(phi) -> (Store(φ), |D(φ)|, Δ(φ)) from table statistics.
+        Every row is live until deletes come with a later slice."""
+        tbl = self.tables[table_name]
+        k1 = self.config.k1
+
+        def stats(phi: frozenset[str]):
+            codes, _ = table_lib.combined_codes(tbl, sorted(phi))
+            nd = int(codes.max()) + 1 if len(codes) else 0
+            freqs = table_lib.stratum_frequencies(codes, nd)
+            storage = samp_lib.expected_sample_rows(freqs, k1) * \
+                (tbl.row_bytes() + 8)
+            delta = float(((freqs > 0) & (freqs < k1)).sum())
+            return storage, nd, delta
+        return stats
+
+    def build_samples(self, table_name: str,
+                      templates: Sequence[QueryTemplate],
+                      storage_budget_fraction: float = 0.5,
+                      change_fraction: float = 1.0,
+                      exact: bool = False,
+                      seed: int | None = None,
+                      units: Mapping[tuple[str, ...], np.ndarray] | None = None
+                      ) -> opt_lib.Solution:
+        """Offline sample creation (§2.2.1): solve §3.2, drop the families
+        the solution no longer wants, build the new ones in sorted φ order,
+        and keep the always-present uniform family. `seed` overrides the
+        config seed for this build only; `units` maps φ (() for the uniform
+        family) to per-row priorities, and a φ it lacks draws from the
+        seed."""
+        seed = self.config.seed if seed is None else seed
+        units = units or {}
+        tbl = self.tables[table_name]
+        # A template's own column set is also a candidate: compute each φ's
+        # statistics (a pass over the whole table) once.
+        stats = functools.lru_cache(maxsize=None)(
+            self.candidate_stats(table_name))
+        cands = opt_lib.enumerate_candidates(templates, stats,
+                                             self.config.max_strat_cols)
+        deltas, distincts = [], []
+        for t in templates:
+            _, nd, dl = stats(t.columns)
+            deltas.append(dl)
+            distincts.append(nd)
+        wl = opt_lib.Workload(tuple(templates), tuple(deltas),
+                              tuple(distincts))
+        budget = storage_budget_fraction * tbl.row_bytes() * tbl.n_live
+        fams = self.families.setdefault(table_name, {})
+        existing = frozenset(frozenset(p) for p in fams if p)
+        solver = opt_lib.solve_exact if exact else opt_lib.solve_greedy
+        sol = solver(cands, wl, budget, existing=existing,
+                     change_fraction=change_fraction)
+        self.last_solution = sol
+
+        wanted = {tuple(sorted(c.phi)) for c in sol.chosen}
+        current = {p for p in fams if p}
+        for phi in current - wanted:
+            del fams[phi]
+            self._drop_derived(table_name, phi)
+            self._generations[(table_name, phi)] = \
+                self.family_generation(table_name, phi) + 1
+        for phi in sorted(wanted - current):
+            self.add_family(table_name, phi, seed=seed, units=units.get(phi))
+        if () not in fams:
+            self.add_family(table_name, (), seed=seed, units=units.get(()))
+        return sol
 
     def add_family(self, table_name: str, phi: Sequence[str],
                    seed: int | None = None,

@@ -46,6 +46,10 @@ class SampleFamily:
         """Rows to scan for resolution cap k (host binary search)."""
         return int(np.searchsorted(self.entry_key_host, k, side="left"))
 
+    def storage_bytes(self, row_bytes: int) -> int:
+        # +8: the f32 freq and entry_key bookkeeping columns.
+        return self.n_rows * (row_bytes + 8)
+
 
 def resolution_caps(k1: float, c: float, m: int) -> tuple[float, ...]:
     """K_i = K_1 / c^i, i in [0, m) (paper §3.1)."""
@@ -138,3 +142,61 @@ def build_uniform_family(tbl: table_lib.Table, fraction: float, c: float = 2.0,
                             np.zeros(n, dtype=np.int64),
                             np.array([tbl.n_live], dtype=np.int64),
                             np.zeros((1, 0), dtype=np.int32), tbl.n_live)
+
+
+def stratified_exact_k(tbl: table_lib.Table, phi: Sequence[str], k: int, *,
+                       seed: int = 0) -> dict[str, np.ndarray]:
+    """Paper-faithful exact-K stratified sample (host reference): for every
+    distinct x of φ keep all rows if F(x) <= K else exactly K uniform rows.
+    Returns host columns plus `_rate` (per-row sampling rate, §4.3)."""
+    codes, _ = table_lib.combined_codes(tbl, phi)
+    n_distinct = int(codes.max()) + 1 if len(codes) else 0
+    freqs = table_lib.stratum_frequencies(codes, n_distinct)
+    rng = np.random.default_rng(seed)
+    prio = rng.random(tbl.n_rows)
+    # Rank within stratum by random priority; keep rank < K.
+    order = np.lexsort((prio, codes))
+    ranks = np.empty(tbl.n_rows, dtype=np.int64)
+    sorted_codes = codes[order]
+    # vectorized rank-within-group over the sorted array
+    boundaries = np.flatnonzero(np.diff(sorted_codes)) + 1
+    starts = np.concatenate([[0], boundaries])
+    group_start = np.repeat(starts, np.diff(np.concatenate([starts, [len(codes)]])))
+    ranks[order] = np.arange(tbl.n_rows) - group_start
+    keep = ranks < k
+    rate = np.minimum(1.0, k / freqs[codes])
+    out = {name: arr[keep] for name, arr in tbl.columns_host.items()}
+    out["_rate"] = rate[keep].astype(np.float32)
+    return out
+
+
+def _power_sum(s: float, m: int) -> float:
+    """Σ_{r=1..m} r^{-s}: exact partial sum + Euler–Maclaurin tail (supports
+    m up to 1e9+ without materializing ranks)."""
+    cut = min(m, 1_000_000)
+    r = np.arange(1, cut + 1, dtype=np.float64)
+    total = float((r ** -s).sum())
+    if m > cut:
+        a, b = float(cut + 1), float(m)
+        if abs(s - 1.0) < 1e-12:
+            integral = math.log(b / a)
+        else:
+            integral = (a ** (1 - s) - b ** (1 - s)) / (s - 1)
+        total += integral + 0.5 * (a ** -s + b ** -s) \
+            + s / 12.0 * (a ** (-s - 1) - b ** (-s - 1))
+    return total
+
+
+def zipf_storage_fraction(s: float, k: float, m_values: int) -> float:
+    """Appendix A / Table 5: storage of S(φ,K) as a fraction of the table when
+    φ ~ Zipf(s) with M distinct values and F(x) = M / rank(x)^s.
+
+    (The paper sets the *highest frequency* to M; total table rows are then
+    Σ_r M/r^s.)  Σ min(F(r), K) = K·r* + M·Σ_{r>r*} r^{-s} with
+    r* = #ranks where F ≥ K = floor((M/K)^{1/s})."""
+    m = float(m_values)
+    r_star = int(min(m, math.floor((m / k) ** (1.0 / s))))
+    head = k * r_star
+    tail = m * (_power_sum(s, m_values) - _power_sum(s, r_star)) if r_star < m_values else 0.0
+    total = m * _power_sum(s, m_values)
+    return float((head + tail) / total)

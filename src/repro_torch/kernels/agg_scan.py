@@ -40,7 +40,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 MAX_ATOMS = 127          # template atoms the kernels' descriptor holds
 MAX_CONJUNCTIONS = 128
-MAX_STRATA = 4096        # frequency table held in shared memory
+SHARED_STRATA = 4096     # up to here the freq table sits in shared memory
+MAX_STRATA = 2**31 - 1   # stratum ids are int32; above SHARED_STRATA
+                         # each row reads the table through L2
 MAX_QUERIES = 64         # queries per launch (the scratch grows with Q)
 _STAGE = 1024            # rows a block takes per step (csrc kStep)
 _REG_GROUPS = 8          # register-mode group tiles up to here (kRegGroups)
@@ -258,8 +260,9 @@ def check_fused_args(values, unit, strat, freq_table, valid, atom_cols,
     if n_atoms and (min(atom_slots) < 0 or max(atom_slots) >= len(atom_cols)):
         raise ValueError("atom_slots references a missing atom column")
     if freq_table.dim() != 1 or not 1 <= freq_table.shape[0] <= MAX_STRATA:
-        raise ValueError(f"freq table has {tuple(freq_table.shape)} strata; "
-                         f"need 1..{MAX_STRATA}")
+        raise ValueError(f"freq table has shape {tuple(freq_table.shape)}; "
+                         f"need 1..{MAX_STRATA} strata (an empty table "
+                         f"has no stratum to read)")
     if ks.dim() != 1 or not 1 <= ks.shape[0] <= MAX_QUERIES:
         raise ValueError(f"{tuple(ks.shape)} queries; need 1..{MAX_QUERIES}")
     if tuple(pred_consts.shape) != (ks.shape[0], n_atoms):

@@ -18,8 +18,10 @@
 // freq and entry_key on chip instead of streaming them, and reading each
 // distinct column once however many template atoms compare it. The TPU
 // kernel's one-hot matmuls were a workaround for a chip without gather or
-// scatter; here the frequency table is gathered from shared memory and the
-// grouped sum is predicated adds.
+// scatter; here the frequency table is gathered from shared memory (up to
+// scan::kMaxStrata strata; a family with more, such as a two-column
+// stratification, reads it through L2: scan::ParamsL2) and the grouped sum
+// is predicated adds.
 //
 // The first kernel reached 1-8% of that bound: each thread staged one row
 // per step through a chain of dependent, branch-guarded loads, and above
@@ -48,11 +50,38 @@
 
 #include "scan_common.cuh"
 
+namespace {
+
+// Fills producer P (the frequency table in shared memory, or read through
+// L2) and enqueues the moments pass and the chunk reduction.
+template <class P>
+int launch_fused(const void* values, int values_tag, const float* unit,
+                 const void* strat, int strat_tag, const float* ftab,
+                 int n_strata, const uint8_t* valid, const void* codes,
+                 int codes_tag, const unsigned long long* col_ptrs,
+                 const int* col_tags, int n_cols, const int* atom_slot,
+                 const int* atom_op, int n_atoms, const int* conj_end,
+                 int n_conj, const float* ks, const float* consts, int Q,
+                 int G, long long n, long long rows_per_chunk, int n_chunks,
+                 int gt, float* partial, float* out, cudaStream_t stream) {
+  P p;
+  if (!scan::fill_params(p, values, values_tag, unit, strat, strat_tag, ftab,
+                         n_strata, valid, codes, codes_tag, col_ptrs, col_tags,
+                         n_cols, atom_slot, atom_op, n_atoms, conj_end, n_conj,
+                         ks, consts, Q, G, n, rows_per_chunk, n_chunks, gt,
+                         partial))
+    return -1;
+  return scan::launch_moments(p, n_chunks, out, stream);
+}
+
+}  // namespace
+
 // Launches both passes on `stream`; returns cudaGetLastError() after them
 // (0 = success), or -1 for arguments the kernel does not take. Pointers to
 // column data, ks, consts, partial and out are device pointers; the
 // descriptor arrays (col_ptrs ... conj_end) are host arrays copied into the
-// kernel's parameters.
+// kernel's parameters. Up to scan::kMaxStrata strata the table is staged in
+// shared memory, above it is read through L2.
 extern "C" int agg_scan_fused_launch(
     const void* values, int values_tag, const float* unit,
     const void* strat, int strat_tag, const float* ftab, int n_strata,
@@ -63,14 +92,12 @@ extern "C" int agg_scan_fused_launch(
     const float* ks, const float* consts, int Q, int G, long long n,
     long long rows_per_chunk, int n_chunks, int gt,
     float* partial, float* out, void* stream) {
-  scan::Params p;
-  if (!scan::fill_params(p, values, values_tag, unit, strat, strat_tag, ftab,
-                         n_strata, valid, codes, codes_tag, col_ptrs, col_tags,
-                         n_cols, atom_slot, atom_op, n_atoms, conj_end, n_conj,
-                         ks, consts, Q, G, n, rows_per_chunk, n_chunks, gt,
-                         partial))
-    return -1;
-  const int rc = scan::launch_moments(p, n_chunks, out,
-                                      static_cast<cudaStream_t>(stream));
+  auto launch = n_strata > scan::kMaxStrata ? launch_fused<scan::ParamsL2>
+                                            : launch_fused<scan::Params>;
+  const int rc = launch(values, values_tag, unit, strat, strat_tag, ftab,
+                        n_strata, valid, codes, codes_tag, col_ptrs, col_tags,
+                        n_cols, atom_slot, atom_op, n_atoms, conj_end, n_conj,
+                        ks, consts, Q, G, n, rows_per_chunk, n_chunks, gt,
+                        partial, out, static_cast<cudaStream_t>(stream));
   return rc != 0 ? rc : static_cast<int>(cudaGetLastError());
 }

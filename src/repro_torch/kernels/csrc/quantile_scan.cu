@@ -39,7 +39,7 @@
 // shared memory); each tile's blocks stage every row of their chunk once
 // and add the tile's rows as above. Three launches per call.
 //
-// Occupancy traded for the shared histograms: with the 4096-entry table a
+// Occupancy traded for the shared histograms: with a 4096-entry table a
 // one-pass block takes up to 83 KB (the eight warp histograms at G = 5..8;
 // registers already hold that variant to two blocks per SM) or 70 KB at
 // G = 32 (three per SM); the separate histogram pass 100 KB (two per SM).
@@ -49,13 +49,65 @@
 
 #include "scan_common.cuh"
 
+namespace {
+
+// Fills producer P (the frequency table in shared memory, or read through
+// L2) and enqueues the passes and the chunk reduction.
+template <class P>
+int launch_quantile(
+    const void* values, int values_tag, const float* unit,
+    const void* strat, int strat_tag, const float* ftab, int n_strata,
+    const uint8_t* valid, const void* codes, int codes_tag,
+    const unsigned long long* col_ptrs, const int* col_tags, int n_cols,
+    const int* atom_slot, const int* atom_op, int n_atoms,
+    const int* conj_end, int n_conj,
+    const float* k, const float* consts, int G, long long n,
+    long long rows_per_chunk, int n_chunks, int gt,
+    float* partial, float* out,
+    float lo, float hi, long long hist_rows_per_chunk, int hist_chunks,
+    float* hist_partial, float* hist_out, cudaStream_t s) {
+  P p;
+  const bool one_pass = G <= scan::kOnePassGroups;
+  if (!scan::fill_params(p, values, values_tag, unit, strat, strat_tag,
+                         ftab, n_strata, valid, codes, codes_tag, col_ptrs,
+                         col_tags, n_cols, atom_slot, atom_op, n_atoms,
+                         conj_end, n_conj, k, consts, 1, G, n, rows_per_chunk,
+                         n_chunks, gt, partial) ||
+      hist_chunks < 1 || hist_chunks > 65535 || hist_rows_per_chunk < 1 ||
+      (one_pass && (p.n_gtiles != 1 || hist_chunks != n_chunks ||
+                    hist_rows_per_chunk != rows_per_chunk)))
+    return -1;
+  const scan::Hist h{lo, hi, hist_partial};
+  int rc;
+  if (one_pass) {
+    rc = scan::launch_moments_pass<P, true>(p, h, n_chunks, s);
+  } else {
+    rc = scan::launch_moments_pass<P, false>(p, scan::Hist{}, n_chunks, s);
+    P hp = p;
+    hp.rows_per_chunk = hist_rows_per_chunk;
+    hp.gt = scan::kHistTile;
+    hp.n_gtiles = (G + scan::kHistTile - 1) / scan::kHistTile;
+    if (rc == 0)
+      rc = scan::launch_pass<P, 0, false, true>(hp, h, hist_chunks, s);
+  }
+  if (rc != 0) return rc;
+  scan::launch_reduce(s, partial, out, n_chunks,
+                      static_cast<long long>(scan::kStats) * G, hist_partial,
+                      hist_out, hist_chunks,
+                      static_cast<long long>(G) * scan::kBins);
+  return 0;
+}
+
+}  // namespace
+
 // Launches the scan on `stream`: G <= 32 one pass (moments and histogram)
 // with the moments' chunk plan, which hist_rows_per_chunk/hist_chunks must
 // repeat; above, the moments pass and a histogram pass with its own plan.
 // Then one chunk reduction of both. Returns cudaGetLastError() after them
 // (0 = success), or -1 for arguments the kernel does not take. Pointer
 // conventions as agg_scan_fused_launch; k and consts hold one query ([1],
-// [1, n_atoms]).
+// [1, n_atoms]). Up to scan::kMaxStrata strata the table is staged in
+// shared memory, above it is read through L2.
 extern "C" int quantile_scan_launch(
     const void* values, int values_tag, const float* unit,
     const void* strat, int strat_tag, const float* ftab, int n_strata,
@@ -68,37 +120,14 @@ extern "C" int quantile_scan_launch(
     float* partial, float* out,
     float lo, float hi, long long hist_rows_per_chunk, int hist_chunks,
     float* hist_partial, float* hist_out, void* stream) {
-  scan::Params p;
-  const bool one_pass = G <= scan::kOnePassGroups;
-  if (!scan::fill_params(p, values, values_tag, unit, strat, strat_tag,
-                         ftab, n_strata, valid, codes, codes_tag, col_ptrs,
-                         col_tags, n_cols, atom_slot, atom_op, n_atoms,
-                         conj_end, n_conj, k, consts, 1, G, n, rows_per_chunk,
-                         n_chunks, gt, partial) ||
-      hist_chunks < 1 || hist_chunks > 65535 || hist_rows_per_chunk < 1 ||
-      (one_pass && (p.n_gtiles != 1 || hist_chunks != n_chunks ||
-                    hist_rows_per_chunk != rows_per_chunk)))
-    return -1;
-  const scan::Hist h{lo, hi, hist_partial};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc;
-  if (one_pass) {
-    rc = scan::launch_moments_pass<scan::Params, true>(p, h, n_chunks, s);
-  } else {
-    rc = scan::launch_moments_pass<scan::Params, false>(p, scan::Hist{},
-                                                        n_chunks, s);
-    scan::Params hp = p;
-    hp.rows_per_chunk = hist_rows_per_chunk;
-    hp.gt = scan::kHistTile;
-    hp.n_gtiles = (G + scan::kHistTile - 1) / scan::kHistTile;
-    if (rc == 0)
-      rc = scan::launch_pass<scan::Params, 0, false, true>(hp, h, hist_chunks,
-                                                           s);
-  }
-  if (rc != 0) return rc;
-  scan::launch_reduce(s, partial, out, n_chunks,
-                      static_cast<long long>(scan::kStats) * G, hist_partial,
-                      hist_out, hist_chunks,
-                      static_cast<long long>(G) * scan::kBins);
-  return static_cast<int>(cudaGetLastError());
+  auto launch = n_strata > scan::kMaxStrata
+                    ? launch_quantile<scan::ParamsL2>
+                    : launch_quantile<scan::Params>;
+  const int rc = launch(
+      values, values_tag, unit, strat, strat_tag, ftab, n_strata, valid,
+      codes, codes_tag, col_ptrs, col_tags, n_cols, atom_slot, atom_op,
+      n_atoms, conj_end, n_conj, k, consts, G, n, rows_per_chunk, n_chunks,
+      gt, partial, out, lo, hi, hist_rows_per_chunk, hist_chunks,
+      hist_partial, hist_out, static_cast<cudaStream_t>(stream));
+  return rc != 0 ? rc : static_cast<int>(cudaGetLastError());
 }

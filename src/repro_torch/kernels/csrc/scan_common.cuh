@@ -16,7 +16,9 @@
 // Row semantics of the fused scan (the reference's `_derive_freq`,
 // `_eval_dnf` and `_fused_scan_kernel`, src/repro/kernels/agg_scan.py:293-391),
 // per row i and query q:
-//   freq   = freq_table[strat]        (the table sits in shared memory)
+//   freq   = freq_table[strat]        (the table sits in shared memory up
+//                                      to kMaxStrata strata; above, each
+//                                      row reads it through L2)
 //   ek     = unit * freq              prefix = (ek < k_q) & valid
 //   mask   = prefix & DNF(atoms, consts[q])
 //   r      = min(1, k_q / freq)       w = 1/r      vfac = (1 - r) / r²
@@ -85,7 +87,7 @@ constexpr int kStats = 7;
 constexpr int kMaxQ = 64;           // queries per launch (scratch grows with Q)
 constexpr int kMaxAtoms = 127;
 constexpr int kMaxConj = 128;
-constexpr int kMaxStrata = 4096;
+constexpr int kMaxStrata = 4096;    // freq table staged in shared memory
 constexpr int kRegGroups = 8;       // register mode up to this group tile
 constexpr int kColGroups = 4;       // ... its sums in shared columns from here
 constexpr int kMaxTile = 1024;      // groups per tile in shared mode
@@ -291,8 +293,15 @@ __device__ __forceinline__ void prefix_rows(const Dnf& d, int q,
 // query q's selection, and its value and HT rate (any value for a row with
 // code -1). The scan pass asks only for indices inside the block's chunk.
 
-// The fused scan's producer (agg_scan_fused.cu, quantile_scan.cu).
-struct Params : Plan, Dnf {
+// The fused scan's producer (agg_scan_fused.cu, quantile_scan.cu). Up to
+// kMaxStrata strata (kL2Tab false) the block stages the frequency table in
+// shared memory; a family with more strata (kL2Tab true) stages none and
+// each row reads its stratum's frequency with __ldg from the table in
+// device memory, where a table of tens of thousands of floats stays in
+// L2. Either way a row reads the same float, so the sums keep their bits.
+template <bool kL2Tab>
+struct FusedRows : Plan, Dnf {
+  static constexpr bool kL2 = kL2Tab;
   const void* values; int values_tag;       // nullptr: every value is 1
   const float* unit;
   const void* strat; int strat_tag;
@@ -301,8 +310,9 @@ struct Params : Plan, Dnf {
   const void* codes; int codes_tag;         // nullptr: every row in group 0
   const float* ks;                          // [Q]
 
-  __host__ __device__ int n_tab() const { return n_strata; }
+  __host__ __device__ int n_tab() const { return kL2Tab ? 0 : n_strata; }
   __device__ void load_shared(float* tab) const {
+    if (kL2Tab) return;
     for (int i = threadIdx.x; i < n_strata; i += kThreads) tab[i] = ftab[i];
   }
   template <int R>
@@ -329,7 +339,7 @@ struct Params : Plan, Dnf {
     bool live = false;
 #pragma unroll
     for (int j = 0; j < R; ++j) {
-      f[j] = tab[st[j]];
+      f[j] = kL2Tab ? __ldg(ftab + st[j]) : tab[st[j]];
       pre[j] = (ok[j] != 0) & (u[j] * f[j] < k);
       live |= pre[j];
     }
@@ -341,6 +351,8 @@ struct Params : Plan, Dnf {
     }
   }
 };
+using Params = FusedRows<false>;            // the table in shared memory
+using ParamsL2 = FusedRows<true>;           // the table read through L2
 
 // Byte layout of the scan pass's dynamic shared memory, in floats: the
 // producer's table, the shared-mode moments [7][gt], the register mode's
@@ -768,8 +780,10 @@ inline bool fill_dnf(Dnf& d, const unsigned long long* col_ptrs,
 }
 
 // Fills the fused descriptor from the launcher's arguments; false for
-// arguments the kernels do not take.
-inline bool fill_params(Params& p, const void* values, int values_tag,
+// arguments the kernels do not take (an empty table, or more strata than
+// shared memory holds for the shared-table producer).
+template <class P>
+inline bool fill_params(P& p, const void* values, int values_tag,
                         const float* unit, const void* strat, int strat_tag,
                         const float* ftab, int n_strata, const uint8_t* valid,
                         const void* codes, int codes_tag,
@@ -779,7 +793,7 @@ inline bool fill_params(Params& p, const void* values, int values_tag,
                         const float* ks, const float* consts, int Q, int G,
                         long long n, long long rows_per_chunk, int n_chunks,
                         int gt, float* partial) {
-  if (n_strata < 1 || n_strata > kMaxStrata ||
+  if (n_strata < 1 || (!P::kL2 && n_strata > kMaxStrata) ||
       !fill_plan(p, Q, G, n, rows_per_chunk, n_chunks, gt, partial) ||
       !fill_dnf(p, col_ptrs, col_tags, n_cols, atom_slot, atom_op, n_atoms,
                 conj_end, n_conj, consts))

@@ -216,8 +216,20 @@ def test_check_rejects_128_atoms():
 
 
 def test_check_rejects_4097_strata():
+    """The fused scan took at most 4096 strata, the table the kernel held
+    in shared memory; a longer table is now read through L2, so 4097
+    strata pass the check and give the plain version's moments. What the
+    check still rejects is an empty table (no stratum to read)."""
     t = _torch_case()
     t["freq_table"] = torch.ones(4097)
+    t["strat"] = torch.arange(300, dtype=torch.int16) * 13
+    got = _call(t, ((CmpOp.EQ,),), (0,)).stacked()
+    want = ref.agg_scan_fused_ref(
+        t["values"], t["unit"], t["strat"], t["freq_table"], t["valid"],
+        t["atom_cols"], t["group_codes"], t["ks"], t["pred_consts"],
+        ((CmpOp.EQ,),), (0,), 4)
+    assert torch.equal(got, want) and got[:, 0].sum() > 0
+    t["freq_table"] = torch.ones(0)
     with pytest.raises(ValueError, match="strata"):
         _call(t, ((CmpOp.EQ,),), (0,))
 

@@ -115,20 +115,22 @@ def _shared_bytes(c: dict, n_tab: int, gt: int, moments: bool,
     return 4 * floats
 
 
-@pytest.mark.parametrize("n_strata", [1, 300, 4096])
+@pytest.mark.parametrize("n_strata", [1, 300, 4096, 4097, 70_000])
 def test_scan_passes_fit_shared_memory(n_strata):
     """Every scan pass of a fused or quantile call fits a block's dynamic
     shared memory, for every G in 1..4096: the moments pass at the plan's
     group tile, and the quantile histogram in it up to kOnePassGroups or in
-    its own pass of kHistTile groups above."""
+    its own pass of kHistTile groups above. A table of more than kMaxStrata
+    strata is read through L2 and takes no shared memory."""
     c = _header_constants()
+    n_tab = n_strata if n_strata <= c["kMaxStrata"] else 0
     for g in range(1, 4097):
         gt = agg_scan.launch_plan(0, 1, g, 1)[2]
-        fused = [_shared_bytes(c, n_strata, gt, True, False)]
+        fused = [_shared_bytes(c, n_tab, gt, True, False)]
         if g <= c["kOnePassGroups"]:
-            quantile = [_shared_bytes(c, n_strata, gt, True, True)]
+            quantile = [_shared_bytes(c, n_tab, gt, True, True)]
         else:
-            quantile = fused + [_shared_bytes(c, n_strata, c["kHistTile"],
+            quantile = fused + [_shared_bytes(c, n_tab, c["kHistTile"],
                                               False, True)]
         for sizes in (fused, quantile):
             assert max(sizes) <= agg_scan.MAX_SHARED, (g, sizes)
@@ -144,6 +146,7 @@ def test_plan_constants_match_the_kernel_header():
     assert const["kBins"] == 256
     assert const["kMaxShared"] == agg_scan.MAX_SHARED
     assert const["kMaxQ"] == agg_scan.MAX_QUERIES
+    assert const["kMaxStrata"] == agg_scan.SHARED_STRATA
 
 
 # ---------------------------------------------------- make_batched_query_fn

@@ -657,3 +657,108 @@ def test_weighted_sum_kernel_matches_plain_and_repeats_bitwise(cuda_device, n):
     want = torch.stack(ref.weighted_sum_ref(*args))
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-2)
     assert torch.equal(got, again)
+
+
+def _strata_case(rng, n, n_groups, q, n_strata, device):
+    """_case with a frequency table of n_strata entries and stratum ids at
+    the width the striped layout gives them (int16 up to 32,767, int32
+    above), every stratum present."""
+    t = _case(rng, n, n_groups, q, 2, device)
+    sdt = np.int16 if n_strata <= 32_767 else np.int32
+    strat = rng.integers(0, n_strata, n)
+    strat[:n_strata] = np.arange(n_strata)
+    t["strat"] = torch.from_numpy(strat.astype(sdt)).to(device)
+    t["freq_table"] = torch.from_numpy(
+        rng.integers(1, 500, n_strata).astype(np.float32)).to(device)
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_strata", [4096, 4097, 12_000, 70_000])
+@pytest.mark.parametrize("n_groups", [1, 6, 200])
+def test_kernels_past_4096_strata_match_plain(cuda_device, n_strata,
+                                              n_groups):
+    """A family of more than 4096 strata (a two-column stratification)
+    reads its frequency table through L2 instead of shared memory: the
+    fused and quantile kernels against their plain versions, repeats
+    bit-identical, the quantile's moments equal to the fused scan's and
+    the batched kernel over the materialized freq equal to the fused."""
+    rng = np.random.default_rng(n_strata + n_groups)
+    t = _strata_case(rng, 100_003, n_groups, 3, n_strata, cuda_device)
+    struct, slots = ((CmpOp.EQ,), (CmpOp.GT,)), (0, 0)
+    before = agg_scan.agg_scan_fused_cuda.launches
+    got = _call(agg_scan.agg_scan_fused_cuda, t, struct, slots, n_groups)
+    again = _call(agg_scan.agg_scan_fused_cuda, t, struct, slots, n_groups)
+    assert agg_scan.agg_scan_fused_cuda.launches == before + 2
+    want = _call(ref.agg_scan_fused_ref, t, struct, slots, n_groups,
+                 accumulate=torch.float64)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, again)
+    batched = agg_scan.agg_scan_batched_cuda(
+        *_batched_from_fused(t, 2), t["ks"], t["pred_consts"], struct,
+        n_groups)
+    assert (batched - got).abs().max().item() == 0.0
+    before = agg_scan.quantile_scan_cuda.launches
+    mom, hist = _quantile_call(agg_scan.quantile_scan_cuda, t, struct, slots,
+                               n_groups)
+    assert agg_scan.quantile_scan_cuda.launches == before + 1
+    want_mom, want_hist = _quantile_call(ref.quantile_scan_ref, t, struct,
+                                         slots, n_groups,
+                                         accumulate=torch.float64)
+    torch.testing.assert_close(mom, want_mom, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(hist, want_hist, rtol=RTOL, atol=ATOL)
+    fused = _call(agg_scan.agg_scan_fused_cuda,
+                  dict(t, ks=t["ks"][:1], pred_consts=t["pred_consts"][:1]),
+                  struct, slots, n_groups)
+    assert torch.equal(mom, fused[0])
+
+
+@pytest.mark.cuda
+def test_build_samples_on_card_matches_cpu_and_answers_many_strata(
+        cuda_device):
+    """build_samples on the card chooses and builds what it does on the
+    CPU; a forced (City, URL) family of 11,838 strata answers COUNT, AVG
+    and QUANTILE through the fused and quantile kernels, within rtol 1e-4
+    of the engine on the CPU."""
+    from repro_torch.core import QueryTemplate
+    templates = [QueryTemplate(frozenset({"City"}), 0.3),
+                 QueryTemplate(frozenset({"Genre", "City"}), 0.25),
+                 QueryTemplate(frozenset({"OS", "URL"}), 0.25),
+                 QueryTemplate(frozenset({"Genre"}), 0.1),
+                 QueryTemplate(frozenset({"URL"}), 0.1)]
+    dbs, sols = [], []
+    for dev in ("cpu", cuda_device):
+        db = BlinkDB(EngineConfig(k1=800.0, m=3), device=dev)
+        db.register_table("sessions", table_lib.from_columns(
+            "sessions", synth.sessions_table(100_000, seed=3)))
+        sols.append(db.build_samples("sessions", templates, 0.5))
+        db.add_family("sessions", ("City", "URL"))
+        dbs.append(db)
+    assert sols[0] == sols[1]
+    assert sorted(dbs[0].families["sessions"]) == \
+        sorted(dbs[1].families["sessions"])
+    assert dbs[1].families["sessions"][("City", "URL")].n_distinct > 4096
+    both = Predicate.where(Atom("City", CmpOp.EQ, "city001"),
+                           Atom("URL", CmpOp.EQ, "url001"))
+    queries = [
+        Query("sessions", AggOp.COUNT, predicate=both, bound=ErrorBound(0.1)),
+        Query("sessions", AggOp.AVG, "Bitrate", predicate=Predicate.where(
+            Atom("URL", CmpOp.EQ, "url003"), Atom("City", CmpOp.EQ,
+                                                  "city000")),
+            bound=ErrorBound(0.05)),
+        Query("sessions", AggOp.QUANTILE, "SessionTime", quantile=0.5,
+              predicate=both, bound=ErrorBound(0.1))]
+    for q in queries:
+        fused = agg_scan.agg_scan_fused_cuda.launches
+        quant = agg_scan.quantile_scan_cuda.launches
+        b = dbs[1].query(q)
+        assert b.sample_phi == ("City", "URL")
+        launched = (agg_scan.quantile_scan_cuda.launches - quant
+                    if q.agg is AggOp.QUANTILE
+                    else agg_scan.agg_scan_fused_cuda.launches - fused)
+        assert launched > 0
+        a = dbs[0].query(q)
+        assert (b.sample_phi, b.sample_k, b.rows_read) == \
+            (a.sample_phi, a.sample_k, a.rows_read)
+        np.testing.assert_allclose([g.estimate for g in b.groups],
+                                   [g.estimate for g in a.groups], rtol=1e-4)

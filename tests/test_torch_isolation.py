@@ -8,6 +8,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    sorted((ROOT / "examples").glob("torch_*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "kernel_times.py"]
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)\b(?!_))", re.M)
@@ -19,7 +20,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "from repro_torch.kernels import agg_scan, ref  # first, as chip_smoke\n"
         "import repro_torch, repro_torch.core, repro_torch.core.engine\n"
         "import repro_torch.state, repro_torch.kernels.ops\n"
-        "import repro_torch.data.synth\n"
+        "import repro_torch.data.synth, repro_torch.core.optimizer\n"
+        "import repro_torch.launch.query, repro_torch.obs.clock\n"
         "from repro_torch.core import estimators, executor\n"
         "bad = [m for m in sys.modules if m in ('jax', 'repro')\n"
         "       or m.startswith(('jax.', 'repro.'))]\n"
