@@ -58,11 +58,25 @@ Phases, each reported on its own lines:
      exact_query under phase 3's rule), then query_batch on fresh engines
      equal to query() bit for bit; launches by group count and by where
      the table sits;
+  3e. subsampling CIs and joins on phase 3's table and engine settings: a
+     fresh engine with ci_method="subsampling" answers six ERROR WITHIN
+     queries (COUNT, SUM BY OS, AVG BY City, AVG BY URL, QUANTILE WHERE
+     Genre, QUANTILE BY OS), every launch (G·B = 32·G groups) held against its plain
+     version, every answer against exact_query under phase 3's rule and
+     against the closed form at its family and K (estimates within rtol
+     1e-4, QUANTILE one bin; stderr ratios within the reference's
+     [0.45, 2.2], QUANTILE [0.3, 3.0]), query_batch of the COUNT/SUM/AVG
+     ones equal to query() bit for bit; then a media dimension of one row
+     per URL (5% of the URLs left out, so keys dangle) joined through
+     three queries that the URL family must serve, held the same way;
+     launches by group count;
   4. times: each kernel at the main path's shapes (agg_scan_fused and
      quantile_scan at G = 1, 6, 200 and 500) against its bound and its
      plain version, quantile_scan beside the yardstick agg_scan_fused +
      torch.bincount; agg_scan_fused and agg_scan_batched at Q = 32; the
-     fused and quantile kernels on the (City, URL) family of phase 3d.
+     fused and quantile kernels on the (City, URL) family of phase 3d;
+     the subsampled launches: fused at G·B = 192, 6,400 and 16,000,
+     quantile at G·B = 32 and 192.
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Any failed check raises: the script then
 exits non-zero and prints no result. Without a CUDA device it exits 2.
@@ -818,9 +832,11 @@ def exact_bin_width(torch, db, q) -> float:
 
 def sample_bin_width(torch, db, q, ans) -> float:
     """Bin width of the sample's QUANTILE histogram: the family's range on
-    the kernel path, the selected rows' range on the wide path."""
+    the kernel path, the selected rows' range on the wide path and under
+    subsampling CIs."""
     from repro_torch.core import executor as exec_lib
-    if is_wide(torch, db, q, ans.sample_phi, 3):
+    if is_wide(torch, db, q, ans.sample_phi, 3) or \
+            db.config.ci_method == "subsampling":
         (values, _, sel, _), _, _ = wide_args(torch, db, q, ans.sample_phi,
                                               ans.sample_k)
         lo, hi = exec_lib.selected_range(values, sel)
@@ -1287,6 +1303,7 @@ def sample_creation_queries(tbl, line):
 
 
 FORCED = ("City", "URL")     # a family of tens of thousands of strata
+SYNTHETIC_ROWS = 10_195_008  # kernel_times.py's L2 shapes: the URL block
 
 
 def timed_engine(engine_cls):
@@ -1487,6 +1504,311 @@ def phase_sample_creation(torch, np, main_db, record, device="cuda") -> dict:
     return {"db": db, "launches": launches, "l2": l2, "by_groups": by_g,
             "batch_l2": {k: v.get("L2", 0) for k, v in batch_by_table.items()},
             "built": built, "seconds": seconds}
+
+
+# ---------------------------------------------------------------- phase 3e
+
+N_SUBSAMPLES = 32            # EngineConfig().n_subsamples
+
+
+@contextlib.contextmanager
+def checked_launches(torch, worst: dict):
+    """While active, every launch of the fused and quantile wrappers is
+    also run through its plain version on the same tensors (sums in
+    float64) and held to it (rtol 2e-5, atol 1e-3; the quantile scan's
+    moments and histogram); the worst disagreement goes into
+    worst[name][G] as [max_abs_diff, tol_ratio, launches]. The wrappers
+    are swapped as in launches_by_groups, and their counts carried back."""
+    from repro_torch.kernels import agg_scan, ref
+    plain = {"agg_scan_fused": ref.agg_scan_fused_ref,
+             "quantile_scan": ref.quantile_scan_ref}
+
+    def flat(out):
+        return (torch.cat([t.flatten() for t in out])
+                if isinstance(out, tuple) else out)
+
+    def checked(name, fn):
+        @functools.wraps(fn)
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            got = flat(out)
+            want = flat(plain[name](*args, **kw, accumulate=torch.float64))
+            g = kw.get("n_groups", args[-1])
+            diff = (got - want).abs().max().item()
+            if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+                raise AssertionError(f"{name} at G={g} disagrees with its "
+                                     f"plain version: max_abs_diff={diff}")
+            per = worst.setdefault(name, {}).setdefault(g, [0.0, 0.0, 0])
+            per[0] = max(per[0], diff)
+            per[1] = max(per[1], tol_ratio(torch, got, want))
+            per[2] += 1
+            return out
+        return call
+    saved = {name: getattr(agg_scan, f"{name}_cuda") for name in BY_GROUPS}
+    for name, fn in saved.items():
+        setattr(agg_scan, f"{name}_cuda", checked(name, fn))
+    try:
+        yield worst
+    finally:
+        for name, fn in saved.items():
+            fn.launches = getattr(agg_scan, f"{name}_cuda").launches
+            setattr(agg_scan, f"{name}_cuda", fn)
+
+
+def subsampling_queries():
+    """(label, Query) of phase 3e's subsampled answers, all ERROR WITHIN."""
+    from repro_torch.core import AggOp, Atom, CmpOp, ErrorBound, Predicate
+    from repro_torch.core import Query as Q
+    t = "sessions"
+    return [
+        ("COUNT(*) ERROR 10%", Q(t, AggOp.COUNT, bound=ErrorBound(0.10))),
+        ("SUM(SessionTime) GROUP BY OS ERROR 5%",
+         Q(t, AggOp.SUM, "SessionTime", group_by=("OS",),
+           bound=ErrorBound(0.05))),
+        ("AVG(SessionTime) GROUP BY City ERROR 10%",
+         Q(t, AggOp.AVG, "SessionTime", group_by=("City",),
+           bound=ErrorBound(0.10))),
+        ("AVG(Bitrate) GROUP BY URL ERROR 10%",
+         Q(t, AggOp.AVG, "Bitrate", group_by=("URL",),
+           bound=ErrorBound(0.10))),
+        ("QUANTILE(SessionTime, 0.5) WHERE Genre=genre03 ERROR 10%",
+         Q(t, AggOp.QUANTILE, "SessionTime", quantile=0.5,
+           predicate=Predicate.where(Atom("Genre", CmpOp.EQ, "genre03")),
+           bound=ErrorBound(0.10))),
+        ("QUANTILE(SessionTime, 0.5) GROUP BY OS ERROR 10%",
+         Q(t, AggOp.QUANTILE, "SessionTime", quantile=0.5,
+           group_by=("OS",), bound=ErrorBound(0.10))),
+    ]
+
+
+def join_dimension(np, tbl) -> dict:
+    """The media dimension: one row per URL of the fact table except every
+    20th (5% of the URLs, so their keys dangle), an owner of 12 values and
+    a paid flag, drawn from seed 0."""
+    rng = np.random.default_rng(0)
+    urls = tbl.dictionaries["URL"]
+    urls = urls[np.arange(len(urls)) % 20 != 7]
+    return {"url": urls,
+            "owner": np.array([f"own{i:02d}"
+                               for i in rng.integers(0, 12, len(urls))]),
+            "paid": rng.integers(0, 2, len(urls)).astype(np.int32)}
+
+
+def join_queries():
+    """(label, Query) of phase 3e's joined answers, all ERROR WITHIN."""
+    from repro_torch.core import AggOp, Atom, CmpOp, ErrorBound, Predicate
+    from repro_torch.core import Query as Q
+    from repro_torch.core.joins import Join
+    t, j = "sessions", (Join("media", "URL", "url"),)
+    return [
+        ("COUNT WHERE media.owner=own03 ERROR 10%",
+         Q(t, AggOp.COUNT, joins=j, bound=ErrorBound(0.10),
+           predicate=Predicate.where(Atom("media.owner", CmpOp.EQ,
+                                          "own03")))),
+        ("AVG(SessionTime) GROUP BY media.owner ERROR 10%",
+         Q(t, AggOp.AVG, "SessionTime", group_by=("media.owner",), joins=j,
+           bound=ErrorBound(0.10))),
+        ("COUNT WHERE media.paid=1 ERROR 10%",
+         Q(t, AggOp.COUNT, joins=j, bound=ErrorBound(0.10),
+           predicate=Predicate.where(Atom("media.paid", CmpOp.EQ, 1)))),
+    ]
+
+
+def engine_over(src, config, dims=()):
+    """A fresh BlinkDB over src's sessions table, families and striped
+    blocks (no cached decisions), with the dimension tables `dims`."""
+    from repro_torch.core import BlinkDB
+    db = BlinkDB(config, device=src.device)
+    db.register_table("sessions", src.tables["sessions"])
+    for dim in dims:
+        db.register_table(dim.schema.name, dim)
+    db.families["sessions"] = dict(src.families["sessions"])
+    db._generations.update(src._generations)
+    db._striped.update(src._striped)
+    return db
+
+
+def run_held(torch, np, db, queries, by_g, worst) -> tuple:
+    """query() of each (label, Query) with every launch held against its
+    plain version and every answer against exact_query under phase 3's
+    rule: (answers, groups within the rule, groups)."""
+    answers, covered, total = [], 0, 0
+    # The checking wrappers go inside the counting ones, so the counts
+    # land on the module-level (counting) wrapper.
+    with checked_launches(torch, worst), launches_by_groups(by_g):
+        for label, q in queries:
+            before = launch_counts()
+            ans = db.query(q)
+            launched = launches_since(before)
+            covered += hold_to_exact(torch, np, db, label, q, ans, [],
+                                     launched)
+            total += len(ans.groups)
+            answers.append(ans)
+    return answers, covered, total
+
+
+def batch_equals_single(db, queries, label) -> int:
+    """query_batch of the queries on db, then query() on db: every answer
+    bit-identical (raises otherwise); returns the count."""
+    batched = db.query_batch([q for _, q in queries])
+    for (name, q), a in zip(queries, batched):
+        b = db.query(q)
+        if not a.groups or answer_bits(a) != answer_bits(b):
+            raise AssertionError(f"{label}: query_batch and query() differ: "
+                                 f"{name}\n{answer_bits(a)}\n{answer_bits(b)}")
+    return len(batched)
+
+
+def hold_to_closed_form(torch, np, main_db, sub_db, label, q, ans) -> list:
+    """The subsampled answer against the closed form at its family and K
+    (phase 3's engine): the point estimates within rtol 1e-4 (QUANTILE:
+    one histogram bin, the wider of the two), and the stderr ratio within
+    the reference's bounds (tests/test_contracts.py: [0.45, 2.2]; QUANTILE
+    [0.3, 3.0]) for every group sampled at a mean inclusion rate n/Σw of
+    at most 1/2. Nearer rate 1 the closed form's finite-population factor
+    (1 - r) takes its variance toward 0 while the replicates' spread does
+    not (the expected ratio is 1/sqrt(1 - r): 1.41 at r = 1/2, 3.2 at
+    0.9), so there the ratio measures that factor, not the CI; those
+    groups are logged. Returns the checked ratios."""
+    from repro_torch.core import AggOp
+    closed = main_db._scan_and_answer(q, "sessions", ans.sample_phi,
+                                      ans.sample_k, ans.confidence)
+    mom, _, _ = main_db._run_at_k("sessions", q, ans.sample_phi,
+                                  ans.sample_k)
+    n, wsum = mom.n.cpu().numpy(), mom.wsum.cpu().numpy()
+    codes = [g for g in range(len(n)) if not (n[g] == 0 and wsum[g] == 0)]
+    c_by = {g.key: (g, n[c] / wsum[c]) for g, c in zip(closed.groups, codes)}
+    if set(c_by) != {g.key for g in ans.groups}:
+        raise AssertionError(f"{label}: groups differ from the closed form")
+    quantile = q.agg is AggOp.QUANTILE
+    lo_r, hi_r = (0.3, 3.0) if quantile else (0.45, 2.2)
+    bin_w = (max(sample_bin_width(torch, sub_db, q, ans),
+                 sample_bin_width(torch, main_db, q, closed))
+             if quantile else 0.0)
+    ratios, near_one, gap = [], [], 0.0
+    for g in ans.groups:
+        c, rate = c_by[g.key]
+        err = abs(g.estimate - c.estimate)
+        gap = max(gap, err / bin_w if quantile
+                  else err / max(abs(c.estimate), 1e-30))
+        if err > (bin_w if quantile else 1e-4 * abs(c.estimate)):
+            raise AssertionError(f"{label}: group {g.key} estimate "
+                                 f"{g.estimate!r}, closed form "
+                                 f"{c.estimate!r}")
+        if not (g.exact or c.exact) and c.stderr > 0:
+            (ratios if rate <= 0.5 else near_one).append(g.stderr / c.stderr)
+    outside = [r for r in ratios if not lo_r <= r <= hi_r]
+
+    def span(rs):
+        return (f"min {min(rs):.4f} median {float(np.median(rs)):.4f} "
+                f"max {max(rs):.4f}" if rs else "(none)")
+    log(f"    {label} vs closed form at family={ans.sample_phi} "
+        f"K={ans.sample_k:.6g}: max estimate gap {gap:.3e} "
+        f"({'bins' if quantile else 'relative'}); stderr ratio over "
+        f"{len(ratios)} groups at rate <= 1/2 {span(ratios)} (bounds "
+        f"[{lo_r}, {hi_r}]); over {len(near_one)} groups at rate > 1/2 "
+        f"{span(near_one)}")
+    if outside:
+        raise AssertionError(f"{label}: {len(outside)} stderr ratios outside "
+                             f"[{lo_r}, {hi_r}]: {outside[:5]}")
+    return ratios
+
+
+def phase_subsampling_and_joins(torch, np, main_db, device="cuda") -> dict:
+    """Subsampling CIs and joins on phase 3's table and engine settings.
+    Subsampling: a fresh engine with ci_method="subsampling" answers
+    subsampling_queries(); each launch is held against its plain version,
+    each answer against exact_query under phase 3's rule and against the
+    closed form at its family and K; then query_batch of the COUNT/SUM/AVG
+    ones on a fresh engine equals query() there bit for bit. Joins: the
+    media dimension (5% of its keys dangle) on a fresh engine; the URL
+    family must serve join_queries(), held as above, and query_batch on a
+    fresh engine equals query(). Launches by group count, G·B included."""
+    from repro_torch.core import AggOp, EngineConfig
+    from repro_torch.core import table as table_lib
+    t_phase = time.perf_counter()
+    worst, out = {}, {}
+    sub_db = engine_over(main_db, EngineConfig(ci_method="subsampling"))
+    queries = subsampling_queries()
+    reset_launches()
+    by_g = {}
+    answers, covered, total = run_held(torch, np, sub_db, queries, by_g,
+                                       worst)
+    out["sub_launches"] = launch_counts()
+    out["sub_by_groups"] = by_g
+    log("  subsampling launches by G: " + "; ".join(
+        f"{k} " + " ".join(f"G={g}:{c}" for g, c in sorted(by_g.get(k, {}).items()))
+        for k in BY_GROUPS))
+    if device == "cuda" and min(out["sub_launches"][k]
+                                for k in BY_GROUPS) == 0:
+        raise AssertionError(f"subsampling launched a kernel no time: "
+                             f"{out['sub_launches']}")
+    for g_b in (N_SUBSAMPLES, 6 * N_SUBSAMPLES, 200 * N_SUBSAMPLES,
+                500 * N_SUBSAMPLES):
+        if not by_g.get("agg_scan_fused", {}).get(g_b) and \
+                not by_g.get("quantile_scan", {}).get(g_b):
+            raise AssertionError(f"no subsampled launch at G·B = {g_b}")
+    for (label, q), ans in zip(queries, answers):
+        if ans.sample_phi == ("<exact>",):
+            log(f"    {label}: exact fallback, no sampled CI to compare")
+            continue
+        hold_to_closed_form(torch, np, main_db, sub_db, label, q, ans)
+    plain_qs = [(label, q) for label, q in queries
+                if q.agg is not AggOp.QUANTILE]
+    reset_launches()
+    n_same = batch_equals_single(
+        engine_over(main_db, EngineConfig(ci_method="subsampling")),
+        plain_qs, "subsampling")
+    out["sub_batch_launches"] = launch_counts()
+    log(f"  subsampling: {len(queries)} queries, {covered}/{total} groups "
+        f"within the rule; query_batch = query() for {n_same}/"
+        f"{len(plain_qs)}; launches " + " ".join(
+            f"{k}={out['sub_launches'][k]}" for k in MAIN_PATH_KERNELS))
+
+    tbl = main_db.tables["sessions"]
+    dim = table_lib.from_columns("media", join_dimension(np, tbl))
+    jdb = engine_over(main_db, EngineConfig(), dims=(dim,))
+    queries = join_queries()
+    reset_launches()
+    by_g = {}
+    t0 = time.perf_counter()
+    answers, j_cov, j_tot = run_held(torch, np, jdb, queries, by_g, worst)
+    out["join_seconds"] = time.perf_counter() - t0
+    out["join_launches"] = launch_counts()
+    out["join_by_groups"] = by_g
+    for (label, _), ans in zip(queries, answers):
+        if ans.sample_phi != ("URL",):
+            raise AssertionError(f"{label} answered on {ans.sample_phi}, "
+                                 f"not the join key's family")
+    fk = jdb._fk_maps[("sessions", "media", "URL")]
+    if device == "cuda" and out["join_launches"]["agg_scan_fused"] == 0:
+        raise AssertionError(f"joins launched agg_scan_fused no time: "
+                             f"{out['join_launches']}")
+    reset_launches()
+    n_same = batch_equals_single(engine_over(jdb, EngineConfig(), (dim,)),
+                                 queries, "joins")
+    out["join_batch_launches"] = launch_counts()
+    log("  join launches by G: " + "; ".join(
+        f"{k} " + " ".join(f"G={g}:{c}" for g, c in sorted(by_g.get(k, {}).items()))
+        for k in BY_GROUPS))
+    log(f"  joins: {len(queries)} queries in {out['join_seconds']:.3f}s "
+        f"(gathers included), {int((fk < 0).sum())} of {len(fk)} URL keys "
+        f"dangle, {j_cov}/{j_tot} groups within the rule; query_batch = "
+        f"query() for {n_same}/{len(queries)}; launches " + " ".join(
+            f"{k}={out['join_launches'][k]}" for k in MAIN_PATH_KERNELS))
+    if covered + j_cov < 0.9 * (total + j_tot):
+        raise AssertionError(f"only {covered + j_cov}/{total + j_tot} groups "
+                             f"within 2 CI half-widths of exact_query")
+    out["worst"] = worst
+    out["sub_db"] = sub_db
+    out["seconds"] = time.perf_counter() - t_phase
+    fr = max((w[0] for w in worst.get("agg_scan_fused", {}).values()),
+             default=0.0)
+    qr = max((w[0] for w in worst.get("quantile_scan", {}).values()),
+             default=0.0)
+    log(f"phase 3e ok: launches vs plain max_abs_diff fused {fr:.6e}, "
+        f"quantile {qr:.6e}; {out['seconds']:.1f}s")
+    return out
 
 
 # ----------------------------------------------------------------- phase 4
@@ -1785,17 +2107,127 @@ def phase_times_l2(torch, db, card: str) -> dict:
             {"label": label, "G": g, "n_strata": args[3].shape[0], "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
              "max_abs_err": diff})
+    # kernel_times.py's synthetic shapes of the L2 route (the URL block's
+    # rows, G = 6, one int8 atom, int16 stratum ids): kernel, plain, bound.
+    import numpy as np
+    from repro_torch.core.types import CmpOp
+    eq = ((CmpOp.EQ,),)
+    for n_strata in (4097, 12_000):
+        args = make_case(torch, np, np.random.default_rng(n_strata), "cuda",
+                         SYNTHETIC_ROWS, 6, 1, 1, 1, n_strata, np.int16,
+                         np.int8, np.int8)
+        for kname in BY_GROUPS:
+            if kname == "agg_scan_fused":
+                fn, plain = agg_scan.agg_scan_fused_cuda, ref.agg_scan_fused_ref
+                call = (*args, eq, (0,), 6)
+                mom = fn(*call)
+                out_bytes = 4 * mom.numel()
+            else:
+                fn, plain = agg_scan.quantile_scan_cuda, ref.quantile_scan_ref
+                call = (*quantile_args(args), eq, (0,), 6)
+                mom, hist = fn(*call)
+                out_bytes = 4 * (mom.numel() + hist.numel())
+            ms = time_cuda(torch, lambda: fn(*call), warmup=3, reps=20)
+            plain_ms = time_cuda(torch, lambda: plain(*call), warmup=1,
+                                 reps=3)
+            bnd = bound_for(args, eq, mom, out_bytes)
+            label = f"synthetic, {n_strata} strata (table in L2)"
+            log(f"  {kname} {label}: rows={SYNTHETIC_ROWS} G=6 "
+                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"bound_ms={bnd[0]:.4f} ({bnd[1]}) bound_share="
+                f"{bnd[0] / ms:.3f} card={card}")
+            rows[kname].append(
+                {"label": label, "G": 6, "n_strata": n_strata, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bnd[0],
+                 "bound_by": bnd[1]})
+    reset_launches(before)      # timing launches are not main-path work
+    return rows
+
+
+def subsampled_inputs(torch, db, q, quantile: bool):
+    """The subsampled launch's inputs of q on the family db selects, at its
+    largest K: (phi, striped, args, ops_struct, atom_slots, G·B, extra),
+    args in the fused scan's order with the G·B group column; for the
+    quantile scan the selection is the one atom column and extra its
+    histogram range (lo, hi)."""
+    from repro_torch.core import executor as exec_lib
+    from repro_torch.core.types import CmpOp
+    phi = db._select_phi(q.table, q)
+    k = db.families[q.table][phi].ks[0]
+    striped = db._striped_for(q.table, phi)
+    args, struct, slots, g = kernel_args(torch, db, q, phi, k)
+    gsub = db._subsample_codes_for(q.table, phi, striped,
+                                   q.group_by[0] if q.group_by else None)
+    args = (*args[:6], gsub, *args[7:])
+    if not quantile:
+        return phi, striped, args, struct, slots, g * N_SUBSAMPLES, None
+    (values, _, sel, _), _, _ = wide_args(torch, db, q, phi, k)
+    one = torch.ones((1, 1), dtype=torch.float32, device=db.device)
+    args = (values, *args[1:5], (sel,), gsub, args[7], one)
+    return (phi, striped, args, ((CmpOp.EQ,),), (0,), g * N_SUBSAMPLES,
+            exec_lib.selected_range(values, sel))
+
+
+def phase_times_subsampled(torch, sub_db, card: str) -> dict:
+    """The fused kernel at G·B = 192, 6,400 and 16,000 and the quantile
+    kernel at G·B = 32 and 192: the subsampled launches of phase 3e's
+    queries (and QUANTILE GROUP BY OS) on their families' whole blocks,
+    each against its bound and its plain version."""
+    from repro_torch.core import AggOp, Atom, CmpOp, Predicate, Query
+    from repro_torch.kernels import agg_scan, ref
+    t = "sessions"
+    before = launch_counts()
+    rows = {"agg_scan_fused": [], "quantile_scan": []}
+    shapes = [
+        ("agg_scan_fused", "SUM(SessionTime) GROUP BY OS",
+         Query(t, AggOp.SUM, "SessionTime", group_by=("OS",))),
+        ("agg_scan_fused", "AVG(SessionTime) GROUP BY City",
+         Query(t, AggOp.AVG, "SessionTime", group_by=("City",))),
+        ("agg_scan_fused", "AVG(Bitrate) GROUP BY URL",
+         Query(t, AggOp.AVG, "Bitrate", group_by=("URL",))),
+        ("quantile_scan", "QUANTILE(SessionTime) WHERE Genre=genre03",
+         Query(t, AggOp.QUANTILE, "SessionTime", quantile=0.5,
+               predicate=Predicate.where(Atom("Genre", CmpOp.EQ,
+                                              "genre03")))),
+        ("quantile_scan", "QUANTILE(SessionTime) GROUP BY OS",
+         Query(t, AggOp.QUANTILE, "SessionTime", quantile=0.5,
+               group_by=("OS",))),
+    ]
+    for kname, label, q in shapes:
+        quantile = kname == "quantile_scan"
+        phi, striped, args, struct, slots, g, rng = subsampled_inputs(
+            torch, sub_db, q, quantile)
+        if quantile:
+            fn, plain = agg_scan.quantile_scan_cuda, ref.quantile_scan_ref
+            call = (*args[:-1], *rng, args[-1], struct, slots, g)
+            mom, hist = fn(*call)
+            out_bytes = 4 * (mom.numel() + hist.numel())
+        else:
+            fn, plain = agg_scan.agg_scan_fused_cuda, ref.agg_scan_fused_ref
+            call = (*args, struct, slots, g)
+            mom = fn(*call)
+            out_bytes = 4 * mom.numel()
+        ms = time_cuda(torch, lambda: fn(*call), warmup=3, reps=20)
+        plain_ms = time_cuda(torch, lambda: plain(*call), warmup=1, reps=3)
+        bnd = bound_for(args, struct, mom, out_bytes)
+        log_time(kname, f"subsampled {label} family={phi} (G·B, int32 "
+                 f"group column)", striped, g, ms, plain_ms, bnd, card)
+        rows[kname].append({"label": f"subsampled {label}", "G": g, "ms": ms,
+                            "plain_ms": plain_ms, "bound_ms": bnd[0],
+                            "bound_by": bnd[1]})
     reset_launches(before)      # timing launches are not main-path work
     return rows
 
 
 def kernels_record(worst, record, main, batch, ops_path, times, sample,
-                   l2_times, card: str) -> list[dict]:
+                   l2_times, subj, sub_times, card: str) -> list[dict]:
     """The kernels' JSON record: one entry per kernel, its launches on its
     path, its worst disagreement with its plain version over every phase,
     and its times at the main path's shapes; the fused and quantile
     kernels also at the forced (City, URL) family's shapes, whose table
-    sits in L2 ("l2_table", with phase 3d's launches of that route)."""
+    sits in L2 ("l2_table", with phase 3d's launches of that route), and
+    at phase 3e's subsampled shapes ("subsampled", G·B groups, with phase
+    3e's launches at that G·B)."""
     sources = {
         "agg_scan": ("agg_scan.cu", "agg_scan.py:128"),
         "agg_scan_batched": ("agg_scan_batched.cu", "agg_scan.py:220"),
@@ -1811,6 +2243,10 @@ def kernels_record(worst, record, main, batch, ops_path, times, sample,
                          record[kname]["tol_ratio"]))
         if kname in ops_path:
             errs.append(ops_path[kname])
+        checked = subj["worst"].get(kname, {})
+        if checked:     # phase 3e's launches, each against its plain version
+            errs.append((max(w[0] for w in checked.values()),
+                         max(w[1] for w in checked.values())))
         entry = {
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
@@ -1852,8 +2288,23 @@ def kernels_record(worst, record, main, batch, ops_path, times, sample,
                  "launches": sample["l2"].get(kname, 0),
                  "batch_launches": sample["batch_l2"].get(kname, 0),
                  "path": "BlinkDB.query (phase 3d)"}
+                if not row["label"].startswith("synthetic") else
+                {**row, "route": "cuda", "library_ms": None, "launches": 0,
+                 "path": "synthetic inputs (kernel_times.py's shape)"}
                 for row in l2_times[kname]]
             entry["sample_creation_launches"] = sample["launches"][kname]
+        if kname in sub_times:
+            sub_by_g = subj["sub_by_groups"].get(kname, {})
+            entry["subsampled"] = [
+                {**row, "route": "cuda", "library_ms": None,
+                 "launches": sub_by_g.get(row["G"], 0),
+                 "path": "BlinkDB.query, ci_method='subsampling' (phase 3e)"}
+                for row in sub_times[kname]]
+            entry["subsampling_launches"] = subj["sub_launches"][kname]
+            entry["subsampling_launches_by_G"] = sub_by_g
+            entry["join_launches"] = subj["join_launches"][kname]
+            entry["join_launches_by_G"] = subj["join_by_groups"].get(kname,
+                                                                     {})
         if kname == "agg_scan_batched":
             entry.update(q32_ms=times[kname][1]["ms"],
                          max_abs_diff_vs_fused=max(worst[kname][2],
@@ -1918,13 +2369,17 @@ def main() -> int:
     log("phase 3d: sample creation, BlinkDB.build_samples")
     sample = phase_sample_creation(torch, np, main["db"], record)
 
+    log("phase 3e: subsampling CIs and joins, BlinkDB.query and query_batch")
+    subj = phase_subsampling_and_joins(torch, np, main["db"])
+
     log(f"phase 4: times at the main path's shapes ({card})")
     times = phase_times(torch, main["db"], card)
     l2_times = phase_times_l2(torch, sample["db"], card)
+    sub_times = phase_times_subsampled(torch, subj["sub_db"], card)
     kernels = kernels_record(worst, record, main, batch, ops_path, times,
-                             sample, l2_times, card)
+                             sample, l2_times, subj, sub_times, card)
     log(f"smoke total {time.perf_counter() - t_start:.1f}s (phase 3d "
-        f"{sample['seconds']:.1f}s)")
+        f"{sample['seconds']:.1f}s, phase 3e {subj['seconds']:.1f}s)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

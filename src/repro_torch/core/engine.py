@@ -7,15 +7,18 @@
 
 The port builds sample families offline, chosen by the §3.2 optimizer
 (`build_samples`) or by hand (`add_family`), and answers COUNT, SUM, AVG
-and QUANTILE under ERROR WITHIN or WITHIN SECONDS on one device with
-closed-form CIs, one query at a time (`query`) or as a batch that shares
-its scans (`query_batch`): runtime family selection (§4.1), the ELP choice
-of the resolution K (§4.2) with the a-priori ERROR WITHIN ladder (pilot,
-certify at the top resolution, escalation, exact fallback), the fused scan
-and the one-pass quantile scan (executor → the CUDA kernels on the card),
-and HT estimation with Table-2 error bars (§4.3). Joins, subsampling CIs,
-mutation and fault handling come with later slices and raise
-NotImplementedError here.
+and QUANTILE under ERROR WITHIN or WITHIN SECONDS on one device, one
+query at a time (`query`) or as a batch that shares its scans
+(`query_batch`): runtime family selection (§4.1), the ELP choice of the
+resolution K (§4.2) with the a-priori ERROR WITHIN ladder (pilot, certify
+at the top resolution, escalation, exact fallback), the fused scan and the
+one-pass quantile scan (executor → the CUDA kernels on the card), and HT
+estimation with Table-2 error bars (§4.3) or, with
+`ci_method="subsampling"`, variational-subsampling CIs from the same
+kernels over n_groups·B segments. Queries may join the sampled fact table
+to registered dimension tables (§2.1: `Query(joins=...)`, attributes named
+"dim.col"). Mutation and fault handling come with later slices; the port
+has no fault plan, so every path here is the reference's empty-plan path.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import torch
 from repro_torch.core import elp as elp_lib
 from repro_torch.core import estimators as est_lib
 from repro_torch.core import executor as exec_lib
+from repro_torch.core import joins as join_lib
 from repro_torch.core import optimizer as opt_lib
 from repro_torch.core import sampling as samp_lib
 from repro_torch.core import table as table_lib
@@ -53,7 +57,11 @@ class EngineConfig:
     # fall back to an exact base-table scan.
     escalate_on_unreachable: bool = True
     exact_fallback: bool = True
-    ci_method: str = "closed"    # "subsampling" comes with a later slice
+    # CI machinery: "closed" = Table-2 / HT closed forms; "subsampling" =
+    # VerdictDB-style variational subsampling (the point estimates from the
+    # folded moments, the stderr from the spread of B replicates).
+    ci_method: str = "closed"
+    n_subsamples: int = est_lib.N_SUBSAMPLES
     # Where tables, sample blocks and scans live. "cuda" unless the caller
     # asks for the CPU; a missing card is an error, never a quiet CPU run.
     device: str = "cuda"
@@ -109,10 +117,9 @@ class BlinkDB:
         self.config = config or EngineConfig()
         self.device = resolve_device(self.config.device if device is None
                                      else device)
-        if self.config.ci_method != "closed":
-            raise NotImplementedError(
-                f"ci_method={self.config.ci_method!r}: variational-subsampling "
-                "CIs come with the subsampling-CI slice of the port")
+        if self.config.ci_method not in ("closed", "subsampling"):
+            raise ValueError(f"ci_method={self.config.ci_method!r}: need "
+                             "'closed' or 'subsampling'")
         self.tables: dict[str, table_lib.Table] = {}
         self.families: dict[str, dict[tuple[str, ...], samp_lib.SampleFamily]] = {}
         self._striped: dict[tuple[str, tuple[str, ...]], exec_lib.StripedFamily] = {}
@@ -121,6 +128,14 @@ class BlinkDB:
         self._batched_programs: dict = {}
         self._quantile_programs: dict = {}
         self._quantile_ranges: dict = {}     # (table, phi, column) -> range
+        # Variational-subsampling programs (keyed as their plain
+        # counterparts, with B) and the subsampled group columns:
+        # (table, phi, group column, B) -> int32 g·B + sub on the device.
+        self._subsampled_programs: dict = {}
+        self._batched_subsampled_programs: dict = {}
+        self._subsampled_quantile_programs: dict = {}
+        self._subsample_codes: dict = {}
+        self._fk_maps: dict = {}      # (fact, dim, fk) -> np fk -> dim row
         self._elp_cache: dict = {}    # elp key -> ElpDecision
         self._generations: dict[tuple[str, tuple[str, ...]], int] = {}
         self.last_solution: opt_lib.Solution | None = None
@@ -132,10 +147,14 @@ class BlinkDB:
     def _drop_derived(self, table_name: str, phi: tuple[str, ...] | None) -> None:
         """Forget everything calibrated against a (table, family), or the
         whole table when phi is None: striped blocks, scan programs, ELP
-        decisions, latency models and quantile histogram ranges."""
+        decisions, latency models, quantile histogram ranges and subsampled
+        group columns."""
         for cache in (self._striped, self._latency, self._batched_programs,
                       self._quantile_programs, self._quantile_ranges,
-                      self._elp_cache):
+                      self._subsampled_programs,
+                      self._batched_subsampled_programs,
+                      self._subsampled_quantile_programs,
+                      self._subsample_codes, self._elp_cache):
             for k in [k for k in cache
                       if k[0] == table_name and (phi is None or k[1] == phi)]:
                 del cache[k]
@@ -143,15 +162,40 @@ class BlinkDB:
     # ------------------------------------------------------------- offline
     def register_table(self, name: str, tbl: table_lib.Table) -> None:
         """Register a table and put its columns on the engine's device (the
-        exact scan reads them there)."""
+        exact scan reads them there). Registering another table under a
+        name in use drops what was derived from the old one: its families,
+        their state, its fk maps, and the join columns gathered from it
+        where it served as a dimension."""
         if name in self.tables and self.tables[name] is not tbl:
             self._drop_derived(name, None)
             for phi in self.families.get(name, {}):
                 self._generations[(name, phi)] = \
                     self.family_generation(name, phi) + 1
             self.families[name] = {}
+            for k in [k for k in self._fk_maps if name in k[:2]]:
+                del self._fk_maps[k]
+            self._invalidate_as_dimension(name)
         self.tables[name] = tbl.to(self.device)
         self.families.setdefault(name, {})
+
+    def _invalidate_as_dimension(self, name: str) -> None:
+        """If `name` serves as a dimension, fact tables and their families
+        hold gathered "name.col" columns whose codes refer to the OLD
+        dictionary: strip them so _resolve_joins regathers on next use, and
+        bump the generation of every family that held one."""
+        prefix = name + "."
+        for fact_name, fact in self.tables.items():
+            for c in [c for c in fact.columns_host if c.startswith(prefix)]:
+                del fact.columns_host[c]
+                fact.columns.pop(c, None)
+            for p, fam in self.families.get(fact_name, {}).items():
+                stale = [c for c in fam.columns_host if c.startswith(prefix)]
+                for c in stale:
+                    del fam.columns_host[c]
+                if stale:
+                    self._drop_derived(fact_name, p)
+                    self._generations[(fact_name, p)] = \
+                        self.family_generation(fact_name, p) + 1
 
     def candidate_stats(self, table_name: str
                         ) -> Callable[[frozenset[str]], tuple[float, float, float]]:
@@ -256,25 +300,65 @@ class BlinkDB:
             self._striped[key] = exec_lib.stripe_family(fam, self.device)
         return self._striped[key]
 
-    def _encode(self, table_name: str):
-        tbl = self.tables[table_name]
+    def _table_of(self, table_name: str, col: str
+                  ) -> tuple[table_lib.Table, str]:
+        """(table, column) holding `col`: a joined attribute "dim.col" lives
+        on the dimension table."""
+        if "." in col:
+            dim_name, dim_col = col.split(".", 1)
+            return self.tables[dim_name], dim_col
+        return self.tables[table_name], col
 
+    def _encode(self, table_name: str):
         def encode(col: str, value):
-            if tbl.schema.column(col).kind is ColumnKind.CATEGORICAL:
-                return tbl.encode_value(col, value)
+            tbl, c = self._table_of(table_name, col)
+            if tbl.schema.column(c).kind is ColumnKind.CATEGORICAL:
+                return tbl.encode_value(c, value)
             return float(value)
         return encode
 
     def _column_card(self, table_name: str, col: str) -> int:
-        return self.tables[table_name].cardinality(col)
+        tbl, c = self._table_of(table_name, col)
+        return tbl.cardinality(c)
 
     def _decode_col_value(self, table_name: str, col: str, code: int):
-        return self.tables[table_name].decode_value(col, code)
+        tbl, c = self._table_of(table_name, col)
+        return tbl.decode_value(c, code)
 
-    def _check_supported(self, q: Query) -> None:
-        if q.joins:
-            raise NotImplementedError(
-                "joins come with the joins slice of the port")
+    # ------------------------------------------------------------ joins
+    def _resolve_joins(self, table_name: str, q: Query) -> None:
+        """Materialize the joined dimension attributes q names as extra
+        columns "dim.col" of the fact table (the exact path) and of every
+        family of it (the sampled path): §2.1 case ii, the dimension fits
+        in memory and the join is a gather. A family that gains a column
+        is restriped at its next scan, and its derived state dropped."""
+        if not q.joins:
+            return
+        wanted = [c for c in (q.where_group_columns |
+                              ({q.value_column} if q.value_column else set()))
+                  if "." in c]
+        if not wanted:
+            return
+        fact = self.tables[table_name]
+        by_dim = {j.dim_table: j for j in q.joins}
+        for col in sorted(wanted):
+            dim_name, dim_col = col.split(".", 1)
+            join = by_dim[dim_name]
+            dim = self.tables[dim_name]
+            mkey = (table_name, dim_name, join.fact_key)
+            if mkey not in self._fk_maps:
+                self._fk_maps[mkey] = join_lib.build_fk_map(fact, dim, join)
+            fk_map = self._fk_maps[mkey]
+            if col not in fact.columns_host:
+                fact.columns[col] = join_lib.gather_dim_column(
+                    fk_map, dim, dim_col, fact.columns[join.fact_key])
+                fact.columns_host[col] = fact.columns[col].cpu().numpy()
+            for p, fam in self.families[table_name].items():
+                if col not in fam.columns_host:
+                    fam.columns_host[col] = join_lib.gather_dim_column(
+                        fk_map, dim, dim_col,
+                        fam.host_column(join.fact_key))
+                    self._drop_derived(table_name, p)
 
     def _run_at_k(self, table_name: str, q: Query, phi: tuple[str, ...],
                   k: float) -> tuple[est_lib.GroupedMoments, int, float]:
@@ -302,10 +386,13 @@ class BlinkDB:
                              mom: est_lib.GroupedMoments, rows_read: int,
                              elapsed: float, confidence: float,
                              qpair=None, certified: bool | None = None,
-                             predicted_half_width: float | None = None
-                             ) -> Answer:
+                             predicted_half_width: float | None = None,
+                             est: est_lib.Estimate | None = None) -> Answer:
+        """An Answer from a scan's moments; `est` is the estimate when the
+        caller has it (the subsampled scans), else it is computed here."""
         tbl = self.tables[table_name]
-        est = self._estimate_for(q, table_name, phi, k, mom, qpair)
+        if est is None:
+            est = self._estimate_for(q, table_name, phi, k, mom, qpair)
         stderr, lo, hi = est_lib.ci(est, confidence)
         group_col = q.group_by[0] if q.group_by else None
         vals = est.value.cpu().numpy()
@@ -404,16 +491,88 @@ class BlinkDB:
         """One scan at k → (mom, rows_read, dt, qpair): a QUANTILE query
         runs the one-pass quantile scan, every other aggregate the fused
         scan (qpair None)."""
-        self._check_supported(q)
         if q.agg is AggOp.QUANTILE:
             return self._run_quantile_at_k(table_name, q, phi, k)
         return self._run_at_k(table_name, q, phi, k) + (None,)
+
+    # ------------------------------------- variational subsampling CIs
+    def _subsample_codes_for(self, table_name: str, phi: tuple[str, ...],
+                             striped: exec_lib.StripedFamily,
+                             group_col: str | None) -> torch.Tensor:
+        """The subsampled scans' int32 group column g·B + sub over a
+        family's striped block (sub alone when ungrouped), cached per
+        (table, family, group column, B) and dropped with the block."""
+        b = self.config.n_subsamples
+        key = (table_name, phi, group_col, b)
+        gsub = self._subsample_codes.get(key)
+        if gsub is None or gsub.shape != striped.unit.shape:
+            if group_col is None:
+                gsub = torch.from_numpy(exec_lib.subsample_codes(
+                    1, striped.n_local, b)[0]).to(self.device)
+            else:
+                gsub = exec_lib.subsample_group_column(
+                    striped.columns[group_col],
+                    self._subsample_codes_for(table_name, phi, striped, None),
+                    b)
+            self._subsample_codes[key] = gsub
+        return gsub
+
+    def _subsampled_answer(self, q: Query, table_name: str,
+                           phi: tuple[str, ...], k: float, confidence: float,
+                           certified: bool | None = None,
+                           predicted_half_width: float | None = None
+                           ) -> Answer:
+        """Scan at K with per-subsample segments (ci_method="subsampling"):
+        the point estimates come from the FOLDED moments, the CI from the
+        spread of the B replicate estimates. COUNT/SUM/AVG launch the fused
+        scan (the wide path's agg_scan over 127 atoms) with the G·B group
+        column; QUANTILE two quantile scans over the selection."""
+        fam = self.families[table_name][phi]
+        striped = self._striped_for(table_name, phi)
+        key, vals = self._scan_key(table_name, q, phi)
+        group_col, n_groups = key[4], key[5]
+        b = self.config.n_subsamples
+        gsub = self._subsample_codes_for(table_name, phi, striped, group_col)
+        pkey = key + (b,)
+        args = exec_lib.scan_args(striped)
+        self._sync()
+        t0 = time.perf_counter()
+        if q.agg is AggOp.QUANTILE:
+            fn = self._subsampled_quantile_programs.get(pkey)
+            if fn is None:
+                fn = exec_lib.make_subsampled_quantile_fn(*key[2:], b)
+                self._subsampled_quantile_programs[pkey] = fn
+            mom_sub, qv, dens, qsub = fn(k, vals, q.quantile, gsub, *args)
+            est = est_lib.subsampling_estimate(
+                AggOp.QUANTILE, mom_sub, n_groups, b, quantile_value=qv,
+                quantile_density=dens, quantile_values_sub=qsub,
+                q=q.quantile)
+        else:
+            fn = self._subsampled_programs.get(pkey)
+            if fn is None:
+                fn = exec_lib.make_subsampled_query_fn(*key[2:], b)
+                self._subsampled_programs[pkey] = fn
+            mom_sub = fn(k, vals, gsub, *args)
+            est = est_lib.subsampling_estimate(q.agg, mom_sub, n_groups, b)
+        self._sync()
+        dt = time.perf_counter() - t0
+        mom = est_lib.fold_subsamples(mom_sub, n_groups, b)
+        return self._answer_from_moments(
+            q, table_name, phi, k, mom, fam.prefix_for_k(k), dt, confidence,
+            certified=certified, predicted_half_width=predicted_half_width,
+            est=est)
 
     def _scan_and_answer(self, q: Query, table_name: str,
                          phi: tuple[str, ...], k: float, confidence: float,
                          certified: bool | None = None,
                          predicted_half_width: float | None = None
                          ) -> Answer:
+        """One scan at K → Answer, routed by CI method. The reference runs
+        subsampling CIs only while no fault plan is armed; the port has no
+        fault plan, so that condition always holds here."""
+        if self.config.ci_method == "subsampling":
+            return self._subsampled_answer(q, table_name, phi, k, confidence,
+                                           certified, predicted_half_width)
         mom, rows_read, dt, qpair = self._scan_for_query(table_name, q,
                                                          phi, k)
         return self._answer_from_moments(
@@ -608,9 +767,14 @@ class BlinkDB:
 
     def _selection_cat_cols(self, table_name: str, q: Query) -> frozenset[str]:
         """Family selection columns (§4.1): the query's categorical WHERE and
-        GROUP BY columns."""
+        GROUP BY columns, a joined dimension attribute mapped to its fk
+        column (a family stratified on the join key serves it, §2.1 case
+        i)."""
         tbl = self.tables[table_name]
-        return frozenset(c for c in q.where_group_columns
+        fk_of = {j.dim_table: j.fact_key for j in q.joins}
+        cols = {fk_of[c.split(".", 1)[0]] if "." in c else c
+                for c in q.where_group_columns}
+        return frozenset(c for c in cols
                          if tbl.schema.column(c).kind is ColumnKind.CATEGORICAL)
 
     def _select_phi(self, table_name: str, q: Query) -> tuple[str, ...]:
@@ -631,12 +795,12 @@ class BlinkDB:
         ErrorBound answer carries bound_met / certified /
         predicted_half_width, and a strict bound raises
         BoundUnreachableError instead of serving a best-effort answer."""
-        self._check_supported(q)
         subqueries = rewrite_disjuncts(q)
         if len(subqueries) > 1:
             return _union_answers(q, [self.query(sq) for sq in subqueries])
 
         table_name = q.table
+        self._resolve_joins(table_name, q)
         phi = self._select_phi(table_name, q)
         confidence = q.bound.confidence if q.bound else 0.95
         if isinstance(q.bound, TimeBound):
@@ -683,11 +847,11 @@ class BlinkDB:
     # ------------------------------------------------- batched shared scans
     def _plan_batch_job(self, parent: int, order: int, q: Query,
                         sel_cache: dict) -> _BatchJob:
-        """Family selection for one conjunctive subquery. One selection per
-        distinct (table, selection columns, template, constants) serves
-        every query of the batch that maps to it."""
-        self._check_supported(q)
+        """Joins and family selection for one conjunctive subquery. One
+        selection per distinct (table, selection columns, template,
+        constants) serves every query of the batch that maps to it."""
         table_name = q.table
+        self._resolve_joins(table_name, q)
         cat_cols = self._selection_cat_cols(table_name, q)
         struct, vals = exec_lib.pred_structure(
             exec_lib.bind_predicate(q.predicate, self._encode(table_name)))
@@ -713,20 +877,44 @@ class BlinkDB:
         leaves [Q, G], seconds), the device synchronised around it. Batches
         over _MAX_SCAN_BATCH run as back-to-back launches; each query's
         moments have the bits of the same query scanned alone."""
+        return self._batched_scan(scan_key, ks, consts_list, False)
+
+    def _run_batched_subsampled(self, scan_key, ks: Sequence[float],
+                                consts_list: Sequence[tuple[float, ...]]
+                                ) -> tuple[est_lib.GroupedMoments, float]:
+        """_run_batched with per-subsample segments (ci_method=
+        "subsampling"): the same launches with the G·B group column, leaves
+        [Q, G·B], each query's the bits of query()'s subsampled scan."""
+        return self._batched_scan(scan_key, ks, consts_list, True)
+
+    def _batched_scan(self, scan_key, ks, consts_list, subsampled: bool):
+        run = (self._run_batched_subsampled if subsampled
+               else self._run_batched)
         n_q = len(ks)
         if n_q > _MAX_SCAN_BATCH:
-            parts = [self._run_batched(scan_key, ks[i:i + _MAX_SCAN_BATCH],
-                                       consts_list[i:i + _MAX_SCAN_BATCH])
+            parts = [run(scan_key, ks[i:i + _MAX_SCAN_BATCH],
+                         consts_list[i:i + _MAX_SCAN_BATCH])
                      for i in range(0, n_q, _MAX_SCAN_BATCH)]
             mom = est_lib.GroupedMoments.from_stacked(
                 torch.cat([m.stacked() for m, _ in parts]))
             return mom, sum(d for _, d in parts)
-        table_name, phi, struct = scan_key[:3]
+        table_name, phi, struct, _, group_col = scan_key[:5]
         striped = self._striped_for(table_name, phi)
-        fn = self._batched_programs.get(scan_key)
+        if subsampled:
+            b = self.config.n_subsamples
+            lead = (self._subsample_codes_for(table_name, phi, striped,
+                                              group_col),)
+            programs, pkey = self._batched_subsampled_programs, scan_key + (b,)
+            make = functools.partial(exec_lib.make_batched_subsampled_query_fn,
+                                     n_subsamples=b)
+        else:
+            lead = ()
+            programs, pkey = self._batched_programs, scan_key
+            make = exec_lib.make_batched_query_fn
+        fn = programs.get(pkey)
         if fn is None:
-            fn = exec_lib.make_batched_query_fn(*scan_key[2:])
-            self._batched_programs[scan_key] = fn
+            fn = make(*scan_key[2:])
+            programs[pkey] = fn
         n_atoms = len(exec_lib.flat_atoms(struct))
         ks_t = torch.tensor(list(ks), dtype=torch.float32).to(self.device)
         consts_t = torch.tensor([list(c) for c in consts_list],
@@ -734,7 +922,7 @@ class BlinkDB:
                                 ).reshape(n_q, n_atoms).to(self.device)
         self._sync()
         t0 = time.perf_counter()
-        mom = fn(ks_t, consts_t, *exec_lib.scan_args(striped))
+        mom = fn(ks_t, consts_t, *lead, *exec_lib.scan_args(striped))
         self._sync()
         return mom, time.perf_counter() - t0
 
@@ -746,7 +934,10 @@ class BlinkDB:
         the ELP pilot scans are shared across the batch; the final pass is
         one multi-query scan per group, whose per-query slices unpack into
         ordinary Answers. A QUANTILE job takes its moments from the shared
-        scan and its quantile from one quantile scan at its K.
+        scan and its quantile from one quantile scan at its K. With
+        ci_method="subsampling" the final scan of a group without QUANTILE
+        has per-subsample segments, as query()'s; a group with one keeps
+        the closed-form CIs, as the reference's does.
 
         Answers equal query()'s on the same engine bit for bit: a query's
         scan sums in the same order alone as in a batch, and later query()
@@ -831,17 +1022,33 @@ class BlinkDB:
             if id(job) not in oob:
                 final_groups.setdefault(job.scan_key, []).append(job)
         sub_answers: list[list[tuple[int, Answer]]] = [[] for _ in queries]
+        # Subsampling CIs as in query(): the reference's no-fault-plan
+        # condition always holds in the port.
+        use_sub = self.config.ci_method == "subsampling"
+        b = self.config.n_subsamples
         for scan_key, group in final_groups.items():
-            mom, dt = self._run_batched(scan_key, [j.k for j in group],
-                                        [j.consts for j in group])
+            n_groups = scan_key[5]
+            # QUANTILE replicates need the per-subsample histogram pass:
+            # a scan group holding one keeps the closed-form CIs.
+            sub_mode = use_sub and all(j.q.agg is not AggOp.QUANTILE
+                                       for j in group)
+            runner = (self._run_batched_subsampled if sub_mode
+                      else self._run_batched)
+            mom, dt = runner(scan_key, [j.k for j in group],
+                             [j.consts for j in group])
             for i, job in enumerate(group):
                 fam = self.families[job.table][job.phi]
+                mi = est_lib.moments_slice(mom, i)
+                est = None
+                if sub_mode:
+                    est = est_lib.subsampling_estimate(job.q.agg, mi,
+                                                       n_groups, b)
+                    mi = est_lib.fold_subsamples(mi, n_groups, b)
                 ans = self._answer_from_moments(
-                    job.q, job.table, job.phi, job.k,
-                    est_lib.moments_slice(mom, i), fam.prefix_for_k(job.k),
-                    dt / len(group), job.confidence,
+                    job.q, job.table, job.phi, job.k, mi,
+                    fam.prefix_for_k(job.k), dt / len(group), job.confidence,
                     certified=job.certified,
-                    predicted_half_width=job.predicted_half)
+                    predicted_half_width=job.predicted_half, est=est)
                 sub_answers[job.parent].append((job.order, ans))
 
         for job in jobs:
@@ -862,9 +1069,11 @@ class BlinkDB:
         """Ground truth: the aggregation over the FULL base table (rate=1) on
         the engine's device. A plain segment sum (no sample kernel), summed
         in float64 so counts past 2^24 rows stay exact; QUANTILE bins the
-        selected rows over their own range (executor.grouped_quantile)."""
-        self._check_supported(q)
+        selected rows over their own range (executor.grouped_quantile).
+        Rows whose group code lies outside [0, G) (a join's dangling key)
+        land in no group."""
         tbl = self.tables[q.table]
+        self._resolve_joins(q.table, q)
         bound_pred = exec_lib.bind_predicate(q.predicate, self._encode(q.table))
         struct, vals = exec_lib.pred_structure(bound_pred)
         group_col = q.group_by[0] if q.group_by else None
@@ -877,7 +1086,8 @@ class BlinkDB:
         values = (cols[q.value_column].to(torch.float32)
                   if q.value_column else ones)
         g = (cols[group_col] if group_col
-             else torch.zeros(tbl.n_rows, dtype=torch.int32, device=self.device))
+             else torch.zeros(tbl.n_rows, dtype=torch.int32,
+                              device=self.device))
         mom = est_lib.grouped_moments(values, ones, mask, g, n_groups,
                                       accumulate=torch.float64)
         if q.agg is AggOp.QUANTILE:

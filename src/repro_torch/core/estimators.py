@@ -179,11 +179,16 @@ def grouped_moments(values: torch.Tensor, rates: torch.Tensor,
     """Segment-reduce the sufficient statistics with index_add_. Per-row
     terms are float32 as in the reference; `accumulate=torch.float64` sums
     them in double (the exact base-table scan, whose counts pass 2^24) and
-    rounds the totals to float32."""
+    rounds the totals to float32. Rows whose code lies outside
+    [0, n_groups) land in no group, as the reference's segment_sum drops
+    them (a join's dangling foreign key gathers the code -1)."""
+    g = group_codes.to(torch.int64)
+    keep = (g >= 0) & (g < n_groups)
+    if not bool(keep.all()):
+        values, rates, mask, g = values[keep], rates[keep], mask[keep], g[keep]
     m = mask.to(torch.float32)
     w = m / rates
     x = values.to(torch.float32)
-    g = group_codes.to(torch.int64)
     vfac = m * (1.0 - rates) / (rates * rates)
 
     def seg(v):
@@ -307,3 +312,91 @@ def ci(est: Estimate, confidence: float
     z = z_value(confidence)
     stderr = torch.sqrt(torch.clamp_min(est.variance, 0.0))
     return stderr, est.value - z * stderr, est.value + z * stderr
+
+
+# ---------------------------------------------------------------------------
+# Variational subsampling (VerdictDB): CIs from the same segment reductions
+# ---------------------------------------------------------------------------
+# The sample's rows are partitioned into B disjoint subsamples by a hash of
+# their slot index. A scan with segment ids g·B + j (n_groups·B segments)
+# yields per-(group, subsample) partial moments in ONE pass; the full-scan
+# moments are the sums over the B axis. Each subsample is itself an HT
+# sample with inclusion rate r_i/B, so B·(its HT total) estimates the
+# population total; the spread of the B replicate estimates θ_j gives
+# Var(θ̂) ≈ Var_j(θ_j)/B. Only these small [..., G, B] steps run as torch
+# ops; the scan itself is a kernel launch (executor).
+
+N_SUBSAMPLES = 32
+
+
+def fold_subsamples(mom: GroupedMoments, n_groups: int,
+                    n_subsamples: int) -> GroupedMoments:
+    """[..., G·B] subsampled leaves → [..., G] full-scan moments (the B
+    partial sums of each group added up)."""
+    def fold(x):
+        return x.reshape(*x.shape[:-1], n_groups, n_subsamples).sum(dim=-1)
+    return GroupedMoments(*(fold(getattr(mom, f.name))
+                            for f in dataclasses.fields(GroupedMoments)))
+
+
+def subsample_replicates(agg: AggOp, mom: GroupedMoments, n_groups: int,
+                         n_subsamples: int, *,
+                         quantile_values: torch.Tensor | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(group, subsample) replicate estimates θ_j → (theta[..., G, B],
+    valid[..., G, B]). COUNT/SUM totals are scaled by B (each subsample's HT
+    rate is r/B); AVG is a scale-free ratio; QUANTILE replicates are the
+    per-subsample histogram quantiles. Empty subsamples (no selected row)
+    are masked out."""
+    b = n_subsamples
+
+    def rs(x):
+        return x.reshape(*x.shape[:-1], n_groups, b)
+
+    nsel, wsum, wxsum = rs(mom.n), rs(mom.wsum), rs(mom.wxsum)
+    valid = nsel > 0.0
+    if agg is AggOp.COUNT:
+        theta = b * wsum
+    elif agg is AggOp.SUM:
+        theta = b * wxsum
+    elif agg is AggOp.AVG:
+        theta = wxsum / torch.clamp_min(wsum, 1e-12)
+    elif agg is AggOp.QUANTILE:
+        if quantile_values is None:
+            raise ValueError("QUANTILE replicates need quantile_values")
+        theta = rs(quantile_values)
+    else:
+        raise ValueError(f"unsupported aggregate {agg}")
+    return theta, valid
+
+
+def subsampling_variance(theta: torch.Tensor,
+                         valid: torch.Tensor) -> torch.Tensor:
+    """Var(θ̂) from the replicate spread: the sample variance of the θ_j over
+    the non-empty subsamples, scaled by 1/B_valid. Groups with fewer than 2
+    live replicates report 0 variance (no spread information)."""
+    v = valid.to(theta.dtype)
+    live = v.sum(dim=-1)
+    bv = torch.clamp_min(live, 1.0)
+    mean = (theta * v).sum(dim=-1) / bv
+    dev2 = ((theta - mean[..., None]) ** 2) * v
+    var_j = dev2.sum(dim=-1) / torch.clamp_min(bv - 1.0, 1.0)
+    return torch.where(live > 1.0, var_j / bv, torch.zeros_like(var_j))
+
+
+def subsampling_estimate(agg: AggOp, mom_sub: GroupedMoments, n_groups: int,
+                         n_subsamples: int, *,
+                         quantile_value: torch.Tensor | None = None,
+                         quantile_density: torch.Tensor | None = None,
+                         quantile_values_sub: torch.Tensor | None = None,
+                         q: float = 0.5) -> Estimate:
+    """Point estimate from the FOLDED moments (the plain scan's, up to the
+    order of the sums) with the variance from the subsample replicate
+    spread."""
+    full = fold_subsamples(mom_sub, n_groups, n_subsamples)
+    base = estimate(agg, full, quantile_value=quantile_value,
+                    quantile_density=quantile_density, q=q)
+    theta, valid = subsample_replicates(
+        agg, mom_sub, n_groups, n_subsamples,
+        quantile_values=quantile_values_sub)
+    return Estimate(base.value, subsampling_variance(theta, valid), base.n)

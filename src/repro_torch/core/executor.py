@@ -500,16 +500,22 @@ def grouped_quantile(values: torch.Tensor, weights: torch.Tensor,
     positive weight (the data's range), via a 256-bin histogram:
     (quantile_value[G], density_at_quantile[G]). `accumulate=torch.float64`
     sums the histogram in double and rounds it to float32 (the exact
-    base-table scan, whose bins may pass 2^24 rows)."""
+    base-table scan, whose bins may pass 2^24 rows). Rows whose code lies
+    outside [0, n_groups) count toward the range but land in no group, as
+    the reference's segment_sum drops them."""
     f32 = torch.float32
     n_bins = QUANTILE_BINS
     v = values.to(f32)
     lo, hi = _masked_range(v, weights > 0)
+    g = gcodes.to(torch.int64)
+    keep = (g >= 0) & (g < n_groups)
+    if not bool(keep.all()):
+        v, weights, g = v[keep], weights[keep], g[keep]
     span = torch.clamp_min(hi - lo, 1e-12)
     # Clipped before the cast: equal to the reference's cast-then-clip on
     # every row with positive weight, and defined on the others.
     bins = torch.clamp((v - lo) / span * n_bins, 0.0, n_bins - 1).to(torch.int64)
-    flat = gcodes.to(torch.int64) * n_bins + bins
+    flat = g * n_bins + bins
     hist = torch.zeros(n_groups * n_bins, dtype=accumulate, device=v.device)
     hist.index_add_(0, flat, weights.to(accumulate))
     return hist_to_quantile(hist.to(f32).reshape(n_groups, n_bins), lo, hi, q)
@@ -576,5 +582,118 @@ def _make_wide_quantile_fn(struct, value_col, group_col, n_groups):
             ks, lo, hi, one, ((CmpOp.EQ,),), (0,), n_groups)
         qval, dens = hist_to_quantile(hist, lo, hi, level)
         return mom, qval, dens
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# Variational-subsampling scans (VerdictDB-style CIs, estimators.py)
+# ---------------------------------------------------------------------------
+#
+# The CI path needs per-(group, subsample) partial moments. They come out of
+# the SAME kernels the plain scans launch, over n_groups·B segments: the
+# engine hands them an int32 group column gcodes·B + sub (sub the slot's
+# subsample id), cached per (table, family, group column, B). Subsample
+# membership is a pure function of the slot index, hashed rather than
+# idx % B, so it is decorrelated from entry-key order (consecutive slots of
+# a stratum hold nearly sorted keys; a modulo would give systematically
+# balanced subsamples and bias the replicate spread low). A code of -1 (a
+# join's dangling key) becomes -B + sub < 0 and lands in no segment.
+
+_SHARD_HASH_MULT = 2654435761     # Knuth multiplicative hash (fits uint32)
+_SUBSAMPLE_HASH_SHIFT = 7         # apart from the shard hash's low bits
+_SUB_GROUP = "\0subsample group"  # the group column's name inside a program
+
+
+def subsample_codes(n_shards: int, n_local: int,
+                    n_subsamples: int) -> np.ndarray:
+    """int32[S, n_local] deterministic subsample id per slot, hashed from the
+    linear slot index (slot j ↔ shard j % S, local j // S); the reference's
+    array, element for element. One device is S = 1."""
+    lin = (np.arange(n_local, dtype=np.uint32)[None, :] * np.uint32(n_shards)
+           + np.arange(n_shards, dtype=np.uint32)[:, None])
+    h = (lin * np.uint32(_SHARD_HASH_MULT)) >> np.uint32(_SUBSAMPLE_HASH_SHIFT)
+    return (h % np.uint32(n_subsamples)).astype(np.int32)
+
+
+def subsample_group_column(group_codes: torch.Tensor, sub: torch.Tensor,
+                           n_subsamples: int) -> torch.Tensor:
+    """The int32 group column g·B + sub of a grouped subsampled scan (an
+    ungrouped one takes sub itself)."""
+    return group_codes.to(torch.int32) * n_subsamples + sub
+
+
+def make_batched_subsampled_query_fn(struct, value_col: str | None,
+                                     group_col: str | None, n_groups: int,
+                                     n_subsamples: int):
+    """make_batched_query_fn with per-subsample segments: returns
+    fn(ks, pred_consts, gsub, cols, unit, strat, freq_table, valid) ->
+    GroupedMoments [Q, n_groups·B] (group-major: segment g·B + j), where
+    gsub is the int32 column g·B + sub (subsample_group_column; the
+    subsample codes alone when ungrouped). It is the fused program
+    (or, over 127 atoms, the wide path's agg_scan launches) with gsub as
+    its group column and n_groups·B groups, so a query's moments have the
+    same bits alone as in a batch, and the streamed bytes are the plain
+    scan's plus one int32 column."""
+    del group_col   # folded into gsub by the caller
+    inner = make_batched_query_fn(struct, value_col, _SUB_GROUP,
+                                  n_groups * n_subsamples)
+
+    def fn(ks, pred_consts, gsub, cols, unit, strat, freq_table, valid):
+        return inner(ks, pred_consts, {**cols, _SUB_GROUP: gsub}, unit,
+                     strat, freq_table, valid)
+
+    return fn
+
+
+def make_subsampled_query_fn(struct, value_col: str | None,
+                             group_col: str | None, n_groups: int,
+                             n_subsamples: int):
+    """make_query_fn analogue with per-subsample segments: returns
+    fn(k, pred_vals, gsub, cols, unit, strat, freq_table, valid) ->
+    GroupedMoments [n_groups·B]; the batched program at Q = 1."""
+    batched = make_batched_subsampled_query_fn(struct, value_col, group_col,
+                                               n_groups, n_subsamples)
+
+    def fn(k, pred_vals, gsub, cols, unit, strat, freq_table, valid):
+        ks, consts = _query_consts(k, pred_vals, unit.device)
+        mom = batched(ks, consts, gsub, cols, unit, strat, freq_table, valid)
+        return est_lib.moments_slice(mom, 0)
+
+    return fn
+
+
+def make_subsampled_quantile_fn(struct, value_col: str,
+                                group_col: str | None, n_groups: int,
+                                n_subsamples: int):
+    """QUANTILE subsampling program: returns fn(k, pred_vals, level, gsub,
+    cols, unit, strat, freq_table, valid) -> (mom_sub [G·B], qval[G],
+    dens[G], qsub[G·B]). As the reference's subsampled path, it bins over
+    the selected rows' range: the selection (valid, prefix, predicate) is
+    evaluated with torch ops, then two quantile-scan launches take it as
+    their single atom column (as the wide path does), one over the G
+    groups (the point estimate and its density) and one over gsub's G·B
+    segments (the per-subsample moments and replicate quantiles)."""
+    b = n_subsamples
+
+    def fn(k, pred_vals, level, gsub, cols, unit, strat, freq_table, valid):
+        ks, consts = _query_consts(k, pred_vals, unit.device)
+        _, sel = query_selection(eval_pred_flat(struct, cols, consts[0]),
+                                 ks[0], unit, strat, freq_table, valid)
+        values = cols[value_col]
+        lo, hi = selected_range(values, sel)
+        one = torch.ones((1, 1), dtype=torch.float32, device=unit.device)
+
+        def scan(codes, groups):
+            return kops.quantile_scan(values, unit, strat, freq_table, valid,
+                                      (sel,), codes, ks, lo, hi, one,
+                                      ((CmpOp.EQ,),), (0,), groups)
+
+        _, hist = scan(cols[group_col] if group_col is not None else None,
+                       n_groups)
+        qval, dens = hist_to_quantile(hist, lo, hi, level)
+        mom_sub, hist_sub = scan(gsub, n_groups * b)
+        qsub, _ = hist_to_quantile(hist_sub, lo, hi, level)
+        return mom_sub, qval, dens, qsub
 
     return fn

@@ -762,3 +762,95 @@ def test_build_samples_on_card_matches_cpu_and_answers_many_strata(
             (a.sample_phi, a.sample_k, a.rows_read)
         np.testing.assert_allclose([g.estimate for g in b.groups],
                                    [g.estimate for g in a.groups], rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_groups", [6, 500])     # G·B = 192 and 16,000
+def test_subsampled_fused_launch_matches_plain(cuda_device, n_groups):
+    """The subsampled scans' launch: the fused kernel over the int32 group
+    column g·B + sub (B = 32) and G·B groups, codes -1 (a dangling join
+    key) among them, against its plain version; repeat launches and a
+    query launched alone bit-identical to its slice of a Q = 7 launch."""
+    from repro_torch.core import executor as exec_lib
+    b = 32
+    rng = np.random.default_rng(n_groups)
+    n = 1_000_003
+    t = _case(rng, n, n_groups, 7, 2, cuda_device)
+    sub = torch.from_numpy(exec_lib.subsample_codes(1, n, b)[0]).to(
+        cuda_device)
+    codes = t["group_codes"].to(torch.int32)
+    codes[::97] = -1
+    t["group_codes"] = exec_lib.subsample_group_column(codes, sub, b)
+    assert t["group_codes"].dtype == torch.int32
+    struct, slots = ((CmpOp.EQ,), (CmpOp.GT,)), (0, 0)
+    g = n_groups * b
+    got = _call(agg_scan.agg_scan_fused_cuda, t, struct, slots, g)
+    again = _call(agg_scan.agg_scan_fused_cuda, t, struct, slots, g)
+    want = _call(ref.agg_scan_fused_ref, t, struct, slots, g,
+                 accumulate=torch.float64)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, again)
+    one = _call(agg_scan.agg_scan_fused_cuda,
+                dict(t, ks=t["ks"][3:4], pred_consts=t["pred_consts"][3:4]),
+                struct, slots, g)
+    assert torch.equal(one[0], got[3])
+
+
+@pytest.mark.cuda
+def test_subsampled_and_joined_engine_on_card(cuda_device):
+    """ci_method="subsampling" and a joined dimension on the card: answers
+    within rtol 1e-4 of the engine on the CPU, and query_batch bit for bit
+    query()'s on the card."""
+    from repro_torch.core.joins import Join
+    raw = synth.sessions_table(100_000, seed=3)
+    urls = np.unique(raw["URL"])
+    dim = {"url": urls[urls != urls[7]],
+           "owner": np.array([f"own{i % 12}" for i in range(len(urls) - 1)])}
+    join = (Join("media", "URL", "url"),)
+    genre = Predicate.where(Atom("Genre", CmpOp.EQ, "genre03"))
+    queries = [
+        Query("sessions", AggOp.COUNT, bound=ErrorBound(0.1)),
+        Query("sessions", AggOp.SUM, "SessionTime", group_by=("OS",),
+              bound=ErrorBound(0.05)),
+        Query("sessions", AggOp.AVG, "Bitrate", group_by=("URL",),
+              bound=ErrorBound(0.1)),
+        Query("sessions", AggOp.AVG, "SessionTime",
+              group_by=("media.owner",), bound=ErrorBound(0.1), joins=join),
+        Query("sessions", AggOp.COUNT, bound=ErrorBound(0.1), joins=join,
+              predicate=Predicate.where(Atom("media.owner", CmpOp.EQ,
+                                             "own3")))]
+    quantile = Query("sessions", AggOp.QUANTILE, "SessionTime",
+                     quantile=0.5, predicate=genre, bound=ErrorBound(0.1))
+    dbs = []
+    for dev in ("cpu", cuda_device):
+        db = BlinkDB(EngineConfig(k1=800.0, m=3, ci_method="subsampling"),
+                     device=dev)
+        db.register_table("sessions", table_lib.from_columns("sessions",
+                                                             raw))
+        db.register_table("media", table_lib.from_columns("media", dim))
+        for phi in (("City",), ("URL",), ()):
+            db.add_family("sessions", phi)
+        dbs.append(db)
+    cpu, card = dbs
+    before = (agg_scan.agg_scan_fused_cuda.launches,
+              agg_scan.quantile_scan_cuda.launches)
+    batched = card.query_batch(queries)
+    single = [card.query(q) for q in queries + [quantile]]
+    assert agg_scan.agg_scan_fused_cuda.launches > before[0]
+    assert agg_scan.quantile_scan_cuda.launches > before[1]
+    for q, a, b in zip(queries, batched, single):
+        assert [(g.key, g.estimate, g.stderr) for g in a.groups] == \
+            [(g.key, g.estimate, g.stderr) for g in b.groups], q
+    for q, b in zip(queries + [quantile], single):
+        a = cpu.query(q)
+        assert (b.sample_phi, b.sample_k, b.rows_read) == \
+            (a.sample_phi, a.sample_k, a.rows_read)
+        assert [g.key for g in b.groups] == [g.key for g in a.groups]
+        np.testing.assert_allclose([g.estimate for g in b.groups],
+                                   [g.estimate for g in a.groups], rtol=1e-4)
+        # A replicate quantile read off a subsample's small histogram may
+        # cross into the next bin where the card's float sums differ from
+        # the CPU's in the last bit: its stderr is held at rtol 0.1.
+        np.testing.assert_allclose([g.stderr for g in b.groups],
+                                   [g.stderr for g in a.groups],
+                                   rtol=0.1 if q is quantile else 1e-4)

@@ -187,13 +187,20 @@ def test_engine_defaults_to_cuda():
 
 
 def test_later_slices_raise_not_implemented(engines):
+    """The multi-device scan is a later slice and raises; joins and
+    subsampling CIs have landed (tests/test_torch_joins.py,
+    tests/test_torch_subsampling.py): the engine takes them, and refuses
+    a CI method it does not know."""
+    from repro_torch.core import executor as exec_lib
     _, port = engines
-    with pytest.raises(NotImplementedError, match="joins"):
-        port.query(P.Query("sessions", P.AggOp.COUNT, joins=("dim",)))
-    with pytest.raises(NotImplementedError, match="joins"):
-        port.query_batch([P.Query("sessions", P.AggOp.COUNT, joins=("dim",))])
-    with pytest.raises(NotImplementedError, match="subsampling"):
-        P.BlinkDB(P.EngineConfig(ci_method="subsampling"), device="cpu")
+    striped = port._striped_for("sessions", ("OS",))
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        exec_lib.run_query_striped(striped, (), None, None, 1, 100.0,
+                                   mesh=object())
+    assert P.BlinkDB(P.EngineConfig(ci_method="subsampling"),
+                     device="cpu").config.n_subsamples == 32
+    with pytest.raises(ValueError, match="ci_method"):
+        P.BlinkDB(P.EngineConfig(ci_method="bootstrap"), device="cpu")
 
 
 def test_template_over_kernel_atom_limit_raises(engines):

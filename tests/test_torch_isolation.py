@@ -22,7 +22,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import repro_torch.state, repro_torch.kernels.ops\n"
         "import repro_torch.data.synth, repro_torch.core.optimizer\n"
         "import repro_torch.launch.query, repro_torch.obs.clock\n"
-        "from repro_torch.core import estimators, executor\n"
+        "from repro_torch.core import estimators, executor, joins\n"
         "bad = [m for m in sys.modules if m in ('jax', 'repro')\n"
         "       or m.startswith(('jax.', 'repro.'))]\n"
         "assert not bad, bad\n"
