@@ -70,6 +70,21 @@ Phases, each reported on its own lines:
      per URL (5% of the URLs left out, so keys dangle) joined through
      three queries that the URL family must serve, held the same way;
      launches by group count;
+  3f. mutation and maintenance on a copy of phase 3's table (its own
+     engine, phase 3's City, URL and uniform families and blocks): (a)
+     append_rows of 1M rows, (b) 50,000 rows of a new City (one stratum
+     under K1, held whole), (c) delete_rows WHERE dt < 6, (d) update_rows
+     WHERE Genre = genre03 SET Bitrate = 1000, (e) SampleMaintainer
+     .reclaim() past its thresholds (compact_table, decay, compact_family);
+     after each step seven ERROR WITHIN queries through query(), every
+     launch of the fused, quantile and agg_scan kernels held against its
+     plain version, every answer against exact_query under phase 3's rule
+     (the new city's COUNT exact within 1e-3), query_batch equal to query()
+     bit for bit, each block's prefix naming its family's rows; after (d)
+     each answer again on a fresh stripe of its family (rtol 1e-4); host
+     seconds of each step and merge or scatter, restripes, ghost fractions,
+     launches by G and table route, and the fused kernel's device ms on the
+     URL and uniform blocks before and after (e);
   4. times: each kernel at the main path's shapes (agg_scan_fused and
      quantile_scan at G = 1, 6, 200 and 500) against its bound and its
      plain version, quantile_scan beside the yardstick agg_scan_fused +
@@ -85,6 +100,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import json
 import subprocess
@@ -623,11 +639,13 @@ def launches_since(before: dict) -> dict:
     return {k: v - before[k] for k, v in launch_counts().items()}
 
 
-def kernel_args(torch, db, q, phi, k):
+def kernel_args(torch, db, q, phi, k, striped=None):
     """The fused-scan kernel's inputs for query q on family phi at k, as the
-    engine passes them: (args, ops_struct, atom_slots, n_groups)."""
+    engine passes them (over `striped`, by default the family's block):
+    (args, ops_struct, atom_slots, n_groups)."""
     from repro_torch.core import executor as exec_lib
-    striped = db._striped_for(q.table, phi)
+    if striped is None:
+        striped = db._striped_for(q.table, phi)
     key, vals = db._scan_key(q.table, q, phi)
     _, _, struct, value_col, group_col, n_groups = key
     names, slots = exec_lib.dedup_atom_slots(exec_lib.flat_atoms(struct))
@@ -820,13 +838,14 @@ def main_path_queries(Q, AggOp, Atom, CmpOp, Conjunction, Predicate,
 
 def exact_bin_width(torch, db, q) -> float:
     """Bin width of exact_query's QUANTILE histogram: its range is that of
-    the rows the predicate selects."""
+    the live rows the predicate selects."""
     from repro_torch.core import executor as exec_lib
     tbl = db.tables[q.table]
     struct, vals = exec_lib.pred_structure(
         exec_lib.bind_predicate(q.predicate, db._encode(q.table)))
-    v = tbl.columns[q.value_column][exec_lib.eval_pred(struct, tbl.columns,
-                                                       vals)]
+    sel = exec_lib.eval_pred(struct, tbl.columns, vals) & \
+        tbl.live_mask_device()
+    v = tbl.columns[q.value_column][sel]
     return (v.max().item() - v.min().item()) / 256.0
 
 
@@ -1512,16 +1531,18 @@ N_SUBSAMPLES = 32            # EngineConfig().n_subsamples
 
 
 @contextlib.contextmanager
-def checked_launches(torch, worst: dict):
-    """While active, every launch of the fused and quantile wrappers is
-    also run through its plain version on the same tensors (sums in
-    float64) and held to it (rtol 2e-5, atol 1e-3; the quantile scan's
-    moments and histogram); the worst disagreement goes into
-    worst[name][G] as [max_abs_diff, tol_ratio, launches]. The wrappers
-    are swapped as in launches_by_groups, and their counts carried back."""
+def checked_launches(torch, worst: dict, names=BY_GROUPS):
+    """While active, every launch of the wrappers `names` (by default the
+    fused and quantile ones; "agg_scan" may join them) is also run through
+    its plain version on the same tensors (sums in float64) and held to it
+    (rtol 2e-5, atol 1e-3; the quantile scan's moments and histogram); the
+    worst disagreement goes into worst[name][G] as [max_abs_diff,
+    tol_ratio, launches]. The wrappers are swapped as in
+    launches_by_groups, and their counts carried back."""
     from repro_torch.kernels import agg_scan, ref
     plain = {"agg_scan_fused": ref.agg_scan_fused_ref,
-             "quantile_scan": ref.quantile_scan_ref}
+             "quantile_scan": ref.quantile_scan_ref,
+             "agg_scan": ref.agg_scan_ref}
 
     def flat(out):
         return (torch.cat([t.flatten() for t in out])
@@ -1544,7 +1565,7 @@ def checked_launches(torch, worst: dict):
             per[2] += 1
             return out
         return call
-    saved = {name: getattr(agg_scan, f"{name}_cuda") for name in BY_GROUPS}
+    saved = {name: getattr(agg_scan, f"{name}_cuda") for name in names}
     for name, fn in saved.items():
         setattr(agg_scan, f"{name}_cuda", checked(name, fn))
     try:
@@ -1808,6 +1829,381 @@ def phase_subsampling_and_joins(torch, np, main_db, device="cuda") -> dict:
              default=0.0)
     log(f"phase 3e ok: launches vs plain max_abs_diff fused {fr:.6e}, "
         f"quantile {qr:.6e}; {out['seconds']:.1f}s")
+    return out
+
+
+# ---------------------------------------------------------------- phase 3f
+
+NEW_CITY = "city-new"          # phase 3f's step (b): a City value of its own
+MUTATION_KERNELS = ("agg_scan_fused", "quantile_scan", "agg_scan")
+
+
+def mutation_queries():
+    """(label, Query) of phase 3f, all ERROR WITHIN, asked after each step."""
+    from repro_torch.core import AggOp, Atom, CmpOp, ErrorBound, Predicate
+    from repro_torch.core import Query as Q
+    t = "sessions"
+    return [
+        ("COUNT GROUP BY OS ERROR 10%",
+         Q(t, AggOp.COUNT, group_by=("OS",), bound=ErrorBound(0.10))),
+        ("AVG(SessionTime) GROUP BY City ERROR 10%",
+         Q(t, AggOp.AVG, "SessionTime", group_by=("City",),
+           bound=ErrorBound(0.10))),
+        ("SUM(Bitrate) WHERE Genre=genre03 ERROR 5%",
+         Q(t, AggOp.SUM, "Bitrate", bound=ErrorBound(0.05),
+           predicate=Predicate.where(Atom("Genre", CmpOp.EQ, "genre03")))),
+        ("QUANTILE(SessionTime, 0.5) ERROR 10%",
+         Q(t, AggOp.QUANTILE, "SessionTime", quantile=0.5,
+           bound=ErrorBound(0.10))),
+        ("COUNT WHERE URL NOT IN (200 URLs) GROUP BY OS ERROR 10%",
+         Q(t, AggOp.COUNT, group_by=("OS",), bound=ErrorBound(0.10),
+           predicate=not_in(Atom, CmpOp, Predicate, "URL", "url", 500, 200))),
+        # 0.1% cannot be certified short of the whole stratum (rate 1):
+        # the answer is the exact live count
+        (f"COUNT WHERE City={NEW_CITY} ERROR 0.1%",
+         Q(t, AggOp.COUNT, bound=ErrorBound(0.001),
+           predicate=Predicate.where(Atom("City", CmpOp.EQ, NEW_CITY)))),
+        ("COUNT WHERE dt<6 ERROR 10%",
+         Q(t, AggOp.COUNT, bound=ErrorBound(0.10),
+           predicate=Predicate.where(Atom("dt", CmpOp.LT, 6)))),
+    ]
+
+
+@contextlib.contextmanager
+def host_seconds(torch, device, seconds: dict):
+    """While active, the host seconds of every family merge, tombstone
+    pass, decay and row-id remap (sampling) and of every block scatter or
+    restripe (executor, the device synchronised around it) add up in
+    seconds[name], one entry per call: the functions are swapped on their
+    modules, which the engine reads them from at each call."""
+    from repro_torch.core import executor as exec_lib
+    from repro_torch.core import sampling as samp_lib
+    names = {samp_lib: ("merge_family", "apply_tombstones", "decay_strata",
+                        "remap_family_row_ids"),
+             exec_lib: ("stripe_append", "stripe_tombstone", "stripe_family",
+                        "remap_slot_row_ids")}
+    saved = []
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            seconds.setdefault(name, []).append(time.perf_counter() - t0)
+            return out
+        return call
+    for mod, fns in names.items():
+        for name in fns:
+            saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, timed(name, getattr(mod, name)))
+    try:
+        yield seconds
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def mutation_engine(main_db):
+    """A fresh engine over a host copy of phase 3's sessions table (its
+    schema columns, not the join columns phase 3e gathered), with phase
+    3's City, URL and uniform families and their striped blocks, which the
+    mutations replace and never write into."""
+    from repro_torch.core import BlinkDB, EngineConfig
+    from repro_torch.core import table as table_lib
+    src = main_db.tables["sessions"]
+    cols = src.schema.column_names
+    tbl = table_lib.Table(src.schema, {c: src.host_column(c).copy()
+                                       for c in cols},
+                          {c: d.copy() for c, d in src.dictionaries.items()},
+                          src.n_rows)
+    db = BlinkDB(EngineConfig(), device=main_db.device)
+    db.register_table("sessions", tbl)
+    for phi in (("City",), ("URL",), ()):
+        fam = main_db.families["sessions"][phi]
+        db.families["sessions"][phi] = dataclasses.replace(
+            fam, columns_host={c: fam.host_column(c) for c in cols})
+        db._striped[("sessions", phi)] = main_db._striped_for("sessions", phi)
+    return db
+
+
+def device_ms(torch, fn, calls: int) -> float:
+    """Device ms per call of the kernels fn() launches (torch.profiler,
+    summed over them, mean over `calls` calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        total += us if us is not None else getattr(ev, "cuda_time_total", 0.0)
+    return total / 1e3 / calls
+
+
+def compaction_times(torch, np, db, q, blocks: dict, turns: int = 5) -> dict:
+    """The fused kernel for q at each family's K1 over its block before the
+    reclaim (blocks[phi], kept alive: patches never write into a block) and
+    over its block now, in alternating turns: per family and side the
+    median over turns of the event ms (median of 20 launches, the
+    wrapper's host work included) and the device ms (torch.profiler, 20
+    launches), the occupied slots, the bound and the plain version's ms."""
+    from repro_torch.kernels import agg_scan, ref
+    out = {}
+    for phi, before in blocks.items():
+        k = db.families["sessions"][phi].ks[0]
+        sides = {"before": before, "after": db._striped_for("sessions", phi)}
+        calls = {}
+        for side, block in sides.items():
+            args, struct, slots, g = kernel_args(torch, db, q, phi, k, block)
+            calls[side] = (functools.partial(agg_scan.agg_scan_fused_cuda,
+                                             *args, struct, slots, g),
+                           args, struct, slots, g)
+        ev, dev = {"before": [], "after": []}, {"before": [], "after": []}
+        for _ in range(turns):
+            for side, (fn, *_rest) in calls.items():
+                ev[side].append(time_cuda(torch, fn, warmup=3, reps=20))
+                dev[side].append(device_ms(torch, fn, 20))
+        out[phi] = {}
+        for side, (fn, args, struct, slots, g) in calls.items():
+            mom = fn()
+            bnd = bound_for(args, struct, mom, nbytes(mom))
+            out[phi][side] = {
+                "ms": float(np.median(ev[side])),
+                "device_ms": float(np.median(dev[side])),
+                "plain_ms": time_cuda(torch, lambda: ref.agg_scan_fused_ref(
+                    *args, struct, slots, g), warmup=1, reps=3),
+                "bound_ms": bnd[0], "bound_by": bnd[1],
+                "occupied": sides[side].n_rows,
+                "ghosts": sides[side].n_ghosts}
+    return out
+
+
+def hold_prefix_ids(torch, np, db, label) -> None:
+    """Each block's valid slots with entry_key < K1 name exactly its
+    family's row ids (rescale ghosts fail the prefix, tombstoned slots the
+    valid mask)."""
+    for phi, fam in db.families["sessions"].items():
+        b = db._striped_for("sessions", phi)
+        ek = b.unit * b.freq_table[b.strat.long()]
+        sel = (b.valid & (ek < fam.ks[0])).cpu().numpy()[: b.n_rows]
+        got = np.sort(b.slot_row_ids[: b.n_rows][sel])
+        if not np.array_equal(got, np.sort(fam.row_ids)):
+            raise AssertionError(f"{label}: block {phi} prefix names "
+                                 f"{got.size} rows, family {fam.n_rows}")
+
+
+def hold_fresh_stripe(torch, np, db, answers) -> int:
+    """Each sampled answer recomputed at its family and K on a fresh
+    stripe_family of the same host family: estimates within rtol 1e-4 of
+    the incremental block's. Returns the answers compared."""
+    from repro_torch.core import AggOp
+    from repro_torch.core import executor as exec_lib
+    n = 0
+    for (label, q), ans in answers:
+        if ans.sample_phi == ("<exact>",) or not ans.groups:
+            continue
+        phi, k = ans.sample_phi, ans.sample_k
+        fam = db.families["sessions"][phi]
+        key, vals = db._scan_key("sessions", q, phi)
+        ests = []
+        for block in (db._striped_for("sessions", phi),
+                      exec_lib.stripe_family(fam, db.device)):
+            if q.agg is AggOp.QUANTILE:
+                lo, hi = db._family_range("sessions", phi, q.value_column)
+                mom, qv, dens = exec_lib.make_quantile_fn(*key[2:])(
+                    k, vals, q.quantile, lo, hi, *exec_lib.scan_args(block))
+                qpair = (qv, dens)
+            else:
+                mom = exec_lib.make_query_fn(*key[2:])(
+                    k, vals, *exec_lib.scan_args(block))
+                qpair = None
+            ests.append(db._answer_from_moments(
+                q, "sessions", phi, k, mom, 0, 0.0, ans.confidence,
+                qpair=qpair))
+        inc, fresh = ests
+        if [g.key for g in inc.groups] != [g.key for g in fresh.groups]:
+            raise AssertionError(f"{label}: the incremental block and a "
+                                 f"fresh stripe answer other groups")
+        a = np.array([g.estimate for g in inc.groups])
+        f = np.array([g.estimate for g in fresh.groups])
+        gap = float(np.max(np.abs(f - a) / np.maximum(np.abs(a), 1e-30)))
+        log(f"    {label}: fresh stripe of {phi} at K={k:.6g}: max relative "
+            f"estimate gap {gap:.3e} over {len(a)} groups")
+        if gap > 1e-4:
+            raise AssertionError(f"{label}: the incremental block and a "
+                                 f"fresh stripe disagree at K={k}: {gap}")
+        n += 1
+    return n
+
+
+def phase_mutation(torch, np, main_db, device="cuda") -> dict:
+    """The mutation lifecycle and sample maintenance on phase 3's table:
+    (a) append_rows of 1M new rows, (b) 50,000 rows of one new City (a
+    stratum smaller than K1, held whole), (c) delete_rows WHERE dt < 6,
+    (d) update_rows WHERE Genre = genre03 SET Bitrate = 1000, (e)
+    SampleMaintainer.reclaim() past its thresholds (compact_table, decay,
+    compact_family). After each step mutation_queries() through query():
+    every launch against its plain version, every answer against
+    exact_query under phase 3's rule, the new city's COUNT equal to the
+    exact live count within 1e-3, query_batch equal to query() bit for bit,
+    and each block's prefix naming its family's rows; after (d), each
+    answer again on a fresh stripe of its family (rtol 1e-4). Logs the
+    host seconds of every step and of each merge or scatter, restripes,
+    ghost fractions, block bytes, launches by G and by table route, and
+    the fused kernel's time on the URL and uniform blocks before and after
+    (e) at the same K, in alternating turns (compaction_times)."""
+    from repro_torch.core import QueryTemplate
+    from repro_torch.core.maintenance import MaintenanceConfig, SampleMaintainer
+    from repro_torch.data import synth
+    t_phase = time.perf_counter()
+    db = mutation_engine(main_db)
+    queries = mutation_queries()
+    tbl = db.tables["sessions"]
+
+    def delta_new_city():
+        raw = synth.sessions_table(50_000, seed=12)
+        raw["City"] = np.full(50_000, NEW_CITY)
+        return raw
+
+    from repro_torch.core import Atom, CmpOp, Predicate
+    maint = SampleMaintainer(
+        db, "sessions", conviva_templates(QueryTemplate),
+        MaintenanceConfig(base_compact_threshold=0.1, decay_ratio=1.2,
+                          compact_threshold=0.05))
+    steps = [
+        ("(a) append 1M rows",
+         lambda: db.append_rows("sessions",
+                                synth.sessions_table(1_000_000, seed=11))),
+        (f"(b) append 50000 rows of City={NEW_CITY}",
+         lambda: db.append_rows("sessions", delta_new_city())),
+        ("(c) delete WHERE dt<6",
+         lambda: db.delete_rows("sessions", Predicate.where(
+             Atom("dt", CmpOp.LT, 6)))),
+        ("(d) update WHERE Genre=genre03 SET Bitrate=1000",
+         lambda: db.update_rows("sessions", Predicate.where(
+             Atom("Genre", CmpOp.EQ, "genre03")), {"Bitrate": 1000.0})),
+        ("(e) SampleMaintainer.reclaim()", maint.reclaim),
+    ]
+    worst, by_g, by_t, out = {}, {}, {}, {"steps": []}
+    covered = total = n_batch = n_fresh = 0
+    reset_launches()
+    for label, step in steps:
+        if label.startswith("(e)"):
+            before_reclaim = {phi: db._striped_for("sessions", phi)
+                              for phi in (("URL",), ())}
+        seconds = {}
+        db._sync()
+        t0 = time.perf_counter()
+        with host_seconds(torch, db.device, seconds):
+            rep = step()
+        db._sync()
+        step_s = time.perf_counter() - t0
+        blocks = {phi: db._striped_for("sessions", phi)
+                  for phi in db.families["sessions"]}
+        restriped = getattr(rep, "restriped", None)
+        log(f"  {label}: host {step_s:.3f}s; rows {tbl.n_rows} live "
+            f"{tbl.n_live}; " + "; ".join(
+                f"{k} " + "+".join(f"{v:.3f}" for v in vs) + "s"
+                for k, vs in seconds.items())
+            + (f"; restriped {restriped}" if restriped is not None else "")
+            + (f"; base rows dropped {rep['base_compacted']}, strata decayed "
+               + str({p: len(v) for p, v in rep["decayed"].items()})
+               + f", families compacted {rep['compacted']}"
+               if isinstance(rep, dict) else ""))
+        log("    blocks: " + "; ".join(
+            f"{phi} rows={b.n_rows} slots={b.n_local} ghosts={b.n_ghosts} "
+            f"ghost_fraction={b.ghost_fraction:.4f} strata="
+            f"{db.families['sessions'][phi].n_distinct} bytes="
+            f"{b.device_bytes()}" for phi, b in blocks.items()))
+        hold_prefix_ids(torch, np, db, label)
+        answers = []
+        with checked_launches(torch, worst, MUTATION_KERNELS), \
+                launches_by_groups(by_g, by_table=by_t):
+            for qlabel, q in queries:
+                before = launch_counts()
+                ans = db.query(q)
+                launched = launches_since(before)
+                exact = db.exact_query(q)
+                if not exact.groups:
+                    if ans.groups:
+                        raise AssertionError(f"{qlabel}: groups where no "
+                                             f"live row matches")
+                    log(f"  {qlabel}: no live row matches; the answer has "
+                        f"no group (family={ans.sample_phi})")
+                else:
+                    covered += hold_to_exact(torch, np, db, qlabel, q, ans,
+                                             [], launched)
+                    total += len(ans.groups)
+                if NEW_CITY in qlabel and exact.groups:
+                    truth = float(np.sum(
+                        (tbl.host_column("City") == tbl.encode_value(
+                            "City", NEW_CITY)) & (tbl.live if tbl.live
+                                                  is not None else True)))
+                    if abs(ans.groups[0].estimate - truth) > 1e-3 or \
+                            exact.groups[0].estimate != truth:
+                        raise AssertionError(
+                            f"{qlabel}: {ans.groups[0].estimate!r}, exact "
+                            f"{exact.groups[0].estimate!r}, live {truth}")
+                answers.append(((qlabel, q), ans))
+            batched = db.query_batch([q for (_, q), _ in answers])
+            for ((qlabel, q), _), a in zip(answers, batched):
+                if answer_bits(a) != answer_bits(db.query(q)):
+                    raise AssertionError(f"{label} {qlabel}: query_batch "
+                                         f"and query() differ")
+                n_batch += 1
+        if label.startswith("(d)"):
+            saved = launch_counts()   # comparison launches stay out
+            n_fresh = hold_fresh_stripe(torch, np, db, answers)
+            reset_launches(saved)
+        out["steps"].append({"label": label, "seconds": step_s,
+                             "host": seconds, "restriped": restriped})
+    launches = launch_counts()
+    # COUNT GROUP BY OS (G = 6) over the blocks before and after (e); the
+    # timing launches stay out of the counts
+    compaction = compaction_times(torch, np, db, queries[0][1],
+                                  before_reclaim)
+    reset_launches(launches)
+    if device == "cuda" and min(launches[k] for k in MUTATION_KERNELS) == 0:
+        raise AssertionError(f"phase 3f launched a kernel no time: "
+                             f"{launches}")
+    if covered < 0.9 * total:
+        raise AssertionError(f"only {covered}/{total} groups within 2 CI "
+                             f"half-widths of exact_query")
+    log("  launches by G: " + "; ".join(
+        f"{k} " + " ".join(f"G={g}:{c}" for g, c in sorted(by_g.get(k, {}).items()))
+        for k in BY_GROUPS))
+    log("  launches by table route: " + "; ".join(
+        f"{k} " + " ".join(f"{w}:{c}" for w, c in sorted(v.items()))
+        for k, v in by_t.items()))
+    for phi, sides in compaction.items():
+        log(f"  fused kernel on family {phi} (COUNT GROUP BY OS at K1, "
+            f"{db._striped_for('sessions', phi).n_local} slots), medians of "
+            f"5 alternating turns: " + "; ".join(
+                f"{side} (e) {t['ms']:.4f} ms event, {t['device_ms']:.4f} ms "
+                f"device, {t['occupied']} occupied slots, {t['ghosts']} "
+                f"ghosts, plain {t['plain_ms']:.4f}, bound {t['bound_ms']:.4f}"
+                for side, t in sides.items())
+            + f"; device ratio after/before "
+            f"{sides['after']['device_ms'] / sides['before']['device_ms']:.4f}")
+    out.update(launches=launches, by_groups=by_g, by_table=by_t,
+               worst=worst, compaction=compaction,
+               seconds=time.perf_counter() - t_phase)
+    fr = max((w[0] for w in worst.get("agg_scan_fused", {}).values()),
+             default=0.0)
+    log(f"phase 3f ok: {len(steps)} steps, {len(steps) * len(queries)} "
+        f"queries, {covered}/{total} groups within the rule, query_batch = "
+        f"query() for {n_batch}, {n_fresh} answers equal on a fresh stripe; "
+        f"launches " + " ".join(f"{k}={launches[k]}" for k in MUTATION_KERNELS)
+        + f"; fused vs plain max_abs_diff {fr:.6e}; "
+        f"{out['seconds']:.1f}s")
+    del db
+    torch.cuda.empty_cache() if device == "cuda" else None
     return out
 
 
@@ -2220,7 +2616,7 @@ def phase_times_subsampled(torch, sub_db, card: str) -> dict:
 
 
 def kernels_record(worst, record, main, batch, ops_path, times, sample,
-                   l2_times, subj, sub_times, card: str) -> list[dict]:
+                   l2_times, subj, sub_times, mut, card: str) -> list[dict]:
     """The kernels' JSON record: one entry per kernel, its launches on its
     path, its worst disagreement with its plain version over every phase,
     and its times at the main path's shapes; the fused and quantile
@@ -2243,10 +2639,11 @@ def kernels_record(worst, record, main, batch, ops_path, times, sample,
                          record[kname]["tol_ratio"]))
         if kname in ops_path:
             errs.append(ops_path[kname])
-        checked = subj["worst"].get(kname, {})
-        if checked:     # phase 3e's launches, each against its plain version
-            errs.append((max(w[0] for w in checked.values()),
-                         max(w[1] for w in checked.values())))
+        for checked in (subj["worst"].get(kname, {}),
+                        mut["worst"].get(kname, {})):
+            if checked:  # phase 3e's and 3f's launches, each against plain
+                errs.append((max(w[0] for w in checked.values()),
+                             max(w[1] for w in checked.values())))
         entry = {
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
@@ -2305,6 +2702,18 @@ def kernels_record(worst, record, main, batch, ops_path, times, sample,
             entry["join_launches"] = subj["join_launches"][kname]
             entry["join_launches_by_G"] = subj["join_by_groups"].get(kname,
                                                                      {})
+        if kname in MUTATION_KERNELS:
+            entry["mutation_launches"] = mut["launches"][kname]
+            entry["mutation_path"] = ("BlinkDB.query after append_rows, "
+                                      "delete_rows, update_rows and "
+                                      "SampleMaintainer.reclaim (phase 3f)")
+        if kname in BY_GROUPS:
+            entry["mutation_launches_by_G"] = mut["by_groups"].get(kname, {})
+            entry["mutation_launches_by_table"] = mut["by_table"].get(kname,
+                                                                      {})
+        if kname == "agg_scan_fused":
+            entry["mutation_compaction"] = {
+                str(phi): sides for phi, sides in mut["compaction"].items()}
         if kname == "agg_scan_batched":
             entry.update(q32_ms=times[kname][1]["ms"],
                          max_abs_diff_vs_fused=max(worst[kname][2],
@@ -2372,14 +2781,19 @@ def main() -> int:
     log("phase 3e: subsampling CIs and joins, BlinkDB.query and query_batch")
     subj = phase_subsampling_and_joins(torch, np, main["db"])
 
+    log("phase 3f: mutation and maintenance, append_rows, delete_rows, "
+        "update_rows and SampleMaintainer.reclaim, then BlinkDB.query")
+    mut = phase_mutation(torch, np, main["db"])
+
     log(f"phase 4: times at the main path's shapes ({card})")
     times = phase_times(torch, main["db"], card)
     l2_times = phase_times_l2(torch, sample["db"], card)
     sub_times = phase_times_subsampled(torch, subj["sub_db"], card)
     kernels = kernels_record(worst, record, main, batch, ops_path, times,
-                             sample, l2_times, subj, sub_times, card)
+                             sample, l2_times, subj, sub_times, mut, card)
     log(f"smoke total {time.perf_counter() - t_start:.1f}s (phase 3d "
-        f"{sample['seconds']:.1f}s, phase 3e {subj['seconds']:.1f}s)")
+        f"{sample['seconds']:.1f}s, phase 3e {subj['seconds']:.1f}s, phase "
+        f"3f {mut['seconds']:.1f}s)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

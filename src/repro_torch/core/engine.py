@@ -17,8 +17,13 @@ estimation with Table-2 error bars (§4.3) or, with
 `ci_method="subsampling"`, variational-subsampling CIs from the same
 kernels over n_groups·B segments. Queries may join the sampled fact table
 to registered dimension tables (§2.1: `Query(joins=...)`, attributes named
-"dim.col"). Mutation and fault handling come with later slices; the port
-has no fault plan, so every path here is the reference's empty-plan path.
+"dim.col"). Tables take appends, deletes and updates while they serve
+(`append_rows`, `delete_rows`, `update_rows`): every family is merged or
+tombstoned in place and its striped block patched, and the storage the
+mutations leave behind is reclaimed by `compact_family`, `compact_table`
+and `decay_family` (docs/MAINTENANCE.md; `core/maintenance.py` drives
+them). Fault handling comes with a later slice; the port has no fault
+plan, so every path here is the reference's empty-plan path.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ from repro_torch.core.selection import rewrite_disjuncts, select_family
 from repro_torch.core.types import (AggOp, Answer, BoundUnreachableError,
                                     ColumnKind, ErrorBound, GroupResult,
                                     Query, QueryTemplate, TimeBound)
+from repro_torch.obs import metrics as obs_metrics
 
 
 @dataclasses.dataclass
@@ -76,6 +82,38 @@ def resolve_device(device) -> torch.device:
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
     return device
+
+
+@dataclasses.dataclass
+class AppendReport:
+    """What one BlinkDB.append_rows ingested and what it invalidated."""
+    delta: table_lib.TableDelta
+    # family -> (LIVE stratum freqs before, after) with STABLE stratum ids,
+    # aligned, so maintenance computes drift on the delta directly
+    freqs: dict[tuple[str, ...], tuple[np.ndarray, np.ndarray]]
+    restriped: list[tuple[str, ...]]   # families whose block outgrew padding
+    epoch: int                         # 1-based append epoch of the table
+
+    @property
+    def merged(self) -> list[tuple[str, ...]]:
+        """Families merged in place: every family has a freqs entry."""
+        return list(self.freqs)
+
+
+@dataclasses.dataclass
+class MutationReport:
+    """What one BlinkDB.delete_rows or update_rows changed."""
+    mutation: table_lib.TableMutation
+    # family -> (LIVE stratum freqs before, after), stable stratum ids
+    freqs: dict[tuple[str, ...], tuple[np.ndarray, np.ndarray]] = \
+        dataclasses.field(default_factory=dict)
+    # family -> dead rows that were in the sample (now striped-block ghosts)
+    tombstoned_sampled: dict[tuple[str, ...], int] = \
+        dataclasses.field(default_factory=dict)
+    restriped: list[tuple[str, ...]] = dataclasses.field(default_factory=list)
+    # append epoch an update's re-insert took (None: a delete, or nothing
+    # matched, so no delta units were drawn)
+    epoch: int | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,6 +155,9 @@ class BlinkDB:
         self.config = config or EngineConfig()
         self.device = resolve_device(self.config.device if device is None
                                      else device)
+        # The engine's registry: what hangs off this engine (the sample
+        # maintainer) registers its instruments here.
+        self.metrics = obs_metrics.MetricsRegistry()
         if self.config.ci_method not in ("closed", "subsampling"):
             raise ValueError(f"ci_method={self.config.ci_method!r}: need "
                              "'closed' or 'subsampling'")
@@ -137,46 +178,114 @@ class BlinkDB:
         self._subsample_codes: dict = {}
         self._fk_maps: dict = {}      # (fact, dim, fk) -> np fk -> dim row
         self._elp_cache: dict = {}    # elp key -> ElpDecision
+        self._append_epochs: dict[str, int] = {}  # table -> appends so far
+        self._decay_epochs: dict[str, int] = {}   # table -> decay passes
+        # Generations: one per (table, family), bumped wherever the family's
+        # CONTENT changes (build, merge, tombstone, compaction, decay, join
+        # refresh), and one per table for its SET of families. ELP
+        # decisions are pinned to them; listeners hear every bump.
         self._generations: dict[tuple[str, tuple[str, ...]], int] = {}
+        self._family_set_gen: dict[str, int] = {}
+        self._invalidation_listeners: list[
+            Callable[[str, tuple[str, ...] | None], None]] = []
         self.last_solution: opt_lib.Solution | None = None
 
+    # ------------------------------------------------ generations & hooks
     def family_generation(self, table_name: str, phi: tuple[str, ...]) -> int:
         """Monotone content version of one sample family (0 = never built)."""
         return self._generations.get((table_name, phi), 0)
 
-    def _drop_derived(self, table_name: str, phi: tuple[str, ...] | None) -> None:
-        """Forget everything calibrated against a (table, family), or the
-        whole table when phi is None: striped blocks, scan programs, ELP
-        decisions, latency models, quantile histogram ranges and subsampled
-        group columns."""
+    def family_set_generation(self, table_name: str) -> int:
+        """Monotone version of the SET of families on a table: bumps when a
+        family is added or dropped."""
+        return self._family_set_gen.get(table_name, 0)
+
+    def add_invalidation_listener(
+            self, fn: Callable[[str, tuple[str, ...] | None], None]) -> None:
+        """Subscribe to generation bumps: `fn(table, phi)` fires on every
+        family-content change, `fn(table, None)` on family-set changes.
+        Listeners must not call back into the engine."""
+        self._invalidation_listeners.append(fn)
+
+    def remove_invalidation_listener(
+            self, fn: Callable[[str, tuple[str, ...] | None], None]) -> None:
+        """Unsubscribe (a no-op if not subscribed)."""
+        try:
+            self._invalidation_listeners.remove(fn)
+        except ValueError:
+            pass
+
+    def _bump_generation(self, table_name: str,
+                         phi: tuple[str, ...] | None) -> None:
+        if phi is None:
+            self._family_set_gen[table_name] = \
+                self._family_set_gen.get(table_name, 0) + 1
+        else:
+            key = (table_name, phi)
+            self._generations[key] = self._generations.get(key, 0) + 1
+        for fn in self._invalidation_listeners:
+            fn(table_name, phi)
+
+    def _drop_programs(self, table_name: str, phi: tuple[str, ...]) -> None:
+        """Forget everything calibrated against a (table, family)'s block
+        but the block itself: scan programs, ELP decisions, latency models,
+        quantile histogram ranges and subsampled group columns (a K chosen
+        for the old sample need not meet the bound on the new one)."""
+        for cache in (self._batched_programs, self._quantile_programs,
+                      self._quantile_ranges, self._subsampled_programs,
+                      self._batched_subsampled_programs,
+                      self._subsampled_quantile_programs,
+                      self._subsample_codes, self._elp_cache, self._latency):
+            for k in [k for k in cache
+                      if k[0] == table_name and k[1] == phi]:
+                del cache[k]
+
+    def _drop_derived(self, table_name: str, phi: tuple[str, ...]) -> None:
+        """_drop_programs, and the family's striped block."""
+        self._striped.pop((table_name, phi), None)
+        self._drop_programs(table_name, phi)
+
+    def _set_striped(self, table_name: str, phi: tuple[str, ...],
+                     striped: exec_lib.StripedFamily) -> None:
+        """Install a patched or rebuilt block. The subsampled scans' group
+        column g·B + sub is computed from the block's group column VALUES,
+        so it is dropped with every block it was computed from."""
+        self._striped[(table_name, phi)] = striped
+        for k in [k for k in self._subsample_codes
+                  if k[0] == table_name and k[1] == phi]:
+            del self._subsample_codes[k]
+
+    # ------------------------------------------------------------- offline
+    def register_table(self, name: str, tbl: table_lib.Table) -> None:
+        """Register a table and put its columns on the engine's device (the
+        exact scan reads them there). Registering another table under a
+        name in use keeps the name's families, as the reference does (the
+        maintainer's replacement epoch relies on it), and drops what was
+        derived from the old table: striped blocks, programs, ELP
+        decisions, latency models, quantile ranges, subsampled group
+        columns and fk maps; it bumps every family's generation and the
+        family-set generation, and strips the join columns gathered from
+        the old table where it served as a dimension."""
+        if name in self.tables and self.tables[name] is not tbl:
+            self._invalidate_table(name)
+        self.tables[name] = tbl.to(self.device)
+        self.families.setdefault(name, {})
+
+    def _invalidate_table(self, name: str) -> None:
         for cache in (self._striped, self._latency, self._batched_programs,
                       self._quantile_programs, self._quantile_ranges,
                       self._subsampled_programs,
                       self._batched_subsampled_programs,
                       self._subsampled_quantile_programs,
                       self._subsample_codes, self._elp_cache):
-            for k in [k for k in cache
-                      if k[0] == table_name and (phi is None or k[1] == phi)]:
+            for k in [k for k in cache if k[0] == name]:
                 del cache[k]
-
-    # ------------------------------------------------------------- offline
-    def register_table(self, name: str, tbl: table_lib.Table) -> None:
-        """Register a table and put its columns on the engine's device (the
-        exact scan reads them there). Registering another table under a
-        name in use drops what was derived from the old one: its families,
-        their state, its fk maps, and the join columns gathered from it
-        where it served as a dimension."""
-        if name in self.tables and self.tables[name] is not tbl:
-            self._drop_derived(name, None)
-            for phi in self.families.get(name, {}):
-                self._generations[(name, phi)] = \
-                    self.family_generation(name, phi) + 1
-            self.families[name] = {}
-            for k in [k for k in self._fk_maps if name in k[:2]]:
-                del self._fk_maps[k]
-            self._invalidate_as_dimension(name)
-        self.tables[name] = tbl.to(self.device)
-        self.families.setdefault(name, {})
+        for k in [k for k in self._fk_maps if name in k[:2]]:
+            del self._fk_maps[k]
+        for phi in self.families.get(name, {}):
+            self._bump_generation(name, phi)
+        self._bump_generation(name, None)
+        self._invalidate_as_dimension(name)
 
     def _invalidate_as_dimension(self, name: str) -> None:
         """If `name` serves as a dimension, fact tables and their families
@@ -194,24 +303,28 @@ class BlinkDB:
                     del fam.columns_host[c]
                 if stale:
                     self._drop_derived(fact_name, p)
-                    self._generations[(fact_name, p)] = \
-                        self.family_generation(fact_name, p) + 1
+                    self._bump_generation(fact_name, p)
 
     def candidate_stats(self, table_name: str
                         ) -> Callable[[frozenset[str]], tuple[float, float, float]]:
-        """stats(phi) -> (Store(φ), |D(φ)|, Δ(φ)) from table statistics.
-        Every row is live until deletes come with a later slice."""
+        """stats(phi) -> (Store(φ), |D(φ)|, Δ(φ)) from table statistics,
+        over the LIVE rows: a stratum whose rows are all dead counts neither
+        in |D(φ)| nor in the tail length Δ(φ)."""
         tbl = self.tables[table_name]
         k1 = self.config.k1
 
         def stats(phi: frozenset[str]):
             codes, _ = table_lib.combined_codes(tbl, sorted(phi))
             nd = int(codes.max()) + 1 if len(codes) else 0
+            if tbl.live is not None:
+                codes = codes[tbl.live]
             freqs = table_lib.stratum_frequencies(codes, nd)
             storage = samp_lib.expected_sample_rows(freqs, k1) * \
                 (tbl.row_bytes() + 8)
+            nd_live = float(((freqs > 0).sum()) if tbl.live is not None
+                            else nd)
             delta = float(((freqs > 0) & (freqs < k1)).sum())
-            return storage, nd, delta
+            return storage, nd_live, delta
         return stats
 
     def build_samples(self, table_name: str,
@@ -257,12 +370,15 @@ class BlinkDB:
         for phi in current - wanted:
             del fams[phi]
             self._drop_derived(table_name, phi)
-            self._generations[(table_name, phi)] = \
-                self.family_generation(table_name, phi) + 1
+            self._bump_generation(table_name, phi)
         for phi in sorted(wanted - current):
-            self.add_family(table_name, phi, seed=seed, units=units.get(phi))
+            self._install_family(table_name, phi, seed, units.get(phi))
+        set_changed = bool((current - wanted) or (wanted - current))
         if () not in fams:
-            self.add_family(table_name, (), seed=seed, units=units.get(()))
+            self._install_family(table_name, (), seed, units.get(()))
+            set_changed = True
+        if set_changed:
+            self._bump_generation(table_name, None)
         return sol
 
     def add_family(self, table_name: str, phi: Sequence[str],
@@ -272,20 +388,321 @@ class BlinkDB:
         `units` overrides the per-row priorities outright (see
         repro_torch.state, which carries the reference's units across)."""
         seed = self.config.seed if seed is None else seed
-        tbl = self.tables[table_name]
         phi_t = tuple(sorted(phi))
-        if phi_t == ():
+        is_new = phi_t not in self.families.setdefault(table_name, {})
+        self._install_family(table_name, phi_t, seed, units)
+        if is_new:
+            self._bump_generation(table_name, None)
+
+    def _install_family(self, table_name: str, phi: tuple[str, ...],
+                        seed: int, units: np.ndarray | None) -> None:
+        """Build family φ (the uniform one for φ = ()) and put it in place
+        of any earlier one: its derived state drops, its generation bumps."""
+        tbl = self.tables[table_name]
+        if phi == ():
             fam = samp_lib.build_uniform_family(
                 tbl, self.config.uniform_fraction, self.config.c,
                 self.config.m, seed=seed, units=units)
         else:
-            fam = samp_lib.build_family(tbl, phi_t, self.config.k1,
+            fam = samp_lib.build_family(tbl, phi, self.config.k1,
                                         self.config.c, self.config.m,
                                         seed=seed, units=units)
-        self.families.setdefault(table_name, {})[phi_t] = fam
-        self._drop_derived(table_name, phi_t)
-        self._generations[(table_name, phi_t)] = \
-            self.family_generation(table_name, phi_t) + 1
+        self.families.setdefault(table_name, {})[phi] = fam
+        self._drop_derived(table_name, phi)
+        self._bump_generation(table_name, phi)
+
+    # ------------------------------------------------------------ mutation
+    def append_rows(self, table_name: str, raw: Mapping[str, np.ndarray],
+                    seed: int | None = None) -> AppendReport:
+        """Append-only ingestion with delta-based sample maintenance
+        (§3.2.3/§4.5): encode the delta against the existing dictionaries,
+        merge every family in place (exact HT rates under the grown
+        frequencies, sampling.merge_family), and scatter only the kept
+        delta rows into the striped blocks.
+
+        Invalidation follows docs/MAINTENANCE.md's matrix: a family whose
+        block outgrew its padding (or a narrow dtype) is restriped and its
+        programs, ELP decisions and latency model drop; programs grouped by
+        a column whose dictionary grew drop; quantile ranges drop; other
+        ELP decisions and latency models are kept (their families'
+        generations bump, which retires the decisions pinned to them).
+        """
+        tbl = self.tables[table_name]
+        epoch = self._append_epochs.get(table_name, 0) + 1
+        self._append_epochs[table_name] = epoch
+        unit_seed = self.config.seed if seed is None else seed
+        self._pre_delta_invalidation(table_name)
+        delta = tbl.append(raw)
+        self._post_delta_invalidation(table_name, delta)
+        freqs, restriped = self._merge_delta_into_families(
+            table_name, delta, epoch, unit_seed)
+        return AppendReport(delta, freqs, restriped, epoch)
+
+    def _pre_delta_invalidation(self, table_name: str) -> None:
+        """Before a delta lands: gathered join attributes cannot ride a
+        schema-only delta (the table strips its own in Table.append), so
+        strip the families' copies (regathered on next use); where this
+        table serves as a dimension, its fact tables' fk maps and gathered
+        columns go stale."""
+        for phi, fam in self.families.get(table_name, {}).items():
+            gathered = [c for c in fam.columns_host if "." in c]
+            for c in gathered:
+                del fam.columns_host[c]
+            if gathered:
+                self._drop_derived(table_name, phi)
+        for k in [k for k in self._fk_maps if k[1] == table_name]:
+            del self._fk_maps[k]
+        self._invalidate_as_dimension(table_name)
+
+    def _post_delta_invalidation(self, table_name: str,
+                                 delta: table_lib.TableDelta) -> None:
+        """After a delta landed (an append or an update's re-insert): fk
+        maps where this table is the fact are sized by the fk column's
+        dictionary, stale once it grew; the quantile ranges may no longer
+        hold the value columns; programs grouped by a column whose
+        dictionary grew are keyed by the old group count and unreachable."""
+        for k in [k for k in self._fk_maps
+                  if k[0] == table_name
+                  and len(delta.new_dict_values.get(k[2], ()))]:
+            del self._fk_maps[k]
+        for k in [k for k in self._quantile_ranges if k[0] == table_name]:
+            del self._quantile_ranges[k]
+        for col, vals in delta.new_dict_values.items():
+            if not len(vals):
+                continue
+            for cache in (self._batched_programs, self._quantile_programs,
+                          self._subsampled_programs,
+                          self._batched_subsampled_programs,
+                          self._subsampled_quantile_programs):
+                for k in [k for k in cache
+                          if k[0] == table_name and k[4] == col]:
+                    del cache[k]
+
+    def _merge_delta_into_families(self, table_name: str,
+                                   delta: table_lib.TableDelta, epoch: int,
+                                   unit_seed: int):
+        """Merge a landed delta into every family in place and patch the
+        striped blocks (one delta-unit draw per stream, shared by every
+        family on it) → (freqs, restriped)."""
+        fams = self.families.get(table_name, {})
+        strat_units = samp_lib.delta_units(delta.n_rows, unit_seed, epoch)
+        unif_units = samp_lib.delta_units(delta.n_rows, unit_seed, epoch,
+                                          uniform=True)
+        freqs: dict[tuple[str, ...], tuple[np.ndarray, np.ndarray]] = {}
+        restriped: list[tuple[str, ...]] = []
+        for phi, fam in list(fams.items()):
+            old_freqs = fam.live_freqs
+            if phi == ():
+                # The uniform family keeps K_1 = p·N as N grows, N the
+                # PHYSICAL (inclusion) count: every row's rate stays
+                # exactly p through any delete/append interleaving.
+                n_phys = max(int(fam.stratum_freqs[0]), 1)
+                frac = fam.ks[0] / n_phys
+                merged, block = samp_lib.merge_family(
+                    fam, delta.columns, unif_units,
+                    new_k1=frac * (n_phys + delta.n_rows),
+                    c=self.config.c, start_row=delta.start_row)
+            else:
+                merged, block = samp_lib.merge_family(
+                    fam, delta.columns, strat_units, c=self.config.c,
+                    start_row=delta.start_row)
+            fams[phi] = merged
+            freqs[phi] = (old_freqs, merged.live_freqs)
+            self._bump_generation(table_name, phi)
+            striped = self._striped.get((table_name, phi))
+            if striped is not None:
+                upd = exec_lib.stripe_append(striped, merged, block)
+                if upd is None:   # outgrew its padding or a narrow dtype
+                    self._set_striped(table_name, phi, exec_lib.stripe_family(
+                        merged, self.device))
+                    self._drop_programs(table_name, phi)
+                    restriped.append(phi)
+                else:
+                    self._set_striped(table_name, phi, upd)
+        return freqs, restriped
+
+    def delete_rows(self, table_name: str, predicate) -> MutationReport:
+        """Delete (tombstone) every live row matching `predicate` while the
+        families keep serving: the table marks the rows dead in place, each
+        family drops its sampled copies on the host and ghosts their slots
+        in its striped block; live stratum counts drop, inclusion
+        frequencies (and every surviving row's key and HT rate) stay.
+        Programs, ELP decisions and latency models are kept; join state is
+        refreshed where this table serves as a dimension."""
+        tbl = self.tables[table_name]
+        mutation = tbl.delete(predicate)
+        report = MutationReport(mutation)
+        if mutation.n_tombstoned == 0:
+            return report
+        self._apply_tombstones_to_families(table_name, mutation, report)
+        for k in [k for k in self._fk_maps if k[1] == table_name]:
+            del self._fk_maps[k]
+        self._invalidate_as_dimension(table_name)
+        return report
+
+    def update_rows(self, table_name: str, predicate, assignments,
+                    seed: int | None = None) -> MutationReport:
+        """Update matching live rows: tombstone the old versions and ingest
+        the new ones as an ordinary append delta, through the whole merge
+        and scatter path and the append's invalidation."""
+        tbl = self.tables[table_name]
+        unit_seed = self.config.seed if seed is None else seed
+        mutation = tbl.update(predicate, assignments)
+        report = MutationReport(mutation)
+        if mutation.n_tombstoned == 0:
+            return report   # nothing matched: invalidate nothing
+        self._pre_delta_invalidation(table_name)
+        self._apply_tombstones_to_families(table_name, mutation, report)
+        epoch = self._append_epochs.get(table_name, 0) + 1
+        self._append_epochs[table_name] = epoch
+        report.epoch = epoch
+        self._post_delta_invalidation(table_name, mutation.delta)
+        freqs, restriped = self._merge_delta_into_families(
+            table_name, mutation.delta, epoch, unit_seed)
+        report.restriped = restriped
+        for phi, (_, after) in freqs.items():
+            before = report.freqs.get(phi, (after, after))[0]
+            report.freqs[phi] = (before, after)
+        return report
+
+    def _apply_tombstones_to_families(self, table_name: str, mutation,
+                                      report: MutationReport) -> None:
+        fams = self.families.get(table_name, {})
+        for phi, fam in list(fams.items()):
+            fam2, tblock = samp_lib.apply_tombstones(
+                fam, mutation.tombstoned, mutation.tombstoned_columns)
+            fams[phi] = fam2
+            report.freqs[phi] = (fam.live_freqs, fam2.live_freqs)
+            report.tombstoned_sampled[phi] = tblock.n_sampled
+            self._bump_generation(table_name, phi)
+            striped = self._striped.get((table_name, phi))
+            if striped is not None:
+                self._set_striped(table_name, phi, exec_lib.stripe_tombstone(
+                    striped, tblock.row_ids, table_rows=fam2.table_rows))
+
+    # ------------------------------------------------- ghost-slot compaction
+    def ghost_fractions(self, table_name: str) -> dict[tuple[str, ...], float]:
+        """Per-family ghost share of the striped blocks (the compaction
+        trigger)."""
+        return {phi: s.ghost_fraction
+                for (t, phi), s in self._striped.items() if t == table_name}
+
+    def compact_family(self, table_name: str, phi: tuple[str, ...]) -> bool:
+        """Compacting restripe: rebuild the family's block from the
+        ghost-free host family with the old block's slot count pinned, so
+        its shape class normally survives; if it does not, the family's
+        programs, ELP decisions and latency model drop. True if a block was
+        compacted."""
+        striped = self._striped.get((table_name, phi))
+        if striped is None:
+            return False   # nothing striped: the next stripe is compact
+        fam = self.families[table_name][phi]
+        fresh = exec_lib.stripe_family(fam, self.device,
+                                       min_local=striped.n_local)
+        self._set_striped(table_name, phi, fresh)
+        if fresh.shape_class != striped.shape_class:
+            self._drop_programs(table_name, phi)
+        self._bump_generation(table_name, phi)
+        return True
+
+    # --------------------------------------------- storage reclamation epochs
+    def dead_fraction(self, table_name: str) -> float:
+        """Share of the base table's physical rows that are tombstoned (the
+        base-compaction trigger)."""
+        tbl = self.tables[table_name]
+        return 1.0 - tbl.n_live / max(tbl.n_rows, 1)
+
+    def compact_table(self, table_name: str
+                      ) -> table_lib.TableCompaction | None:
+        """Base-table compaction: physically drop the tombstoned rows and
+        ship the old → new row-id remap to every layer keyed on physical
+        ids. Sample content is untouched, so families re-key `row_ids` and
+        blocks `slot_row_ids`, host mirrors only: nothing moves on the
+        device. Inclusion frequencies keep counting the reclaimed rows (only
+        decay resets them). Every family's generation bumps; fk maps drop
+        where this table serves as a dimension. Returns the
+        TableCompaction, None when nothing was reclaimed."""
+        tbl = self.tables[table_name]
+        fams = self.families.get(table_name, {})
+        # Validate before the table changes: a family that cannot be
+        # remapped must fail the epoch with the engine untouched.
+        for phi, fam in fams.items():
+            if (fam.row_ids < 0).any():
+                raise ValueError(
+                    f"family {phi!r} has sentinel row_ids — rebuild it to "
+                    "enable base compaction")
+        comp = tbl.compact()
+        if comp is None:
+            return None
+        for phi, fam in list(fams.items()):
+            fams[phi] = samp_lib.remap_family_row_ids(fam, comp.remap)
+            self._bump_generation(table_name, phi)
+            striped = self._striped.get((table_name, phi))
+            if striped is not None:
+                self._set_striped(table_name, phi, exec_lib.remap_slot_row_ids(
+                    striped, comp.remap))
+        for k in [k for k in self._fk_maps if k[1] == table_name]:
+            del self._fk_maps[k]
+        self._invalidate_as_dimension(table_name)
+        return comp
+
+    def decay_family(self, table_name: str, phi: tuple[str, ...],
+                     strata, seed: int | None = None
+                     ) -> samp_lib.DecayBlock | None:
+        """Inclusion-frequency decay of one family: reset the named
+        strata's inclusion frequencies to their live counts and resample
+        them from the base table (sampling.decay_strata) under units of the
+        table's decay stream, deterministic in (seed, decay epoch). The
+        block is rebuilt with its slot count pinned; if its shape class
+        changes anyway, the family's programs, ELP decisions and latency
+        model drop. Returns the DecayBlock (None for no strata)."""
+        strata = np.unique(np.asarray(strata, dtype=np.int64))
+        if not strata.size:
+            return None
+        tbl = self.tables[table_name]
+        phi = tuple(phi)
+        fam = self.families[table_name][phi]
+        # Gathered join attributes cannot be resampled from the base table.
+        gathered = [c for c in fam.columns_host if "." in c]
+        for c in gathered:
+            del fam.columns_host[c]
+        epoch = self._decay_epochs.get(table_name, 0) + 1
+        self._decay_epochs[table_name] = epoch
+        unit_seed = self.config.seed if seed is None else seed
+        units = samp_lib.decay_units(tbl.n_rows, unit_seed, epoch)
+        new_fam, block = samp_lib.decay_strata(fam, tbl, strata, units)
+        block.epoch = epoch
+        self.families[table_name][phi] = new_fam
+        self._bump_generation(table_name, phi)
+        striped = self._striped.get((table_name, phi))
+        if striped is not None:
+            fresh = exec_lib.stripe_family(new_fam, self.device,
+                                           min_local=striped.n_local)
+            self._set_striped(table_name, phi, fresh)
+            if fresh.shape_class != striped.shape_class:
+                self._drop_programs(table_name, phi)
+        elif gathered:
+            self._drop_programs(table_name, phi)
+        return block
+
+    def storage_stats(self, table_name: str) -> dict:
+        """Host-side storage accounting of a table (§3.2 budget arithmetic,
+        docs/MAINTENANCE.md): live base bytes, the dead base bytes that
+        tombstoned rows still hold, sample bytes, and the ghost sample
+        bytes dead slots still occupy in striped blocks."""
+        tbl = self.tables[table_name]
+        rb = tbl.row_bytes()
+        sample_rb = rb + 8
+        sample_rows = sum(f.n_rows
+                          for f in self.families.get(table_name, {}).values())
+        ghost_rows = sum(s.n_ghosts for (t, _), s in self._striped.items()
+                         if t == table_name)
+        return {"live_bytes": rb * tbl.n_live,
+                "dead_base_bytes": rb * (tbl.n_rows - tbl.n_live),
+                "sample_bytes": sample_rb * sample_rows,
+                "ghost_sample_bytes": sample_rb * ghost_rows,
+                "dead_bytes": rb * (tbl.n_rows - tbl.n_live)
+                + sample_rb * ghost_rows}
 
     # ------------------------------------------------------------- runtime
     def _sync(self) -> None:
@@ -1066,22 +1483,29 @@ class BlinkDB:
         return out
 
     def exact_query(self, q: Query) -> Answer:
-        """Ground truth: the aggregation over the FULL base table (rate=1) on
-        the engine's device. A plain segment sum (no sample kernel), summed
-        in float64 so counts past 2^24 rows stay exact; QUANTILE bins the
-        selected rows over their own range (executor.grouped_quantile).
-        Rows whose group code lies outside [0, G) (a join's dangling key)
-        land in no group."""
+        """Ground truth: the aggregation over the live rows of the FULL base
+        table (rate=1) on the engine's device. A plain segment sum (no
+        sample kernel), summed in float64 so counts past 2^24 rows stay
+        exact; QUANTILE bins the selected rows over their own range
+        (executor.grouped_quantile). Tombstoned rows are masked out; rows
+        whose group code lies outside [0, G) (a join's dangling key) land
+        in no group. Only the columns the query names are read, so a
+        column an append left stale on the device is uploaded here."""
         tbl = self.tables[q.table]
         self._resolve_joins(q.table, q)
         bound_pred = exec_lib.bind_predicate(q.predicate, self._encode(q.table))
         struct, vals = exec_lib.pred_structure(bound_pred)
         group_col = q.group_by[0] if q.group_by else None
         n_groups = self._column_card(q.table, group_col) if group_col else 1
-        cols = tbl.columns
+        names = {c for c, _ in exec_lib.flat_atoms(struct)} | \
+            {q.value_column, group_col}
+        names = sorted(c for c in names if c is not None) or \
+            [tbl.schema.column_names[0]]
+        cols = {c: tbl.columns[c] for c in names}
+        live = tbl.live_mask_device()
         self._sync()
         t0 = time.perf_counter()
-        mask = exec_lib.eval_pred(struct, cols, vals)
+        mask = exec_lib.eval_pred(struct, cols, vals) & live
         ones = torch.ones(tbl.n_rows, dtype=torch.float32, device=self.device)
         values = (cols[q.value_column].to(torch.float32)
                   if q.value_column else ones)

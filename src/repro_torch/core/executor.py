@@ -14,6 +14,14 @@ derived HT state, freq = freq_table[strat] and entry_key = unit·freq, is
 re-derived by every scan. Pad slots carry unit=+inf, so their entry_key is
 +inf and they fail every prefix test.
 
+Mutation (docs/MAINTENANCE.md): the block keeps 25% headroom, so an
+append's kept rows are scattered into its padding with the refreshed
+frequency table (`stripe_append`); a delete ghosts the dead rows' slots
+(unit := +inf, valid := False, `stripe_tombstone`); a base compaction
+re-keys the host slot_row_ids mirror only. The scatters are plain torch
+index assignments on the block's device, into copies of the block's
+tensors, so an earlier block object never changes under a reader.
+
 A template wider than the scan kernels' constant block (the reference's
 CONST_LANES = 128 lanes: k and 127 atoms for the fused scan; k, lo, hi and
 125 atoms for the quantile scan) takes the reference's wide path: the HT
@@ -123,20 +131,47 @@ _STRATA_BLOCK = 128     # freq-table length granularity
 @dataclasses.dataclass
 class StripedFamily:
     """A SampleFamily laid out on the device: row j of the family at slot j,
-    padded slots self-excluding."""
+    padded and ghost slots self-excluding. The reference's block of S
+    shards with S = 1."""
     phi: tuple[str, ...]
     ks: tuple[float, ...]
     columns: dict[str, torch.Tensor]   # [n_local]; dict-coded cols int8/int16
     valid: torch.Tensor                # bool[n_local] (padding mask)
-    unit: torch.Tensor                 # f32[n_local], +inf on padding
+    unit: torch.Tensor                 # f32[n_local], +inf on padding/ghosts
     strat: torch.Tensor                # int8/int16/int32[n_local] stratum ids
     freq_table: torch.Tensor           # f32[D_padded] per-stratum F
-    n_rows: int                        # occupied slots
+    n_rows: int                        # occupied slots (ghosts included)
     table_rows: int
+    # Host mirror: physical base-row id per occupied slot; -1 marks a slot
+    # a tombstone already ghosted. Tombstones find their slots here,
+    # without reading the device.
+    slot_row_ids: np.ndarray | None = None
+    # Self-excluded slots: rows a merge pushed past K_1 and tombstoned
+    # rows. The compaction trigger reads it.
+    n_ghosts: int = 0
 
     @property
     def n_local(self) -> int:
         return int(self.unit.shape[0])
+
+    @property
+    def capacity(self) -> int:
+        return self.n_local
+
+    @property
+    def ghost_fraction(self) -> float:
+        """Share of the occupied slots that are self-excluded ghosts."""
+        return self.n_ghosts / max(self.n_rows, 1)
+
+    @property
+    def shape_class(self) -> tuple:
+        """The reference's program signature of the block, one device so
+        no shard count: (slots, column dtypes, strat dtype, padded table
+        length). A change retires the family's ELP decisions and latency
+        model, as the reference's recompile does."""
+        return (self.n_local,
+                tuple(sorted((c, a.dtype) for c, a in self.columns.items())),
+                self.strat.dtype, int(self.freq_table.shape[0]))
 
     def device_bytes(self) -> int:
         """Bytes the block holds on its device."""
@@ -148,6 +183,17 @@ class StripedFamily:
 def _padded_local(n: int) -> int:
     n_local = int(max(n, 1) * (1.0 + _STRIPE_HEADROOM)) + 1
     return -(-n_local // _STRIPE_BLOCK) * _STRIPE_BLOCK
+
+
+def _fits_dtype(a, dtype: torch.dtype) -> bool:
+    """Do the integer values fit a block's narrow storage dtype?"""
+    a = np.asarray(a)
+    if dtype.is_floating_point or dtype == torch.bool or a.size == 0:
+        return True
+    info = torch.iinfo(dtype)
+    if a.dtype.kind not in "iu":
+        a = a.astype(np.int64)
+    return bool(a.min() >= info.min and a.max() <= info.max)
 
 
 def _padded_freq_table(freq_table: np.ndarray) -> np.ndarray:
@@ -181,12 +227,17 @@ def _storage_dtype(a: np.ndarray) -> np.dtype:
     return a.dtype
 
 
-def stripe_family(fam: SampleFamily, device="cuda") -> StripedFamily:
+def stripe_family(fam: SampleFamily, device="cuda",
+                  min_local: int | None = None) -> StripedFamily:
     """Pad the family on the host and move the block to `device`. One
     device, one shard: the reference's [S, n_local] block with S=1 is the
-    1-D [n_local] block here."""
+    1-D [n_local] block here. `min_local` pins the slot count to at least
+    that value: a compacting restripe passes the old block's, so the block
+    keeps its shape class."""
     n = fam.n_rows
     n_local = _padded_local(n)
+    if min_local is not None:
+        n_local = max(n_local, int(min_local))
     pad = n_local - n
 
     def stripe(arr, fill, dtype=None):
@@ -208,7 +259,96 @@ def stripe_family(fam: SampleFamily, device="cuda") -> StripedFamily:
         strat=stripe(strat, 0, _narrow_int_dtype(np.asarray(strat))),
         freq_table=torch.from_numpy(_padded_freq_table(
             fam.stratum_freqs.astype(np.float32))).to(device),
-        n_rows=n, table_rows=fam.table_rows)
+        n_rows=n, table_rows=fam.table_rows,
+        slot_row_ids=fam.row_ids.astype(np.int64).copy())
+
+
+def _scatter(t: torch.Tensor, slots: torch.Tensor, vals) -> torch.Tensor:
+    """A copy of t with t[slots] = vals (cast to t's dtype)."""
+    out = t.clone()
+    out[slots] = torch.as_tensor(vals).to(device=t.device, dtype=t.dtype)
+    return out
+
+
+def stripe_append(striped: StripedFamily, fam: SampleFamily,
+                  block) -> StripedFamily | None:
+    """Incremental restripe: scatter an append's DeltaBlock (the kept delta
+    rows, in delta order) into the block's padding at slots n_rows ..
+    n_rows + d, and ship the refreshed frequency table. Scans derive freq
+    and entry_key from the stored (unit, stratum) against the NEW table, so
+    rows the rescale pushed past K_1 turn into self-excluding ghosts. The
+    result equals the reference's block slot for slot. Returns None when
+    the delta outgrows the capacity or a value or stratum id overflows its
+    narrow storage dtype: the caller then restripes in full, which picks
+    the dtypes and the shape anew."""
+    d = block.n_rows
+    start = striped.n_rows
+    if start + d > striped.capacity:
+        return None
+    device = striped.unit.device
+    freq_table = torch.from_numpy(_padded_freq_table(block.freq_table)).to(
+        device)
+    cols, unit, strat, valid = (striped.columns, striped.unit, striped.strat,
+                                striped.valid)
+    if d:
+        if not _fits_dtype(block.strata, strat.dtype):
+            return None
+        for c, v in block.columns.items():
+            if not _fits_dtype(v, cols[c].dtype):
+                return None
+        slots = torch.arange(start, start + d, device=device)
+        cols = {c: _scatter(cols[c], slots, np.asarray(v))
+                for c, v in block.columns.items()}
+        unit = _scatter(unit, slots, block.unit.astype(np.float32))
+        strat = _scatter(strat, slots, block.strata.astype(np.int64))
+        valid = _scatter(valid, slots, True)
+    return StripedFamily(
+        fam.phi, fam.ks, cols, valid, unit, strat, freq_table, start + d,
+        fam.table_rows,
+        slot_row_ids=np.concatenate([striped.slot_row_ids,
+                                     block.row_ids.astype(np.int64)]),
+        # rows the rescale pushed past K_1 stay as ghosts until compaction
+        n_ghosts=striped.n_ghosts + block.n_dropped_old)
+
+
+def stripe_tombstone(striped: StripedFamily, dead_row_ids: np.ndarray,
+                     table_rows: int | None = None) -> StripedFamily:
+    """Ghost the slots of tombstoned sampled rows: unit := +inf makes every
+    derived entry_key +inf (it fails every prefix test), valid := False
+    covers the other readers. No column, table or key changes, and the
+    block keeps its shape class. Slots are found through the host
+    slot_row_ids mirror and marked -1 there, so no row counts twice.
+    `table_rows` is the post-mutation LIVE table count."""
+    if table_rows is None:
+        table_rows = striped.table_rows
+    ids = striped.slot_row_ids
+    if len(dead_row_ids) == 0:
+        return dataclasses.replace(striped, table_rows=table_rows)
+    dead_row_ids = np.asarray(dead_row_ids, dtype=np.int64)
+    slots = np.flatnonzero(np.isin(ids[: striped.n_rows], dead_row_ids))
+    if slots.size == 0:
+        return dataclasses.replace(striped, table_rows=table_rows)
+    idx = torch.from_numpy(slots).to(striped.unit.device)
+    new_ids = ids.copy()
+    new_ids[slots] = -1
+    return dataclasses.replace(
+        striped, unit=_scatter(striped.unit, idx, float("inf")),
+        valid=_scatter(striped.valid, idx, False),
+        slot_row_ids=new_ids, n_ghosts=striped.n_ghosts + int(slots.size),
+        table_rows=table_rows)
+
+
+def remap_slot_row_ids(striped: StripedFamily,
+                       remap: np.ndarray) -> StripedFamily:
+    """Re-key the host slot_row_ids mirror through a base-table compaction
+    remap (old id -> new id, -1 = dropped). The device arrays name no
+    physical id, so nothing moves on the device. Ghosted slots stay -1;
+    rescale ghosts still name live rows and remap like occupied slots (a
+    later tombstone of such a row must find its slot)."""
+    ids = striped.slot_row_ids
+    remap = np.asarray(remap, dtype=np.int64)
+    new_ids = np.where(ids >= 0, remap[np.maximum(ids, 0)], -1)
+    return dataclasses.replace(striped, slot_row_ids=new_ids)
 
 
 def scan_args(striped: StripedFamily) -> tuple:

@@ -30,13 +30,16 @@ class Join:
 def build_fk_map(fact: table_lib.Table, dim: table_lib.Table,
                  join: Join) -> np.ndarray:
     """fact fk code -> dim row index (-1 for a dangling key). The first
-    row holding a key value serves it; every row of the port's tables is
-    live (deletes come with a later slice)."""
+    LIVE row holding a key value serves it: a deleted dimension row's keys
+    dangle, and an updated row's re-inserted version wins over its
+    tombstoned original."""
     fact_vals = fact.dictionaries[join.fact_key]
     dim_codes = dim.host_column(join.dim_key)
     dim_vals = dim.dictionaries[join.dim_key]
     val_to_row = {}
     for row, code in enumerate(dim_codes):
+        if dim.live is not None and not dim.live[row]:
+            continue
         val_to_row.setdefault(dim_vals[code], row)
     out = np.full(len(fact_vals), -1, dtype=np.int32)
     for code, v in enumerate(fact_vals):

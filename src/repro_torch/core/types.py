@@ -11,6 +11,7 @@ import dataclasses
 import enum
 from typing import Any
 
+import numpy as np
 import torch
 
 
@@ -46,6 +47,85 @@ class TableSchema:
     @property
     def column_names(self) -> tuple[str, ...]:
         return tuple(c.name for c in self.columns)
+
+    def with_cardinality(self, name: str, cardinality: int) -> "TableSchema":
+        """Schema after a dictionary extension (append-only ingestion): the
+        named categorical column's cardinality grows, nothing else moves."""
+        cols = tuple(
+            dataclasses.replace(c, cardinality=cardinality)
+            if c.name == name else c
+            for c in self.columns)
+        return dataclasses.replace(self, columns=cols)
+
+
+@dataclasses.dataclass
+class TableDelta:
+    """One append's worth of ingested rows, already dictionary-encoded.
+
+    `Table.append` encodes the raw host columns against the table's
+    dictionaries, extending them for unseen categorical values and never
+    recoding existing rows, and returns this record so the sampling and
+    executor layers can merge the delta into materialized families without
+    touching pre-existing data (docs/MAINTENANCE.md).
+    """
+    table: str
+    start_row: int                       # first appended row's index
+    n_rows: int                          # rows in this delta
+    # column name -> encoded HOST array (int32 codes / float32 measures)
+    columns: dict[str, np.ndarray]
+    # categorical column -> dictionary values first seen in this delta
+    new_dict_values: dict[str, np.ndarray]
+
+
+@dataclasses.dataclass
+class TableMutation:
+    """One delete's or update's worth of tombstoned (and re-inserted) rows.
+
+    `Table.delete` marks matched live rows dead in the host tombstone mask;
+    physical rows never move, so a row's physical index is a stable id the
+    sample families key their rows on. `Table.update` also appends the
+    touched rows with the assignments applied as an ordinary `TableDelta`
+    (tombstone the old, insert the new).
+    """
+    table: str
+    # physical row indices newly tombstoned (sorted, unique)
+    tombstoned: np.ndarray
+    # column name -> encoded HOST values of the tombstoned rows, as of death:
+    # the sampling layer finds each dead row's stratum from these without
+    # re-reading the base table
+    tombstoned_columns: dict[str, np.ndarray]
+    # re-inserted new versions (updates only; None for a pure delete)
+    delta: "TableDelta | None" = None
+
+    @property
+    def n_tombstoned(self) -> int:
+        return int(self.tombstoned.size)
+
+    @property
+    def n_reinserted(self) -> int:
+        return self.delta.n_rows if self.delta is not None else 0
+
+
+@dataclasses.dataclass
+class TableCompaction:
+    """One base-table compaction's worth of physically dropped rows.
+
+    `Table.compact` drops every tombstoned row from the host columns (the
+    one place physical rows move) and returns this record so every layer
+    keyed on physical row ids (family `row_ids`, striped-block
+    `slot_row_ids`) re-keys through `remap`. `remap[old_id]` is the row's
+    new index, or -1 for a dropped row; live rows keep their relative
+    order, so remapped sorted id arrays stay sorted.
+    """
+    table: str
+    # int64[n_rows_before]: old physical id -> new physical id (-1 = dropped)
+    remap: np.ndarray
+    n_rows_before: int
+    n_dropped: int
+
+    @property
+    def n_rows_after(self) -> int:
+        return self.n_rows_before - self.n_dropped
 
 
 class CmpOp(enum.Enum):

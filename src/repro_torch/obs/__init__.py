@@ -1,1 +1,2 @@
-"""Observability of the port (counterpart of `repro.obs`): the clocks."""
+"""Observability of the port (counterpart of `repro.obs`): the clocks and
+the metrics registry."""

@@ -854,3 +854,234 @@ def test_subsampled_and_joined_engine_on_card(cuda_device):
         np.testing.assert_allclose([g.stderr for g in b.groups],
                                    [g.stderr for g in a.groups],
                                    rtol=0.1 if q is quantile else 1e-4)
+
+
+# -- mutation and maintenance on the card -------------------------------------
+
+def _mutation_engines(cuda_device, raw, families, k1=400.0):
+    """The same engine on the CPU and on the card, every block striped
+    (the families' units come from the CPU generator on both)."""
+    dbs = []
+    for dev in ("cpu", cuda_device):
+        db = BlinkDB(EngineConfig(k1=k1, m=3, seed=4), device=dev)
+        db.register_table("s", table_lib.from_columns("s", raw))
+        for phi in families:
+            db.add_family("s", phi)
+            db._striped_for("s", phi)
+        dbs.append(db)
+    return dbs
+
+
+def _assert_blocks_equal(cpu, card):
+    for (t, phi), a in cpu._striped.items():
+        b = card._striped[(t, phi)]
+        for f in ("valid", "unit", "strat", "freq_table"):
+            assert torch.equal(getattr(b, f).cpu(), getattr(a, f)), (phi, f)
+        assert b.columns.keys() == a.columns.keys()
+        for c in a.columns:
+            assert torch.equal(b.columns[c].cpu(), a.columns[c]), (phi, c)
+        np.testing.assert_array_equal(b.slot_row_ids, a.slot_row_ids)
+        assert (b.n_rows, b.n_ghosts, b.table_rows) == \
+            (a.n_rows, a.n_ghosts, a.table_rows)
+
+
+def _assert_answers_equal(cpu, card, queries, kernel_names):
+    for q in queries:
+        before = {k: getattr(agg_scan, f"{k}_cuda").launches
+                  for k in kernel_names}
+        b = card.query(q)
+        a = cpu.query(q)
+        assert any(getattr(agg_scan, f"{k}_cuda").launches > before[k]
+                   for k in kernel_names), q
+        assert (b.sample_phi, b.sample_k, b.rows_read, b.rows_total) == \
+            (a.sample_phi, a.sample_k, a.rows_read, a.rows_total)
+        assert [g.key for g in b.groups] == [g.key for g in a.groups]
+        np.testing.assert_allclose([g.estimate for g in b.groups],
+                                   [g.estimate for g in a.groups], rtol=1e-4)
+
+
+def _mutation_queries():
+    genre = Predicate.where(Atom("Genre", CmpOp.EQ, "genre03"))
+    return [
+        Query("s", AggOp.COUNT, group_by=("OS",), bound=ErrorBound(0.1)),
+        Query("s", AggOp.AVG, "SessionTime", group_by=("City",),
+              bound=ErrorBound(0.1)),
+        Query("s", AggOp.SUM, "Bitrate", predicate=genre,
+              bound=ErrorBound(0.05)),
+        Query("s", AggOp.QUANTILE, "SessionTime", quantile=0.5,
+              bound=ErrorBound(0.1)),
+        Query("s", AggOp.COUNT, group_by=("OS",), bound=ErrorBound(0.1),
+              predicate=Predicate.where(*[
+                  Atom("URL", CmpOp.NE, f"url{499 - i:03d}")
+                  for i in range(200)])),
+    ]
+
+
+@pytest.mark.cuda
+def test_mutations_on_card_equal_the_cpu_block_and_answers(cuda_device):
+    """Append (a new city among the rows), delete, update, base compaction,
+    decay and ghost compaction on the card: after each, every striped
+    block equals the CPU engine's slot for slot, and the card answers the
+    fused, quantile and wide (agg_scan) queries as the CPU does."""
+    from repro_torch.core import maintenance
+    cpu, card = _mutation_engines(
+        cuda_device, synth.sessions_table(40_000, seed=8),
+        (("City",), ("URL",), ()))
+    delta = synth.sessions_table(3000, seed=9)
+    delta["City"] = np.where(np.arange(3000) < 50, "cityNEW",
+                             delta["City"])
+    steps = [
+        lambda db: db.append_rows("s", delta),
+        lambda db: db.delete_rows("s", Predicate.where(
+            Atom("dt", CmpOp.LT, 6))),
+        lambda db: db.update_rows("s", Predicate.where(
+            Atom("Genre", CmpOp.EQ, "genre03")), {"Bitrate": 1000.0}),
+        lambda db: db.compact_table("s"),
+        lambda db: db.decay_family("s", ("City",), maintenance.strata_to_decay(
+            db.families["s"][("City",)], 1.2)),
+        lambda db: [db.compact_family("s", p) for p in db.families["s"]],
+    ]
+    kernels = ("agg_scan_fused", "quantile_scan", "agg_scan")
+    _assert_answers_equal(cpu, card, _mutation_queries(), kernels)
+    for step in steps:
+        step(cpu)
+        step(card)
+        _assert_blocks_equal(cpu, card)
+        _assert_answers_equal(cpu, card, _mutation_queries(), kernels)
+        q = Query("s", AggOp.COUNT, group_by=("OS",))
+        assert [(g.key, g.estimate) for g in card.exact_query(q).groups] == \
+            [(g.key, g.estimate) for g in cpu.exact_query(q).groups]
+
+
+@pytest.mark.cuda
+def test_append_past_4096_strata_takes_the_l2_route(cuda_device):
+    """A (City, URL) family of at most 4096 strata reads its table from
+    shared memory; an append of new URLs grows it past 4096, and the next
+    launches of the fused and quantile kernels read it through L2 (the
+    route is chosen per launch from the table length) and agree with their
+    plain versions and with the CPU engine."""
+    raw = synth.sessions_table(25_000, seed=2, n_cities=40, n_urls=200)
+    cpu, card = _mutation_engines(cuda_device, raw, (("City", "URL"), ()),
+                                  k1=50.0)
+    fam = card.families["s"][("City", "URL")]
+    assert fam.n_distinct <= agg_scan.SHARED_STRATA
+    assert card._striped_for("s", ("City", "URL")).freq_table.shape[0] <= \
+        agg_scan.SHARED_STRATA
+    # new URLs spread evenly over the cities: nearly a stratum a row, and
+    # few enough rows to be scattered into the block's padding
+    delta = synth.sessions_table(3000, seed=3, n_cities=40, n_urls=1000,
+                                 city_s=0.2, url_s=0.2)
+    delta["URL"] = np.char.add("new-", delta["URL"])
+    for db in (cpu, card):
+        assert db.append_rows("s", delta).restriped == []
+    block = card._striped_for("s", ("City", "URL"))
+    assert card.families["s"][("City", "URL")].n_distinct > \
+        agg_scan.SHARED_STRATA
+    assert block.freq_table.shape[0] > agg_scan.SHARED_STRATA
+    _assert_blocks_equal(cpu, card)
+    t = dict(values=block.columns["SessionTime"], unit=block.unit,
+             strat=block.strat, freq_table=block.freq_table,
+             valid=block.valid, atom_cols=(block.columns["OS"],),
+             group_codes=block.columns["Genre"],
+             ks=torch.tensor([50.0, 12.5], device=cuda_device),
+             pred_consts=torch.tensor([[1.0], [3.0]], device=cuda_device))
+    struct, slots, g = ((CmpOp.LE,),), (0,), 12
+    got = _call(agg_scan.agg_scan_fused_cuda, t, struct, slots, g)
+    want = _call(ref.agg_scan_fused_ref, t, struct, slots, g,
+                 accumulate=torch.float64)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    mom, hist = _quantile_call(agg_scan.quantile_scan_cuda, t, struct, slots,
+                               g)
+    want_mom, want_hist = _quantile_call(ref.quantile_scan_ref, t, struct,
+                                         slots, g, accumulate=torch.float64)
+    torch.testing.assert_close(mom, want_mom, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(hist, want_hist, rtol=RTOL, atol=ATOL)
+    both = Predicate.where(Atom("City", CmpOp.EQ, "city001"),
+                           Atom("URL", CmpOp.EQ, "new-url002"))
+    _assert_answers_equal(cpu, card, [
+        Query("s", AggOp.COUNT, predicate=both, bound=ErrorBound(0.1)),
+        Query("s", AggOp.QUANTILE, "SessionTime", quantile=0.5,
+              predicate=both, bound=ErrorBound(0.1))],
+        ("agg_scan_fused", "quantile_scan"))
+
+
+@pytest.mark.cuda
+def test_append_past_int8_stratum_ids_restripes(cuda_device):
+    """A City family of 120 strata stores int8 stratum ids; an append of
+    new cities takes the ids past 127: the block is restriped with int16
+    ids (never a truncated scatter) and answers as the CPU engine does."""
+    raw = synth.sessions_table(20_000, seed=5, n_cities=120, city_s=0.5)
+    cpu, card = _mutation_engines(cuda_device, raw, (("City",),))
+    assert card._striped_for("s", ("City",)).strat.dtype == torch.int8
+    delta = synth.sessions_table(500, seed=6, n_cities=40)
+    delta["City"] = np.char.add("more-", delta["City"])
+    reps = [db.append_rows("s", delta) for db in (cpu, card)]
+    assert reps[1].restriped == [("City",)] == reps[0].restriped
+    assert card.families["s"][("City",)].n_distinct > 127
+    assert card._striped_for("s", ("City",)).strat.dtype == torch.int16
+    _assert_blocks_equal(cpu, card)
+    _assert_answers_equal(cpu, card, [
+        Query("s", AggOp.AVG, "SessionTime", group_by=("City",),
+              bound=ErrorBound(0.1)),
+        Query("s", AggOp.COUNT, bound=ErrorBound(0.1),
+              predicate=Predicate.where(Atom("City", CmpOp.EQ,
+                                             "more-city001")))],
+        ("agg_scan_fused",))
+
+
+@pytest.mark.cuda
+def test_decayed_dead_stratum_zero_leaves_every_kernel_equal_plain(
+        cuda_device):
+    """Stratum 0 deleted whole and decayed has inclusion frequency 0: its
+    ghost and pad slots (strat 0, unit +inf) derive entry_key +inf·0 = NaN,
+    which must fail every kernel's prefix test as it fails the plain
+    versions' ek < k. The fused, quantile, batched and agg_scan kernels on
+    the decayed block against their plain versions."""
+    from repro_torch.core import executor as exec_lib
+    cpu, card = _mutation_engines(
+        cuda_device, synth.sessions_table(30_000, seed=7, n_cities=50),
+        (("City",),))
+    for db in (cpu, card):
+        db.delete_rows("s", Predicate.where(Atom("City", CmpOp.EQ, "city00")))
+        fam = db.families["s"][("City",)]
+        assert fam.live_freqs[0] == 0
+        db.decay_family("s", ("City",), [0])
+    block = card._striped_for("s", ("City",))
+    assert block.freq_table[0].item() == 0.0
+    assert bool((block.strat[~block.valid] == 0).all())
+    ek = block.unit * block.freq_table[block.strat.long()]
+    assert bool(ek.isnan().any())
+    t = dict(values=block.columns["SessionTime"], unit=block.unit,
+             strat=block.strat, freq_table=block.freq_table,
+             valid=block.valid, atom_cols=(block.columns["OS"],),
+             group_codes=block.columns["OS"],
+             ks=torch.tensor([400.0, 100.0, 1e30], device=cuda_device),
+             pred_consts=torch.tensor([[5.0]] * 3, device=cuda_device))
+    struct, slots, g = ((CmpOp.LE,),), (0,), 6
+    got = _call(agg_scan.agg_scan_fused_cuda, t, struct, slots, g)
+    want = _call(ref.agg_scan_fused_ref, t, struct, slots, g,
+                 accumulate=torch.float64)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert bool(got.isfinite().all())
+    mom, hist = _quantile_call(agg_scan.quantile_scan_cuda, t, struct, slots,
+                               g)
+    want_mom, want_hist = _quantile_call(ref.quantile_scan_ref, t, struct,
+                                         slots, g, accumulate=torch.float64)
+    torch.testing.assert_close(mom, want_mom, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(hist, want_hist, rtol=RTOL, atol=ATOL)
+    batched = agg_scan.agg_scan_batched_cuda(
+        *_batched_from_fused(t, 1), t["ks"], t["pred_consts"], struct, g)
+    assert (batched - got).abs().max().item() == 0.0
+    for k in (400.0, 100.0):
+        k_t = torch.tensor(k, device=cuda_device)
+        freq, sel = exec_lib.query_selection(
+            block.columns["OS"].float() <= 5.0, k_t, block.unit, block.strat,
+            block.freq_table, block.valid)
+        inputs = exec_lib.agg_scan_inputs(sel, freq, k_t, block.columns,
+                                          "SessionTime", "OS")
+        torch.testing.assert_close(
+            agg_scan.agg_scan_cuda(*inputs, g),
+            ref.agg_scan_ref(*inputs, g, accumulate=torch.float64),
+            rtol=RTOL, atol=ATOL)
+    _assert_answers_equal(cpu, card, _mutation_queries()[:4],
+                          ("agg_scan_fused", "quantile_scan"))

@@ -22,6 +22,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import repro_torch.state, repro_torch.kernels.ops\n"
         "import repro_torch.data.synth, repro_torch.core.optimizer\n"
         "import repro_torch.launch.query, repro_torch.obs.clock\n"
+        "import repro_torch.core.maintenance, repro_torch.obs.metrics\n"
         "from repro_torch.core import estimators, executor, joins\n"
         "bad = [m for m in sys.modules if m in ('jax', 'repro')\n"
         "       or m.startswith(('jax.', 'repro.'))]\n"
@@ -31,6 +32,13 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "    assert hasattr(executor, name), name\n"
         "assert hasattr(ref, 'quantile_scan_ref')\n"
         "assert hasattr(repro_torch.kernels.ops, 'quantile_scan')\n"
+        "from repro_torch.core.engine import BlinkDB\n"
+        "for name in ('append_rows', 'delete_rows', 'update_rows',\n"
+        "             'compact_family', 'compact_table', 'decay_family',\n"
+        "             'storage_stats', 'family_set_generation',\n"
+        "             'add_invalidation_listener'):\n"
+        "    assert hasattr(BlinkDB, name), name\n"
+        "assert hasattr(repro_torch.core.maintenance, 'SampleMaintainer')\n"
         "# importing builds no kernel: nvcc runs at a kernel's first launch\n"
         "assert all(lib.handle is None for lib in agg_scan.LIBRARIES.values())\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
