@@ -85,6 +85,21 @@ Phases, each reported on its own lines:
      seconds of each step and merge or scatter, restripes, ghost fractions,
      launches by G and table route, and the fused kernel's device ms on the
      URL and uniform blocks before and after (e);
+  3g. tracing, faults and the BlinkQL service on phase 3's engine and
+     blocks: phase 3's 16 queries traced cold and warm, each traced answer
+     bit-identical to an untraced query() beside it, their stages logged
+     (plan, scan, estimate, the host share of plan and the rest); five
+     queries under six fault plans on 4 logical shards x 2 replicas (the
+     clean sharded scan within rtol 1e-4 of the fused one, replica-0 kills
+     and a process kill bit-identical to it, one shard lost on every
+     replica degraded with reweight 4/3 and no CI narrower, a poison
+     caught, all shards lost raising AllShardsLostError, an empty plan
+     bit-identical to the clean path), every per-shard launch held against
+     its plain version; phase 3b's 36 queries as BlinkQL text from 8
+     session threads through BlinkQLService.submit and submit_many, each
+     answer bit-identical to query() on the same engine, the repeats from
+     the cache, EXPLAIN and SHOW METRICS; qps, submit latency p50/p99,
+     batches and fused launches by Q;
   4. times: each kernel at the main path's shapes (agg_scan_fused and
      quantile_scan at G = 1, 6, 200 and 500) against its bound and its
      plain version, quantile_scan beside the yardstick agg_scan_fused +
@@ -105,6 +120,7 @@ import functools
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -583,6 +599,10 @@ def launch_counts() -> dict:
 
 
 BY_GROUPS = ("agg_scan_fused", "quantile_scan")
+# The counting and checking wrappers below run a launch and count it as one
+# step under this lock: phase 3g launches from the service's dispatcher and
+# session threads.
+_WRAP_LOCK = threading.RLock()
 
 
 @contextlib.contextmanager
@@ -604,20 +624,22 @@ def launches_by_groups(counts: dict, by_queries=None, by_table=None):
     def counted(name, fn):
         @functools.wraps(fn)
         def call(*args, **kw):
-            before = call.launches
-            out = fn(*args, **kw)
-            g = kw.get("n_groups", args[-1] if args else 1)
-            per = counts.setdefault(name, {})
-            per[g] = per.get(g, 0) + call.launches - before
-            if by_queries is not None and name == "agg_scan_fused":
-                q = (kw["ks"] if "ks" in kw else args[7]).shape[0]
-                by_queries[q] = by_queries.get(q, 0) + call.launches - before
-            if by_table is not None:
-                where = ("L2" if args[3].shape[0] > agg_scan.SHARED_STRATA
-                         else "shared")
-                per = by_table.setdefault(name, {})
-                per[where] = per.get(where, 0) + call.launches - before
-            return out
+            with _WRAP_LOCK:
+                before = call.launches
+                out = fn(*args, **kw)
+                g = kw.get("n_groups", args[-1] if args else 1)
+                per = counts.setdefault(name, {})
+                per[g] = per.get(g, 0) + call.launches - before
+                if by_queries is not None and name == "agg_scan_fused":
+                    q = (kw["ks"] if "ks" in kw else args[7]).shape[0]
+                    by_queries[q] = (by_queries.get(q, 0) + call.launches
+                                     - before)
+                if by_table is not None:
+                    where = ("L2" if args[3].shape[0] > agg_scan.SHARED_STRATA
+                             else "shared")
+                    per = by_table.setdefault(name, {})
+                    per[where] = per.get(where, 0) + call.launches - before
+                return out
         return call
     saved = {name: getattr(agg_scan, f"{name}_cuda") for name in BY_GROUPS}
     for name, fn in saved.items():
@@ -713,7 +735,7 @@ def checked_engine(torch, record):
 
         def _run_at_k(self, table_name, q, phi, k):
             before = launch_counts()
-            mom, rows, dt = super()._run_at_k(table_name, q, phi, k)
+            mom, rows, dt, report = super()._run_at_k(table_name, q, phi, k)
             launched = sum(launches_since(before).values())
             if self.check and is_wide(torch, self, q, phi, 1):
                 inputs, g, _ = wide_args(torch, self, q, phi, k)
@@ -725,7 +747,7 @@ def checked_engine(torch, record):
                                               accumulate=torch.float64)[0]
                 self._hold("agg_scan_fused", mom.stacked(), want, phi, k)
             record["scans"].append((phi, k, rows, dt, launched))
-            return mom, rows, dt
+            return mom, rows, dt, report
 
         def _run_quantile_at_k(self, table_name, q, phi, k):
             before = launch_counts()
@@ -1548,22 +1570,26 @@ def checked_launches(torch, worst: dict, names=BY_GROUPS):
         return (torch.cat([t.flatten() for t in out])
                 if isinstance(out, tuple) else out)
 
+    def check(name, fn, args, kw):
+        out = fn(*args, **kw)
+        got = flat(out)
+        want = flat(plain[name](*args, **kw, accumulate=torch.float64))
+        g = kw.get("n_groups", args[-1])
+        diff = (got - want).abs().max().item()
+        if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+            raise AssertionError(f"{name} at G={g} disagrees with its "
+                                 f"plain version: max_abs_diff={diff}")
+        per = worst.setdefault(name, {}).setdefault(g, [0.0, 0.0, 0])
+        per[0] = max(per[0], diff)
+        per[1] = max(per[1], tol_ratio(torch, got, want))
+        per[2] += 1
+        return out
+
     def checked(name, fn):
         @functools.wraps(fn)
         def call(*args, **kw):
-            out = fn(*args, **kw)
-            got = flat(out)
-            want = flat(plain[name](*args, **kw, accumulate=torch.float64))
-            g = kw.get("n_groups", args[-1])
-            diff = (got - want).abs().max().item()
-            if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
-                raise AssertionError(f"{name} at G={g} disagrees with its "
-                                     f"plain version: max_abs_diff={diff}")
-            per = worst.setdefault(name, {}).setdefault(g, [0.0, 0.0, 0])
-            per[0] = max(per[0], diff)
-            per[1] = max(per[1], tol_ratio(torch, got, want))
-            per[2] += 1
-            return out
+            with _WRAP_LOCK:
+                return check(name, fn, args, kw)
         return call
     saved = {name: getattr(agg_scan, f"{name}_cuda") for name in names}
     for name, fn in saved.items():
@@ -1694,8 +1720,8 @@ def hold_to_closed_form(torch, np, main_db, sub_db, label, q, ans) -> list:
     from repro_torch.core import AggOp
     closed = main_db._scan_and_answer(q, "sessions", ans.sample_phi,
                                       ans.sample_k, ans.confidence)
-    mom, _, _ = main_db._run_at_k("sessions", q, ans.sample_phi,
-                                  ans.sample_k)
+    mom, _, _, _ = main_db._run_at_k("sessions", q, ans.sample_phi,
+                                     ans.sample_k)
     n, wsum = mom.n.cpu().numpy(), mom.wsum.cpu().numpy()
     codes = [g for g in range(len(n)) if not (n[g] == 0 and wsum[g] == 0)]
     c_by = {g.key: (g, n[c] / wsum[c]) for g, c in zip(closed.groups, codes)}
@@ -2207,6 +2233,441 @@ def phase_mutation(torch, np, main_db, device="cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 3g
+
+SERVING_KERNELS = ("agg_scan_fused", "quantile_scan", "agg_scan")
+_OPS_TEXT = {"EQ": "=", "NE": "!=", "LT": "<", "LE": "<=", "GT": ">",
+             "GE": ">="}
+
+
+def blinkql_text(q) -> str:
+    """A Query as a BlinkQL statement (the parser's grammar)."""
+    from repro_torch.core import AggOp, ErrorBound, TimeBound
+    col = q.value_column
+    agg = {AggOp.COUNT: "COUNT(*)", AggOp.SUM: f"SUM({col})",
+           AggOp.AVG: f"AVG({col})",
+           AggOp.QUANTILE: f"QUANTILE({col}, {q.quantile:g})"}[q.agg]
+    text = f"SELECT {agg} FROM {q.table}"
+    disj = [" AND ".join(
+        f"{a.column} {_OPS_TEXT[a.op.name]} "
+        + (f"'{a.value}'" if isinstance(a.value, str) else f"{a.value:g}")
+        for a in conj.atoms) for conj in q.predicate.disjuncts if conj.atoms]
+    if disj:
+        text += " WHERE " + " OR ".join(disj)
+    if q.group_by:
+        text += f" GROUP BY {q.group_by[0]}"
+    b = q.bound
+    if isinstance(b, ErrorBound):
+        eps = f"{b.eps * 100:g}%" if b.relative else f"{b.eps:g}"
+        text += f" ERROR WITHIN {eps} CONFIDENCE {b.confidence * 100:g}%"
+    elif isinstance(b, TimeBound):
+        text += (f" WITHIN {b.seconds:g} SECONDS CONFIDENCE "
+                 f"{b.confidence * 100:g}%")
+    return text
+
+
+def stage_seconds(tr) -> dict:
+    """A trace's stages (QueryTrace.timings: outermost spans per stage, so a
+    plan's pilot scans count in both plan and scan), with plan_host (plan
+    less the scans inside it), scan_host (scan spans less the launches'
+    synchronised time, which the spans' elapsed_s measure) and untraced
+    (total less plan, the scans outside plan and estimate)."""
+    t = dict(tr.timings())
+    stage_of = [s.name.split(".", 1)[0] for s in tr.spans]
+
+    def inside(s, stage):
+        p = s.parent
+        while p >= 0:
+            if stage_of[p] == stage:
+                return True
+            p = tr.spans[p].parent
+        return False
+    outer_scans = [s for s in tr.spans if stage_of[s.index] == "scan"
+                   and not inside(s, "scan")]
+    in_plan = sum(s.dur_s for s in outer_scans if inside(s, "plan"))
+    t["plan_host"] = t.get("plan", 0.0) - in_plan
+    t["scan_elapsed"] = sum(s.attrs.get("elapsed_s", 0.0)
+                            for s in outer_scans)
+    t["untraced"] = t["total"] - t.get("plan", 0.0) - (
+        t.get("scan", 0.0) - in_plan) - t.get("estimate", 0.0)
+    t["scans"] = len(outer_scans)
+    return t
+
+
+def trace_phase3(torch, np, db, queries) -> dict:
+    """Phase 3's queries traced, cold (ELP decision and latency model
+    cleared) and warm: each traced answer bit-identical to an untraced
+    query() on the same engine right beside it (after the cold trace it
+    replays the decision the trace made). Logs each run's stages."""
+    from repro_torch.obs.trace import QueryTrace, activate
+    out = {"same": 0, "stages": {}}
+    for label, q in queries:
+        for run in ("cold", "warm"):
+            if run == "cold":
+                db._elp_cache.clear()
+                db._latency.clear()
+            else:
+                plain = db.query(q)
+            tr = QueryTrace(label, "forced")
+            db._sync()
+            with activate(tr):
+                traced = db.query(q)
+            db._sync()
+            tr.finish()
+            if run == "cold":
+                plain = db.query(q)
+            if answer_bits(traced) != answer_bits(plain):
+                raise AssertionError(f"{label} [{run}]: traced and untraced "
+                                     f"answers differ")
+            out["same"] += 1
+            st = stage_seconds(tr)
+            out["stages"][f"{label} [{run}]"] = st
+            log(f"    {label} [{run}]: " + " ".join(
+                f"{k}_ms={1e3 * st[k]:.3f}" for k in
+                ("total", "plan", "plan_host", "scan", "scan_elapsed",
+                 "estimate", "untraced") if k in st)
+                + f" scans={st['scans']}")
+    return out
+
+
+def fault_queries():
+    """(label, Query) of phase 3g's fault plans: grouped and ungrouped
+    sums, a predicate on the City family, a QUANTILE (moments per shard,
+    the histogram unsharded) and the 130-city NOT IN template (agg_scan
+    per shard)."""
+    from repro_torch.core import (AggOp, Atom, CmpOp, ErrorBound, Predicate,
+                                  Query)
+    t = "sessions"
+    return [
+        ("COUNT(*) ERROR 10%", Query(t, AggOp.COUNT,
+                                     bound=ErrorBound(0.10))),
+        ("SUM(SessionTime) GROUP BY OS ERROR 5%",
+         Query(t, AggOp.SUM, "SessionTime", group_by=("OS",),
+               bound=ErrorBound(0.05))),
+        ("AVG(SessionTime) GROUP BY City ERROR 10%",
+         Query(t, AggOp.AVG, "SessionTime", group_by=("City",),
+               bound=ErrorBound(0.10))),
+        ("QUANTILE(SessionTime, 0.9) GROUP BY OS ERROR 5%",
+         Query(t, AggOp.QUANTILE, "SessionTime", quantile=0.9,
+               group_by=("OS",), bound=ErrorBound(0.05))),
+        ("AVG(SessionTime) WHERE City NOT IN (130 cities) ERROR 5%",
+         Query(t, AggOp.AVG, "SessionTime",
+               predicate=not_in(Atom, CmpOp, Predicate, "City", "city", 200,
+                                130),
+               bound=ErrorBound(0.05))),
+    ]
+
+
+def fault_plans():
+    """(label, FaultPlan factory) of phase 3g, each on the engine's 4
+    logical shards of 2 replicas over 2 processes."""
+    from repro_torch.fault.inject import FaultPlan, FaultSpec
+
+    def plan(*specs):
+        return lambda: FaultPlan(list(specs), seed=0)
+    return {
+        "clean": plan(FaultSpec(site="shard.scan", kind="kill",
+                                match=(("shard", 99),))),
+        "replica0": plan(FaultSpec(site="shard.scan", kind="kill",
+                                   match=(("replica", 0),))),
+        "shard1_lost": plan(FaultSpec(site="shard.scan", kind="kill",
+                                      match=(("shard", 1),))),
+        "poison2": plan(FaultSpec(site="shard.scan", kind="poison",
+                                  match=(("shard", 2),))),
+        "process0": plan(FaultSpec(site="shard.scan", kind="kill",
+                                   match=(("process", 0),))),
+        "all_lost": plan(FaultSpec(site="shard.scan", kind="kill")),
+    }
+
+
+def run_faults(torch, np, db, worst) -> dict:
+    """Phase 3g's fault plans on phase 3's engine and blocks (decisions
+    replayed from a clean run, so every plan scans at the same K): the
+    clean sharded scan within the reference's tolerance of the fused one,
+    replica-0 kills and a process kill bit-identical to the clean sharded
+    scan, one shard lost on every replica degraded with reweight 4/3 and
+    (COUNT, SUM, AVG) no CI narrower than the clean sharded one, a poison
+    detected, all
+    shards lost raising AllShardsLostError, and an empty plan bit-identical
+    to the clean path. Every launch is held against its plain version."""
+    from repro_torch.core import AggOp
+    from repro_torch.fault.inject import AllShardsLostError, FaultPlan, arm
+    from repro_torch.obs.trace import QueryTrace, activate
+    plans = fault_plans()
+    out = {"per_shard": {}, "checks": 0}
+    for label, q in fault_queries():
+        clean = db.query(q)
+        with arm(FaultPlan()):
+            empty = db.query(q)
+        if answer_bits(empty) != answer_bits(clean):
+            raise AssertionError(f"{label}: the empty plan changed bits")
+        if clean.sample_phi == ("<exact>",):
+            log(f"    {label}: exact fallback (no sample scan to shard); "
+                f"empty plan bit-identical")
+            continue
+        got, traces = {}, {}
+        with checked_launches(torch, worst, names=SERVING_KERNELS):
+            for name, make in plans.items():
+                tr = QueryTrace(f"{label} {name}", "fault")
+                with arm(make()), activate(tr):
+                    try:
+                        got[name] = db.query(q)
+                    except AllShardsLostError:
+                        got[name] = "AllShardsLostError"
+                tr.finish()
+                traces[name] = tr
+        sharded = got["clean"]
+        if sharded.shards_total != 4 or sharded.degraded:
+            raise AssertionError(f"{label}: the clean plan did not shard")
+        rel = max(abs(a.estimate - b.estimate) / max(abs(b.estimate), 1e-12)
+                  for a, b in zip(sharded.groups, clean.groups))
+        if [g.key for g in sharded.groups] != \
+                [g.key for g in clean.groups] or rel > 1e-4:
+            raise AssertionError(f"{label}: clean sharded scan off the "
+                                 f"fused one by rtol {rel}")
+        for name in ("replica0", "process0"):
+            if answer_bits(got[name]) != answer_bits(sharded):
+                raise AssertionError(f"{label}: {name} fail-over changed "
+                                     f"bits")
+        lost = got["shard1_lost"]
+        reweights = {s.attrs.get("reweight") for s in
+                     traces["shard1_lost"].find("scan")
+                     if "reweight" in s.attrs}
+        if lost.shards_lost != 1 or not lost.degraded \
+                or reweights != {4 / 3}:
+            raise AssertionError(f"{label}: shard loss gave lost="
+                                 f"{lost.shards_lost} reweights={reweights}")
+        # COUNT, SUM and AVG: the reweight grows every variance leaf, so no
+        # CI narrows. A QUANTILE's CI is read off the survivors' Kish
+        # effective size, which a lost shard of heavy-weight rows can
+        # raise: logged, not held.
+        ref_se = {g.key: g.stderr for g in sharded.groups}
+        ratios = [g.stderr / ref_se[g.key] for g in lost.groups
+                  if g.key in ref_se and ref_se[g.key] > 0]
+        narrower = [g.key for g in lost.groups
+                    if g.key in ref_se and g.stderr < ref_se[g.key]]
+        if narrower and q.agg is not AggOp.QUANTILE:
+            raise AssertionError(f"{label}: shard loss narrowed the CI of "
+                                 f"{narrower[:5]}")
+        poison = got["poison2"]
+        caught = [s for s in traces["poison2"].find("scan.shard")
+                  if s.attrs.get("error") == "ShardScanError"]
+        if not poison.degraded or not caught or not all(
+                np.isfinite([g.estimate, g.stderr]).all()
+                for g in poison.groups):
+            raise AssertionError(f"{label}: the poison was not contained")
+        if got["all_lost"] != "AllShardsLostError":
+            raise AssertionError(f"{label}: all shards lost did not raise")
+        per = out["per_shard"].setdefault(label, {})
+        for name, tr in traces.items():
+            for s in tr.find("scan.shard"):
+                if s.attrs.get("error") != "InjectedFault":
+                    per[s.attrs["shard"]] = per.get(s.attrs["shard"], 0) + 1
+        out["checks"] += 1
+        out["rel"] = max(out.get("rel", 0.0), rel)
+        # Host ms of the query on the fused path and under three plans,
+        # medians of 3, outside the plain-version checks; these launches
+        # stay out of the counts.
+        saved = launch_counts()
+        ms = {}
+        for name in ("fused", "clean", "replica0", "shard1_lost"):
+            runs = []
+            for _ in range(3):
+                db._sync()
+                t0 = time.perf_counter()
+                if name == "fused":
+                    db.query(q)
+                else:
+                    with arm(plans[name]()):
+                        db.query(q)
+                db._sync()
+                runs.append(1e3 * (time.perf_counter() - t0))
+            ms[name] = float(np.median(runs))
+        reset_launches(saved)
+        out.setdefault("ms", {})[label] = ms
+        log(f"    {label}: family={clean.sample_phi} K={clean.sample_k:.6g} "
+            f"clean sharded within rtol {rel:.3e}; replica0/process0 "
+            f"bit-identical; "
+            f"shard1 lost={lost.shards_lost} degraded={lost.degraded} "
+            f"groups={len(lost.groups)}/{len(sharded.groups)} stderr ratio "
+            f"{min(ratios, default=1.0):.4f}-{max(ratios, default=1.0):.4f}"
+            f" ({len(narrower)} narrower); poison "
+            f"caught={len(caught)} lost={poison.shards_lost}; all lost "
+            f"raised; launches by shard {dict(sorted(per.items()))}; query "
+            f"ms " + " ".join(f"{k}={v:.3f}" for k, v in ms.items()))
+    totals: dict = {}
+    for per in out["per_shard"].values():
+        for s, n in per.items():
+            totals[s] = totals.get(s, 0) + n
+    out["attempts_by_shard"] = dict(sorted(totals.items()))
+    return out
+
+
+def run_service(torch, np, db, texts, card: str) -> dict:
+    """Phase 3b's queries as BlinkQL text from 8 session threads through
+    submit (threads 0, 2, 4, 6: their queries one at a time) and
+    submit_many (threads 1, 3, 5, 7: their slice at once), each answer
+    bit-identical to query() of its parsed statement on the same engine;
+    then every text again through submit_many, all from the cache; EXPLAIN
+    and SHOW METRICS. Returns latencies, batches and launches."""
+    from repro_torch.service import BlinkQLService, ServiceConfig, \
+        parse_blinkql
+    slices = [texts[i::8] for i in range(8)]
+    lat: list[float] = []
+    answers: dict[str, object] = {}
+    errors: list = []
+    lock = threading.Lock()
+    with BlinkQLService(db, config=ServiceConfig(batch_window_s=0.005)) as svc:
+        barrier = threading.Barrier(8)
+
+        def session(i):
+            try:
+                barrier.wait()
+                if i % 2:
+                    t0 = time.perf_counter()
+                    got = svc.submit_many(slices[i], timeout=600)
+                    dt = time.perf_counter() - t0
+                    with lock:
+                        lat.extend([dt] * len(got))
+                        answers.update(zip(slices[i], got))
+                else:
+                    for text in slices[i]:
+                        t0 = time.perf_counter()
+                        a = svc.submit(text, timeout=600)
+                        with lock:
+                            lat.append(time.perf_counter() - t0)
+                            answers[text] = a
+            except BaseException as e:   # noqa: BLE001 — re-raised below
+                errors.append(e)
+        threads = [threading.Thread(target=session, args=(i,),
+                                    name=f"session-{i}") for i in range(8)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        wall = time.perf_counter() - t0
+        if errors or any(th.is_alive() for th in threads):
+            raise AssertionError(f"a session failed or hung: {errors[:1]}")
+        stats = svc.stats()
+        hits0 = svc.cache.stats.hits
+        again = svc.submit_many(texts, timeout=600)
+        hits = svc.cache.stats.hits - hits0
+        rep = svc.execute("EXPLAIN " + texts[0])
+        snap = svc.execute("SHOW METRICS")
+        prom = svc.execute("SHOW METRICS FORMAT PROMETHEUS")
+    same = 0
+    for text in texts:
+        want = db.query(parse_blinkql(text, db).normalized())
+        for a in (answers[text], again[texts.index(text)]):
+            if answer_bits(a) != answer_bits(want):
+                raise AssertionError(f"service answer differs from "
+                                     f"query(): {text[:120]}")
+        same += 1
+    if hits != len(texts):
+        raise AssertionError(f"repeats: {hits}/{len(texts)} cache hits")
+    if not rep["plan"].get("cached") or snap.get("schema_version") != 1 \
+            or "service_queries_total" not in prom:
+        raise AssertionError("EXPLAIN or SHOW METRICS did not answer")
+    lat_ms = np.sort(np.asarray(lat)) * 1e3
+    # Each statement carries a contract (ERROR WITHIN), so each is traced:
+    # its stages from parse to estimate, the median and the largest.
+    stages = {}
+    for text in texts:
+        for k, v in (answers[text].timings or {}).items():
+            stages.setdefault(k, []).append(1e3 * v)
+    out = {"same": same, "wall_s": wall, "qps": len(texts) / wall,
+           "p50_ms": float(np.percentile(lat_ms, 50)),
+           "p99_ms": float(np.percentile(lat_ms, 99)), "stats": stats,
+           "cache_hits": hits,
+           "stages_ms": {k: (float(np.median(v)), float(np.max(v)))
+                         for k, v in stages.items()}}
+    log("  service stages (ms, median / max over the statements): " + " ".join(
+        f"{k}={m:.3f}/{x:.3f}" for k, (m, x) in out["stages_ms"].items()))
+    log(f"  service: {len(texts)} BlinkQL statements from 8 sessions in "
+        f"{1e3 * wall:.3f} ms ({out['qps']:.3f} qps), submit latency p50 "
+        f"{out['p50_ms']:.3f} ms p99 {out['p99_ms']:.3f} ms, batches "
+        f"{stats['batches']} (coalescing {stats['coalescing']:.3f}), "
+        f"{same}/{len(texts)} answers bit-identical to query(), repeats "
+        f"{hits}/{len(texts)} from the cache; EXPLAIN plan {rep['plan']}; "
+        f"SHOW METRICS {len(snap['counters'])} counters ({card})")
+    return out
+
+
+def phase_serving(torch, np, main, card: str, device="cuda") -> dict:
+    """Tracing, fault plans and the BlinkQL service on phase 3's engine and
+    blocks. Each part runs with the launch counts set to 0 just before it
+    and read just after: (a) phase 3's 16 queries traced cold and warm
+    (trace_phase3), (b) the fault plans (run_faults), every launch held
+    against its plain version, (c) phase 3b's 36 queries through
+    BlinkQLService (run_service), launches by G and by Q."""
+    from repro_torch.core import (AggOp, Atom, CmpOp, Conjunction,
+                                  ErrorBound, Predicate, Query, TimeBound)
+    t_phase = time.perf_counter()
+    db = main["db"]
+    db.check = False
+    out = {}
+    queries = main_path_queries(Query, AggOp, Atom, CmpOp, Conjunction,
+                                Predicate, ErrorBound, TimeBound)
+    log(f"  (a) phase 3's {len(queries)} queries traced, cold and warm "
+        f"(stages in ms, host clock, device synchronised; {card}):")
+    reset_launches()
+    traced = trace_phase3(torch, np, db, queries)
+    out["traced_launches"] = launch_counts()
+    # The host search behind each scan's rows_read, per family.
+    prefix_ms = {}
+    for phi, fam in db.families["sessions"].items():
+        runs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fam.prefix_for_k(fam.ks[0])
+            runs.append(1e3 * (time.perf_counter() - t0))
+        prefix_ms[phi] = float(np.median(runs))
+        log(f"  SampleFamily.prefix_for_k on {phi} ({fam.n_rows} keys): "
+            f"{prefix_ms[phi]:.3f} ms (host, median of 5)")
+    out["prefix_for_k_ms"] = {str(phi): ms for phi, ms in prefix_ms.items()}
+
+    log("  (b) fault plans, 4 logical shards x 2 replicas over 2 processes:")
+    worst = {}
+    reset_launches()
+    faults = run_faults(torch, np, db, worst)
+    out["fault_launches"] = launch_counts()
+
+    texts = [blinkql_text(q) for q in batch_queries(
+        Query, AggOp, Atom, CmpOp, Predicate, ErrorBound)]
+    reset_launches()
+    by_g, by_q = {}, {}
+    with launches_by_groups(by_g, by_q):
+        service = run_service(torch, np, db, texts, card)
+    out["service_launches"] = launch_counts()
+    for part in ("traced_launches", "fault_launches", "service_launches"):
+        if device == "cuda" and min(out[part][k]
+                                    for k in SERVING_KERNELS) == 0:
+            raise AssertionError(f"phase 3g {part}: a kernel was launched "
+                                 f"no time: {out[part]}")
+    log("  service launches by G: " + "; ".join(
+        f"{k} " + " ".join(f"G={g}:{c}" for g, c in sorted(by_g.get(k, {}).items()))
+        for k in BY_GROUPS) + "; agg_scan_fused by Q: " + " ".join(
+        f"Q={q}:{c}" for q, c in sorted(by_q.items())))
+    out.update(traced=traced, faults=faults, service=service, worst=worst,
+               service_by_groups=by_g, service_by_queries=by_q,
+               seconds=time.perf_counter() - t_phase)
+    fr = max((w[0] for w in worst.get("agg_scan_fused", {}).values()),
+             default=0.0)
+    log(f"phase 3g ok: {traced['same']} traced answers bit-identical, "
+        f"{faults['checks']} queries under {len(fault_plans())} plans, "
+        f"{service['same']} service answers bit-identical; launches traced "
+        + " ".join(f"{k}={out['traced_launches'][k]}"
+                   for k in SERVING_KERNELS)
+        + ", faults " + " ".join(f"{k}={out['fault_launches'][k]}"
+                                 for k in SERVING_KERNELS)
+        + ", service " + " ".join(f"{k}={out['service_launches'][k]}"
+                                  for k in SERVING_KERNELS)
+        + f"; per-shard fused vs plain max_abs_diff {fr:.6e}; "
+        f"{out['seconds']:.1f}s")
+    return out
+
+
 # ----------------------------------------------------------------- phase 4
 
 def time_cuda(torch, fn, warmup: int, reps: int) -> float:
@@ -2616,7 +3077,8 @@ def phase_times_subsampled(torch, sub_db, card: str) -> dict:
 
 
 def kernels_record(worst, record, main, batch, ops_path, times, sample,
-                   l2_times, subj, sub_times, mut, card: str) -> list[dict]:
+                   l2_times, subj, sub_times, mut, serving,
+                   card: str) -> list[dict]:
     """The kernels' JSON record: one entry per kernel, its launches on its
     path, its worst disagreement with its plain version over every phase,
     and its times at the main path's shapes; the fused and quantile
@@ -2640,7 +3102,8 @@ def kernels_record(worst, record, main, batch, ops_path, times, sample,
         if kname in ops_path:
             errs.append(ops_path[kname])
         for checked in (subj["worst"].get(kname, {}),
-                        mut["worst"].get(kname, {})):
+                        mut["worst"].get(kname, {}),
+                        serving["worst"].get(kname, {})):
             if checked:  # phase 3e's and 3f's launches, each against plain
                 errs.append((max(w[0] for w in checked.values()),
                              max(w[1] for w in checked.values())))
@@ -2702,6 +3165,19 @@ def kernels_record(worst, record, main, batch, ops_path, times, sample,
             entry["join_launches"] = subj["join_launches"][kname]
             entry["join_launches_by_G"] = subj["join_by_groups"].get(kname,
                                                                      {})
+        if kname in SERVING_KERNELS:
+            entry.update(
+                traced_launches=serving["traced_launches"][kname],
+                fault_launches=serving["fault_launches"][kname],
+                fault_launches_by_G={g: w[2] for g, w in
+                                     serving["worst"].get(kname, {}).items()},
+                fault_attempts_by_shard=serving["faults"][
+                    "attempts_by_shard"],
+                service_launches=serving["service_launches"][kname],
+                serving_path=("BlinkDB.query traced; BlinkDB.query under "
+                              "fault plans, one launch per (shard, "
+                              "replica) attempt; BlinkQLService.submit "
+                              "and submit_many (phase 3g)"))
         if kname in MUTATION_KERNELS:
             entry["mutation_launches"] = mut["launches"][kname]
             entry["mutation_path"] = ("BlinkDB.query after append_rows, "
@@ -2785,15 +3261,20 @@ def main() -> int:
         "update_rows and SampleMaintainer.reclaim, then BlinkDB.query")
     mut = phase_mutation(torch, np, main["db"])
 
+    log("phase 3g: tracing, fault plans and the BlinkQL service, "
+        "BlinkDB.query and BlinkQLService")
+    serving = phase_serving(torch, np, main, card)
+
     log(f"phase 4: times at the main path's shapes ({card})")
     times = phase_times(torch, main["db"], card)
     l2_times = phase_times_l2(torch, sample["db"], card)
     sub_times = phase_times_subsampled(torch, subj["sub_db"], card)
     kernels = kernels_record(worst, record, main, batch, ops_path, times,
-                             sample, l2_times, subj, sub_times, mut, card)
+                             sample, l2_times, subj, sub_times, mut, serving,
+                             card)
     log(f"smoke total {time.perf_counter() - t_start:.1f}s (phase 3d "
         f"{sample['seconds']:.1f}s, phase 3e {subj['seconds']:.1f}s, phase "
-        f"3f {mut['seconds']:.1f}s)")
+        f"3f {mut['seconds']:.1f}s, phase 3g {serving['seconds']:.1f}s)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

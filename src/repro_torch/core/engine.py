@@ -22,8 +22,12 @@ to registered dimension tables (§2.1: `Query(joins=...)`, attributes named
 tombstoned in place and its striped block patched, and the storage the
 mutations leave behind is reclaimed by `compact_family`, `compact_table`
 and `decay_family` (docs/MAINTENANCE.md; `core/maintenance.py` drives
-them). Fault handling comes with a later slice; the port has no fault
-plan, so every path here is the reference's empty-plan path.
+them). Under an armed, non-empty fault plan (`repro_torch.fault`) every
+scan runs shard-partitioned with replicas (executor.run_sharded_scan):
+a lost shard degrades the answer (HT reweight, wider CIs) instead of
+failing it; without one the single fused pass runs, bit for bit as
+before. Every scan is a declared fault site ("engine.scan") and a span of
+the query's trace (obs.trace) when one is active.
 """
 from __future__ import annotations
 
@@ -46,7 +50,20 @@ from repro_torch.core.selection import rewrite_disjuncts, select_family
 from repro_torch.core.types import (AggOp, Answer, BoundUnreachableError,
                                     ColumnKind, ErrorBound, GroupResult,
                                     Query, QueryTemplate, TimeBound)
+from repro_torch.fault import inject
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
+from repro_torch.sharding import placement as place_lib
+
+
+def _scan_stream_bytes(striped: exec_lib.StripedFamily) -> int:
+    """Bytes/row the fused scan streams (a trace attribute, computed only
+    while a trace is active): the block's per-row tensors, the frequency
+    table excluded. Reads dtypes only."""
+    from repro_torch.launch import roofline
+    return roofline.scan_bytes_per_row(
+        [a.dtype for a in striped.columns.values()]
+        + [striped.unit.dtype, striped.strat.dtype, striped.valid.dtype])
 
 
 @dataclasses.dataclass
@@ -71,16 +88,37 @@ class EngineConfig:
     # Where tables, sample blocks and scans live. "cuda" unless the caller
     # asks for the CPU; a missing card is an error, never a quiet CPU run.
     device: str = "cuda"
+    # Fault-domain sharding (docs/FAULTS.md). Engages ONLY under an armed
+    # non-empty FaultPlan: scans split into n_logical_shards disjoint
+    # stratum partitions with shard_replicas attempts each, so a lost shard
+    # degrades the answer (HT reweight, wider CIs) instead of failing it.
+    # Without an armed plan the fused single pass runs unchanged.
+    n_logical_shards: int = 4
+    shard_replicas: int = 2
+    straggler_deadline_s: float | None = None   # per-attempt deadline
+    # Fleet placement (sharding/placement.py): logical shards get HOME
+    # processes round-robin over n_processes simulated processes; replica
+    # attempt r of shard s executes on process (s + r) % n_processes, so a
+    # process-kill fault fails over to replicas placed elsewhere. Families
+    # marked hot (mark_hot_family) run hot_replicas-long chains. Placement
+    # is provenance and fault-domain metadata only.
+    n_processes: int = 2
+    hot_replicas: int = 3
 
 
 def resolve_device(device) -> torch.device:
-    """The engine's device; raises when CUDA is asked for and absent."""
+    """The engine's device; raises when CUDA is asked for and absent. A
+    card without an index is pinned to the current one, so a thread that
+    never called torch.cuda.set_device (the service's dispatcher) still
+    allocates and launches on the engine's card."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: BlinkDB runs on the card "
                            "by default; pass device='cpu' to run on the CPU")
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 
@@ -155,9 +193,47 @@ class BlinkDB:
         self.config = config or EngineConfig()
         self.device = resolve_device(self.config.device if device is None
                                      else device)
-        # The engine's registry: what hangs off this engine (the sample
-        # maintainer) registers its instruments here.
+        # The engine's registry: what hangs off this engine (the service's
+        # scheduler, cache and workload monitor, the sample maintainer)
+        # registers its instruments here, so two engines in one process
+        # never share counters.
         self.metrics = obs_metrics.MetricsRegistry()
+        self._m_queries = self.metrics.counter(
+            "engine_queries_total", "Queries executed, by execution path",
+            labels=("path",))
+        self._m_rows_read = self.metrics.counter(
+            "engine_rows_read_total", "Sample/base rows scanned on device")
+        self._m_escalations = self.metrics.counter(
+            "engine_k_escalations_total",
+            "ErrorBound plans escalated past the selected family (§4.2)")
+        self._m_exact_fallbacks = self.metrics.counter(
+            "engine_exact_fallbacks_total",
+            "ErrorBound plans resolved to exact base-table scans")
+        self._m_scan_seconds = self.metrics.histogram(
+            "engine_scan_seconds", "Device scan wall time per fused pass")
+        self._m_shards_lost = self.metrics.counter(
+            "engine_shards_lost_total",
+            "Logical shards lost (no surviving replica) across scans")
+        self._m_shard_reroutes = self.metrics.counter(
+            "engine_shard_reroutes_total",
+            "Logical shards served by a replica > 0")
+        self._m_shard_scans = self.metrics.counter(
+            "engine_shard_scans_total",
+            "Sharded-path scans by logical shard (per-shard serving load)",
+            labels=("shard",))
+        self._m_hot_promotions = self.metrics.counter(
+            "engine_hot_promotions_total",
+            "Families promoted to hot replication by the workload monitor")
+        # Shard placement over the simulated process fleet: built lazily
+        # per (table, family, n_logical), widened on hot marks.
+        self.placements = place_lib.PlacementMap(place_lib.PlacementConfig(
+            n_processes=self.config.n_processes,
+            n_replicas=self.config.shard_replicas,
+            hot_replicas=self.config.hot_replicas))
+        self.metrics.gauge(
+            "engine_hot_families", "Families under hot replication"
+        ).labels().set_function(
+            lambda: float(len(self.placements.hot_families())))
         if self.config.ci_method not in ("closed", "subsampling"):
             raise ValueError(f"ci_method={self.config.ci_method!r}: need "
                              "'closed' or 'subsampling'")
@@ -704,6 +780,66 @@ class BlinkDB:
                 "dead_bytes": rb * (tbl.n_rows - tbl.n_live)
                 + sample_rb * ghost_rows}
 
+    # ------------------------------------------- fault domains and placement
+    def _fault_sharding_active(self) -> bool:
+        """Engagement rule for the sharded scan path: an armed, NON-EMPTY
+        FaultPlan and more than one configured logical shard. Off otherwise,
+        so the single fused pass and its bit-exact summation order serve
+        every fault-free query (docs/FAULTS.md)."""
+        plan = inject.active()
+        return (plan is not None and bool(plan)
+                and self.config.n_logical_shards > 1)
+
+    def _placement_for(self, table_name: str, phi: tuple[str, ...]
+                       ) -> place_lib.FamilyPlacement:
+        return self.placements.for_family(table_name, phi,
+                                          self.config.n_logical_shards)
+
+    def _set_placement_attrs(self, sp, table_name: str,
+                             phi: tuple[str, ...], fam, struct,
+                             consts_list) -> None:
+        """Scan-span placement provenance (docs/OBSERVABILITY.md): the
+        family's placement over the process fleet, and the routed shard
+        subset when the template pins every φ column by equality
+        (placement.route_shard_set; provenance only, the sharded scan
+        always runs every shard so clean answers keep their bits).
+        `consts_list` holds each query's flat constants."""
+        pl = self._placement_for(table_name, phi)
+        route = place_lib.route_shard_set(
+            fam.strata_keys, phi, struct, list(consts_list),
+            self.config.n_logical_shards)
+        sp.set(placement=pl.span_attrs(),
+               shard_set=("all" if route is None else list(route)))
+
+    def _count_shard_report(
+            self, report: exec_lib.ShardScanReport | None) -> None:
+        if report is None:
+            return
+        self._m_shards_lost.inc(len(report.lost))
+        self._m_shard_reroutes.inc(len(report.rerouted))
+        for s in range(report.n_shards):
+            if s not in report.lost:
+                self._m_shard_scans.labels(str(s)).inc()
+
+    def mark_hot_family(self, table_name: str, phi: tuple[str, ...]
+                        ) -> bool:
+        """Promote one family to hot replication: its shard placement is
+        rebuilt with the longer `hot_replicas` chain, widening fail-over
+        (replicas are re-executions, so this changes the fault path only,
+        never which strata a shard owns, never a clean answer). Driven by
+        the service's workload monitor; True on first promotion."""
+        phi = tuple(phi)
+        if phi not in self.families.get(table_name, {}):
+            return False
+        newly = self.placements.mark_hot(table_name, phi)
+        if newly:
+            self._m_hot_promotions.inc()
+        return newly
+
+    def _observe_scan(self, dt: float, rows: int) -> None:
+        self._m_scan_seconds.observe(dt)
+        self._m_rows_read.inc(rows)
+
     # ------------------------------------------------------------- runtime
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -778,14 +914,17 @@ class BlinkDB:
                     self._drop_derived(table_name, p)
 
     def _run_at_k(self, table_name: str, q: Query, phi: tuple[str, ...],
-                  k: float) -> tuple[est_lib.GroupedMoments, int, float]:
+                  k: float) -> tuple[est_lib.GroupedMoments, int, float,
+                                     exec_lib.ShardScanReport | None]:
         """One fused scan at resolution k: the batched scan at Q = 1, timed
         with the device synchronised (the WITHIN SECONDS latency model is
-        fitted on these times)."""
+        fitted on these times). Under an armed fault plan it runs
+        shard-partitioned and the report carries the loss provenance;
+        otherwise the report is None."""
         key, vals = self._scan_key(table_name, q, phi)
-        mom, dt = self._run_batched(key, [k], [exec_lib.flatten_pred_vals(vals)])
-        return (est_lib.moments_slice(mom, 0),
-                self.families[table_name][phi].prefix_for_k(k), dt)
+        mom, dt, report, rows = self._batched_scan(
+            key, [k], [exec_lib.flatten_pred_vals(vals)], False)
+        return est_lib.moments_slice(mom, 0), rows, dt, report
 
     def _scan_key(self, table_name: str, q: Query, phi: tuple[str, ...]
                   ) -> tuple[tuple, tuple]:
@@ -802,15 +941,21 @@ class BlinkDB:
                              phi: tuple[str, ...], k: float,
                              mom: est_lib.GroupedMoments, rows_read: int,
                              elapsed: float, confidence: float,
+                             faults: exec_lib.ShardScanReport | None = None,
                              qpair=None, certified: bool | None = None,
                              predicted_half_width: float | None = None,
                              est: est_lib.Estimate | None = None) -> Answer:
         """An Answer from a scan's moments; `est` is the estimate when the
-        caller has it (the subsampled scans), else it is computed here."""
+        caller has it (the subsampled scans), else it is computed here.
+        `faults` is the sharded scan's report: a lost shard makes the
+        answer degraded."""
         tbl = self.tables[table_name]
-        if est is None:
-            est = self._estimate_for(q, table_name, phi, k, mom, qpair)
-        stderr, lo, hi = est_lib.ci(est, confidence)
+        degraded = faults is not None and faults.degraded
+        with obs_trace.span("estimate", agg=q.agg.name,
+                            degraded=bool(degraded)):
+            if est is None:
+                est = self._estimate_for(q, table_name, phi, k, mom, qpair)
+            stderr, lo, hi = est_lib.ci(est, confidence)
         group_col = q.group_by[0] if q.group_by else None
         vals = est.value.cpu().numpy()
         errs = stderr.cpu().numpy()
@@ -824,7 +969,10 @@ class BlinkDB:
                 continue  # missing subgroup (paper §3.1 "subset error")
             key = ((self._decode_col_value(table_name, group_col, g),)
                    if group_col else ())
-            exact = bool(abs(nsel[g] - wsum[g]) < 1e-6 * max(wsum[g], 1.0))
+            # A degraded answer never claims exactness: the stratum may be
+            # whole among the SURVIVORS yet miss lost-shard rows.
+            exact = (not degraded and
+                     bool(abs(nsel[g] - wsum[g]) < 1e-6 * max(wsum[g], 1.0)))
             if not exact and isinstance(q.bound, ErrorBound):
                 half = est_lib.z_value(confidence) * float(errs[g])
                 if q.bound.relative:
@@ -834,13 +982,17 @@ class BlinkDB:
             groups.append(GroupResult(key, float(vals[g]), float(errs[g]),
                                       float(los[g]), float(his[g]),
                                       float(nsel[g]), exact))
-        # Contract verdict: certified a-priori AND realized post-hoc.
+        # Contract verdict: certified a-priori AND realized post-hoc; a
+        # degraded scan's wider CIs can demote a certified answer.
         bound_met = None
         if isinstance(q.bound, ErrorBound):
             bound_met = bool(certified
                              and realized_half <= q.bound.eps + 1e-12)
         return Answer(q, groups, phi, k, rows_read, tbl.n_live, elapsed,
-                      confidence, bound_met=bound_met, certified=certified,
+                      confidence, degraded=degraded,
+                      shards_lost=len(faults.lost) if faults else 0,
+                      shards_total=faults.n_shards if faults else 0,
+                      bound_met=bound_met, certified=certified,
                       predicted_half_width=predicted_half_width)
 
     def _family_range(self, table_name: str, phi: tuple[str, ...],
@@ -881,14 +1033,21 @@ class BlinkDB:
     def _run_quantile_at_k(self, table_name: str, q: Query,
                            phi: tuple[str, ...], k: float):
         """QUANTILE analogue of _run_at_k, timed the same way (device
-        synchronised): → (mom, rows_read, dt, qpair)."""
+        synchronised): → (mom, rows_read, dt, qpair). Callers keep it off
+        the fault-sharded path."""
         fam = self.families[table_name][phi]
-        self._sync()
-        t0 = time.perf_counter()
-        mom, qpair = self._quantile_scan(q, table_name, phi, k)
-        self._sync()
-        dt = time.perf_counter() - t0
-        return mom, fam.prefix_for_k(k), dt, qpair
+        inject.site("engine.scan", table=table_name)
+        with obs_trace.span("scan", table=table_name, k=float(k),
+                            quantile=True) as sp:
+            self._sync()
+            t0 = time.perf_counter()
+            mom, qpair = self._quantile_scan(q, table_name, phi, k)
+            self._sync()
+            dt = time.perf_counter() - t0
+            rows = fam.prefix_for_k(k)
+            sp.set(rows_read=rows, elapsed_s=dt)
+        self._observe_scan(dt, rows)
+        return mom, rows, dt, qpair
 
     def _estimate_for(self, q: Query, table_name: str, phi: tuple[str, ...],
                       k: float, mom: est_lib.GroupedMoments,
@@ -905,11 +1064,16 @@ class BlinkDB:
 
     def _scan_for_query(self, table_name: str, q: Query,
                         phi: tuple[str, ...], k: float):
-        """One scan at k → (mom, rows_read, dt, qpair): a QUANTILE query
-        runs the one-pass quantile scan, every other aggregate the fused
-        scan (qpair None)."""
-        if q.agg is AggOp.QUANTILE:
-            return self._run_quantile_at_k(table_name, q, phi, k)
+        """One scan at k → (mom, rows_read, dt, fault report, qpair): on the
+        clean path a QUANTILE query runs the one-pass quantile scan (report
+        None); every other aggregate, and the fault-sharded path (whose
+        per-shard partials are plain moments), runs the fused scan (qpair
+        None: a QUANTILE's histogram then comes from one unsharded quantile
+        scan in _estimate_for)."""
+        if q.agg is AggOp.QUANTILE and not self._fault_sharding_active():
+            mom, rows, dt, qpair = self._run_quantile_at_k(table_name, q,
+                                                           phi, k)
+            return mom, rows, dt, None, qpair
         return self._run_at_k(table_name, q, phi, k) + (None,)
 
     # ------------------------------------- variational subsampling CIs
@@ -952,30 +1116,39 @@ class BlinkDB:
         gsub = self._subsample_codes_for(table_name, phi, striped, group_col)
         pkey = key + (b,)
         args = exec_lib.scan_args(striped)
-        self._sync()
-        t0 = time.perf_counter()
-        if q.agg is AggOp.QUANTILE:
-            fn = self._subsampled_quantile_programs.get(pkey)
-            if fn is None:
-                fn = exec_lib.make_subsampled_quantile_fn(*key[2:], b)
-                self._subsampled_quantile_programs[pkey] = fn
-            mom_sub, qv, dens, qsub = fn(k, vals, q.quantile, gsub, *args)
-            est = est_lib.subsampling_estimate(
-                AggOp.QUANTILE, mom_sub, n_groups, b, quantile_value=qv,
-                quantile_density=dens, quantile_values_sub=qsub,
-                q=q.quantile)
-        else:
-            fn = self._subsampled_programs.get(pkey)
-            if fn is None:
-                fn = exec_lib.make_subsampled_query_fn(*key[2:], b)
-                self._subsampled_programs[pkey] = fn
-            mom_sub = fn(k, vals, gsub, *args)
-            est = est_lib.subsampling_estimate(q.agg, mom_sub, n_groups, b)
-        self._sync()
-        dt = time.perf_counter() - t0
+        inject.site("engine.scan", table=table_name)
+        with obs_trace.span("scan", table=table_name, k=float(k),
+                            subsampled=True) as sp:
+            if obs_trace.tracing_active():
+                sp.set(bytes_per_row=_scan_stream_bytes(striped))
+            self._sync()
+            t0 = time.perf_counter()
+            if q.agg is AggOp.QUANTILE:
+                fn = self._subsampled_quantile_programs.get(pkey)
+                if fn is None:
+                    fn = exec_lib.make_subsampled_quantile_fn(*key[2:], b)
+                    self._subsampled_quantile_programs[pkey] = fn
+                mom_sub, qv, dens, qsub = fn(k, vals, q.quantile, gsub, *args)
+                est = est_lib.subsampling_estimate(
+                    AggOp.QUANTILE, mom_sub, n_groups, b, quantile_value=qv,
+                    quantile_density=dens, quantile_values_sub=qsub,
+                    q=q.quantile)
+            else:
+                fn = self._subsampled_programs.get(pkey)
+                if fn is None:
+                    fn = exec_lib.make_subsampled_query_fn(*key[2:], b)
+                    self._subsampled_programs[pkey] = fn
+                mom_sub = fn(k, vals, gsub, *args)
+                est = est_lib.subsampling_estimate(q.agg, mom_sub, n_groups,
+                                                   b)
+            self._sync()
+            dt = time.perf_counter() - t0
+            rows = fam.prefix_for_k(k)
+            sp.set(rows_read=rows, elapsed_s=dt)
+        self._observe_scan(dt, rows)
         mom = est_lib.fold_subsamples(mom_sub, n_groups, b)
         return self._answer_from_moments(
-            q, table_name, phi, k, mom, fam.prefix_for_k(k), dt, confidence,
+            q, table_name, phi, k, mom, rows, dt, confidence,
             certified=certified, predicted_half_width=predicted_half_width,
             est=est)
 
@@ -984,17 +1157,18 @@ class BlinkDB:
                          certified: bool | None = None,
                          predicted_half_width: float | None = None
                          ) -> Answer:
-        """One scan at K → Answer, routed by CI method. The reference runs
-        subsampling CIs only while no fault plan is armed; the port has no
-        fault plan, so that condition always holds here."""
-        if self.config.ci_method == "subsampling":
+        """One scan at K → Answer, routed by CI method. Subsampling CIs run
+        only while no fault plan is armed: the sharded path reduces
+        per-shard moment partials that carry no subsample segments, so it
+        uses the closed forms."""
+        if self.config.ci_method == "subsampling" and inject.active() is None:
             return self._subsampled_answer(q, table_name, phi, k, confidence,
                                            certified, predicted_half_width)
-        mom, rows_read, dt, qpair = self._scan_for_query(table_name, q,
-                                                         phi, k)
+        mom, rows_read, dt, rep, qpair = self._scan_for_query(table_name, q,
+                                                              phi, k)
         return self._answer_from_moments(
             q, table_name, phi, k, mom, rows_read, dt, confidence,
-            qpair=qpair, certified=certified,
+            faults=rep, qpair=qpair, certified=certified,
             predicted_half_width=predicted_half_width)
 
     # --------------------------- a-priori ERROR WITHIN contracts (§4.2)
@@ -1007,7 +1181,8 @@ class BlinkDB:
         projection."""
         fam = self.families[table_name][phi]
         k_probe = min(fam.ks)
-        mom, _, _, qpair = self._scan_for_query(table_name, q, phi, k_probe)
+        mom, _, _, _, qpair = self._scan_for_query(table_name, q, phi,
+                                                   k_probe)
         est = self._estimate_for(q, table_name, phi, k_probe, mom, qpair)
         return self._certify_from_pilot(q, fam, k_probe, est, confidence)
 
@@ -1035,7 +1210,7 @@ class BlinkDB:
         (inflated) CI of a scan there."""
         fam = self.families[table_name][phi]
         k_top = fam.ks[0]
-        mom, _, _, qpair = self._scan_for_query(table_name, q, phi, k_top)
+        mom, _, _, _, qpair = self._scan_for_query(table_name, q, phi, k_top)
         est = self._estimate_for(q, table_name, phi, k_top, mom, qpair)
         infl = est_lib.pilot_inflation(
             est.n.cpu().numpy().astype(np.float64), confidence)
@@ -1100,15 +1275,21 @@ class BlinkDB:
                                predicted_half_width=half,
                                gen=self.family_generation(table_name, p))
 
-        k_q, half = (self._pilot_certify(table_name, q, phi, confidence)
-                     if first is None else first)
+        if first is None:
+            with obs_trace.span("plan.pilot", family=list(phi)):
+                k_q, half = self._pilot_certify(table_name, q, phi,
+                                                confidence)
+        else:
+            k_q, half = first
         if k_q is not None and not self._quantile_floor_met(table_name, q,
                                                             phi, k_q):
             k_q = None
         if k_q is None and half is not None:
             # Containment refinement: the top prefix may fully contain the
             # strata the predicate touches (rate 1 ⇒ zero variance).
-            k_q, half = self._certify_at_top(table_name, q, phi, confidence)
+            with obs_trace.span("plan.certify_top", family=list(phi)):
+                k_q, half = self._certify_at_top(table_name, q, phi,
+                                                 confidence)
         if k_q is not None:
             return decide(phi, k_q, True, half)
         best_phi, best_half = phi, half
@@ -1118,9 +1299,12 @@ class BlinkDB:
             for p2 in sorted((p for p in fams
                               if p != phi and size(p) > size(phi)),
                              key=size):
-                k2, half2 = self._pilot_certify(table_name, q, p2, confidence)
+                with obs_trace.span("plan.escalate", family=list(p2)):
+                    k2, half2 = self._pilot_certify(table_name, q, p2,
+                                                    confidence)
                 if k2 is not None and self._quantile_floor_met(
                         table_name, q, p2, k2):
+                    self._m_escalations.inc()
                     return decide(p2, k2, True, half2)
                 if half2 is not None and (best_half is None
                                           or half2 < best_half):
@@ -1131,6 +1315,7 @@ class BlinkDB:
             # takes the exact fallback).
             if q.bound.strict:
                 if self.config.exact_fallback:
+                    self._m_exact_fallbacks.inc()
                     return decide(phi, float(fams[phi].ks[0]), True, 0.0,
                                   exact=True)
                 raise BoundUnreachableError(
@@ -1139,6 +1324,7 @@ class BlinkDB:
                     f"row (nothing to project from)", None)
             return decide(phi, fams[phi].ks[0], False, None)
         if self.config.exact_fallback:
+            self._m_exact_fallbacks.inc()
             return decide(phi, float(fams[phi].ks[0]), True, 0.0, exact=True)
         if q.bound.strict:
             raise BoundUnreachableError(
@@ -1200,8 +1386,8 @@ class BlinkDB:
         cat_cols = self._selection_cat_cols(table_name, q)
 
         def probe(phi: tuple[str, ...]) -> tuple[float, float]:
-            mom, rows_read, _ = self._run_at_k(table_name, q, phi,
-                                               min(fams[phi].ks))
+            mom, rows_read, _, _ = self._run_at_k(table_name, q, phi,
+                                                  min(fams[phi].ks))
             return float(mom.n.sum()), float(rows_read)
 
         return select_family(cat_cols, fams, probe).phi
@@ -1216,28 +1402,39 @@ class BlinkDB:
         if len(subqueries) > 1:
             return _union_answers(q, [self.query(sq) for sq in subqueries])
 
+        self._m_queries.labels("query").inc()
         table_name = q.table
         self._resolve_joins(table_name, q)
-        phi = self._select_phi(table_name, q)
-        confidence = q.bound.confidence if q.bound else 0.95
-        if isinstance(q.bound, TimeBound):
-            # The reuse unit is the LatencyModel, re-projected per call.
-            k_q = self._pick_k_for_time(table_name, q, phi)
-            return self._scan_and_answer(q, table_name, phi, k_q, confidence)
-        struct, _ = exec_lib.pred_structure(
-            exec_lib.bind_predicate(q.predicate, self._encode(table_name)))
-        elp_key = (table_name, phi, struct, q.agg, q.value_column,
-                   q.group_by, repr(q.bound))
-        dec = (self._cached_decision(elp_key, table_name)
-               if self.config.reuse_elp else None)
+        with obs_trace.span("plan", table=table_name) as sp:
+            phi = self._select_phi(table_name, q)
+            confidence = q.bound.confidence if q.bound else 0.95
+            if isinstance(q.bound, TimeBound):
+                # The reuse unit is the LatencyModel, re-projected per call.
+                k_q = self._pick_k_for_time(table_name, q, phi)
+                sp.set(bound="time", family=list(phi), k=float(k_q))
+                dec = None
+            else:
+                struct, _ = exec_lib.pred_structure(exec_lib.bind_predicate(
+                    q.predicate, self._encode(table_name)))
+                elp_key = (table_name, phi, struct, q.agg, q.value_column,
+                           q.group_by, repr(q.bound))
+                cached = (self._cached_decision(elp_key, table_name)
+                          if self.config.reuse_elp else None)
+                dec = cached
+                if dec is None:
+                    if isinstance(q.bound, ErrorBound):
+                        dec = self._plan_error_bound(table_name, q, phi,
+                                                     confidence)
+                    else:   # no bound: most accurate available sample
+                        dec = ElpDecision(
+                            phi, self.families[table_name][phi].ks[0], None,
+                            gen=self.family_generation(table_name, phi))
+                    self._elp_cache[elp_key] = dec
+                sp.set(family=list(dec.phi), k=float(dec.k),
+                       certified=dec.certified, exact=dec.exact,
+                       cached=cached is not None)
         if dec is None:
-            if isinstance(q.bound, ErrorBound):
-                dec = self._plan_error_bound(table_name, q, phi, confidence)
-            else:   # no bound: most accurate available sample
-                dec = ElpDecision(phi, self.families[table_name][phi].ks[0],
-                                  None,
-                                  gen=self.family_generation(table_name, phi))
-            self._elp_cache[elp_key] = dec
+            return self._scan_and_answer(q, table_name, phi, k_q, confidence)
         return self._execute_decision(q, table_name, dec, confidence)
 
     def _pick_k_for_time(self, table_name: str, q: Query,
@@ -1251,7 +1448,7 @@ class BlinkDB:
         model = self._latency.get((table_name, phi))
         if model is None:
             def run_at_k(k):
-                mom, _, dt = self._run_at_k(table_name, q, phi, k)
+                mom, _, dt, _ = self._run_at_k(table_name, q, phi, k)
                 return float(mom.n.sum()), dt
             probes = elp_lib.run_probes(
                 fam, run_at_k, n_probes=self.config.probe_resolutions)
@@ -1289,33 +1486,44 @@ class BlinkDB:
 
     def _run_batched(self, scan_key, ks: Sequence[float],
                      consts_list: Sequence[tuple[float, ...]]
-                     ) -> tuple[est_lib.GroupedMoments, float]:
+                     ) -> tuple[est_lib.GroupedMoments, float,
+                                exec_lib.ShardScanReport | None]:
         """One fused multi-query scan over a family block → (moments with
-        leaves [Q, G], seconds), the device synchronised around it. Batches
-        over _MAX_SCAN_BATCH run as back-to-back launches; each query's
-        moments have the bits of the same query scanned alone."""
-        return self._batched_scan(scan_key, ks, consts_list, False)
+        leaves [Q, G], seconds, fault report), the device synchronised
+        around it. Batches over _MAX_SCAN_BATCH run as back-to-back
+        launches; each query's moments have the bits of the same query
+        scanned alone. Under an armed fault plan the scan is
+        shard-partitioned as in _run_at_k; the report (None when clean)
+        applies to every query of the batch."""
+        return self._batched_scan(scan_key, ks, consts_list, False)[:3]
 
     def _run_batched_subsampled(self, scan_key, ks: Sequence[float],
                                 consts_list: Sequence[tuple[float, ...]]
-                                ) -> tuple[est_lib.GroupedMoments, float]:
+                                ) -> tuple[est_lib.GroupedMoments, float,
+                                           None]:
         """_run_batched with per-subsample segments (ci_method=
         "subsampling"): the same launches with the G·B group column, leaves
-        [Q, G·B], each query's the bits of query()'s subsampled scan."""
-        return self._batched_scan(scan_key, ks, consts_list, True)
+        [Q, G·B], each query's the bits of query()'s subsampled scan. Never
+        fault-sharded: query_batch routes armed-plan scans to the
+        closed-form path."""
+        return self._batched_scan(scan_key, ks, consts_list, True)[:3]
 
     def _batched_scan(self, scan_key, ks, consts_list, subsampled: bool):
+        """→ (moments, seconds, fault report, rows read)."""
         run = (self._run_batched_subsampled if subsampled
                else self._run_batched)
+        table_name, phi, struct, _, group_col = scan_key[:5]
+        fam = self.families[table_name][phi]
         n_q = len(ks)
         if n_q > _MAX_SCAN_BATCH:
             parts = [run(scan_key, ks[i:i + _MAX_SCAN_BATCH],
                          consts_list[i:i + _MAX_SCAN_BATCH])
                      for i in range(0, n_q, _MAX_SCAN_BATCH)]
             mom = est_lib.GroupedMoments.from_stacked(
-                torch.cat([m.stacked() for m, _ in parts]))
-            return mom, sum(d for _, d in parts)
-        table_name, phi, struct, _, group_col = scan_key[:5]
+                torch.cat([m.stacked() for m, _, _ in parts]))
+            return (mom, sum(d for _, d, _ in parts),
+                    exec_lib.merge_shard_reports([r for _, _, r in parts]),
+                    fam.prefix_for_k(max(ks)))
         striped = self._striped_for(table_name, phi)
         if subsampled:
             b = self.config.n_subsamples
@@ -1337,11 +1545,46 @@ class BlinkDB:
         consts_t = torch.tensor([list(c) for c in consts_list],
                                 dtype=torch.float32
                                 ).reshape(n_q, n_atoms).to(self.device)
-        self._sync()
-        t0 = time.perf_counter()
-        mom = fn(ks_t, consts_t, *lead, *exec_lib.scan_args(striped))
-        self._sync()
-        return mom, time.perf_counter() - t0
+        args = exec_lib.scan_args(striped)
+        inject.site("engine.scan", table=table_name)
+        attrs = {"subsampled": True} if subsampled else {}
+        with obs_trace.span("scan", table=table_name, batch=n_q,
+                            k=float(max(ks)), **attrs) as sp:
+            if obs_trace.tracing_active():
+                sp.set(bytes_per_row=_scan_stream_bytes(striped))
+                if not subsampled:
+                    self._set_placement_attrs(sp, table_name, phi, fam,
+                                              struct, consts_list)
+            report = None
+            self._sync()
+            t0 = time.perf_counter()
+            if not subsampled and self._fault_sharding_active():
+                def call(mask):
+                    # The shard's mask in the `valid` slot; synchronised,
+                    # so the straggler deadline measures the attempt.
+                    m = fn(ks_t, consts_t, *args[:-1], mask)
+                    self._sync()
+                    return m
+                mom, report = exec_lib.run_sharded_scan(
+                    call, striped,
+                    n_logical=self.config.n_logical_shards,
+                    n_replicas=self.config.shard_replicas,
+                    site_ctx={"table": table_name},
+                    deadline_s=self.config.straggler_deadline_s,
+                    placement=self._placement_for(table_name, phi))
+            else:
+                mom = fn(ks_t, consts_t, *lead, *args)
+            self._sync()
+            dt = time.perf_counter() - t0
+            rows = fam.prefix_for_k(max(ks))
+            sp.set(rows_read=rows, elapsed_s=dt)
+            if report is not None:
+                sp.set(shards=report.n_shards, lost=list(report.lost),
+                       rerouted=list(report.rerouted),
+                       reweight=report.reweight)
+        self._observe_scan(dt, rows)
+        self._count_shard_report(report)
+        return mom, dt, report, rows
 
     def query_batch(self, queries: Sequence[Query],
                     deadline_headroom_s: float = 0.0) -> list[Answer]:
@@ -1368,14 +1611,16 @@ class BlinkDB:
         queries = list(queries)
         if not queries:
             return []
+        self._m_queries.labels("batch").inc(len(queries))
         sel_cache: dict = {}
         jobs: list[_BatchJob] = []
         n_subs = [0] * len(queries)
-        for pi, q in enumerate(queries):
-            for sq in rewrite_disjuncts(q):
-                jobs.append(self._plan_batch_job(pi, n_subs[pi], sq,
-                                                 sel_cache))
-                n_subs[pi] += 1
+        with obs_trace.span("plan", batch=len(queries), stage="select"):
+            for pi, q in enumerate(queries):
+                for sq in rewrite_disjuncts(q):
+                    jobs.append(self._plan_batch_job(pi, n_subs[pi], sq,
+                                                     sel_cache))
+                    n_subs[pi] += 1
 
         # Decisions that cannot join the shared scan (exact fallback, or
         # escalation onto another family) run out of band.
@@ -1415,8 +1660,10 @@ class BlinkDB:
         for scan_key, group in probe_groups.items():
             fam = self.families[group[0].table][group[0].phi]
             k_probe = min(fam.ks)
-            mom, _ = self._run_batched(scan_key, [k_probe] * len(group),
-                                       [j.consts for j in group])
+            with obs_trace.span("plan.pilot", batch=len(group)):
+                mom, _, _ = self._run_batched(scan_key,
+                                              [k_probe] * len(group),
+                                              [j.consts for j in group])
             for i, job in enumerate(group):
                 # Later jobs of one elp_key replay the first one's decision,
                 # as sequential query() calls would.
@@ -1439,9 +1686,9 @@ class BlinkDB:
             if id(job) not in oob:
                 final_groups.setdefault(job.scan_key, []).append(job)
         sub_answers: list[list[tuple[int, Answer]]] = [[] for _ in queries]
-        # Subsampling CIs as in query(): the reference's no-fault-plan
-        # condition always holds in the port.
-        use_sub = self.config.ci_method == "subsampling"
+        # Subsampling CIs as in query(): only with no fault plan armed.
+        use_sub = (self.config.ci_method == "subsampling"
+                   and inject.active() is None)
         b = self.config.n_subsamples
         for scan_key, group in final_groups.items():
             n_groups = scan_key[5]
@@ -1451,8 +1698,8 @@ class BlinkDB:
                                        for j in group)
             runner = (self._run_batched_subsampled if sub_mode
                       else self._run_batched)
-            mom, dt = runner(scan_key, [j.k for j in group],
-                             [j.consts for j in group])
+            mom, dt, rep = runner(scan_key, [j.k for j in group],
+                                  [j.consts for j in group])
             for i, job in enumerate(group):
                 fam = self.families[job.table][job.phi]
                 mi = est_lib.moments_slice(mom, i)
@@ -1464,7 +1711,7 @@ class BlinkDB:
                 ans = self._answer_from_moments(
                     job.q, job.table, job.phi, job.k, mi,
                     fam.prefix_for_k(job.k), dt / len(group), job.confidence,
-                    certified=job.certified,
+                    faults=rep, certified=job.certified,
                     predicted_half_width=job.predicted_half, est=est)
                 sub_answers[job.parent].append((job.order, ans))
 
@@ -1491,6 +1738,7 @@ class BlinkDB:
         whose group code lies outside [0, G) (a join's dangling key) land
         in no group. Only the columns the query names are read, so a
         column an append left stale on the device is uploaded here."""
+        self._m_queries.labels("exact").inc()
         tbl = self.tables[q.table]
         self._resolve_joins(q.table, q)
         bound_pred = exec_lib.bind_predicate(q.predicate, self._encode(q.table))
@@ -1503,30 +1751,36 @@ class BlinkDB:
             [tbl.schema.column_names[0]]
         cols = {c: tbl.columns[c] for c in names}
         live = tbl.live_mask_device()
-        self._sync()
-        t0 = time.perf_counter()
-        mask = exec_lib.eval_pred(struct, cols, vals) & live
-        ones = torch.ones(tbl.n_rows, dtype=torch.float32, device=self.device)
-        values = (cols[q.value_column].to(torch.float32)
-                  if q.value_column else ones)
-        g = (cols[group_col] if group_col
-             else torch.zeros(tbl.n_rows, dtype=torch.int32,
-                              device=self.device))
-        mom = est_lib.grouped_moments(values, ones, mask, g, n_groups,
-                                      accumulate=torch.float64)
-        if q.agg is AggOp.QUANTILE:
-            # Histogram counts summed in float64 and rounded to float32:
-            # the reference's float32 counts wherever no bin passes 2^24.
-            qv, dens = exec_lib.grouped_quantile(
-                values, mask.to(torch.float32), g, n_groups, q.quantile,
-                accumulate=torch.float64)
-            est = est_lib.estimate(AggOp.QUANTILE, mom, quantile_value=qv,
-                                   quantile_density=dens, q=q.quantile)
-        else:
-            est = est_lib.estimate(q.agg, mom)
-        vals_h = est.value.cpu().numpy()
-        ns = est.n.cpu().numpy()
-        dt = time.perf_counter() - t0
+        with obs_trace.span("scan.exact", table=q.table) as sp:
+            self._sync()
+            t0 = time.perf_counter()
+            mask = exec_lib.eval_pred(struct, cols, vals) & live
+            ones = torch.ones(tbl.n_rows, dtype=torch.float32,
+                              device=self.device)
+            values = (cols[q.value_column].to(torch.float32)
+                      if q.value_column else ones)
+            g = (cols[group_col] if group_col
+                 else torch.zeros(tbl.n_rows, dtype=torch.int32,
+                                  device=self.device))
+            mom = est_lib.grouped_moments(values, ones, mask, g, n_groups,
+                                          accumulate=torch.float64)
+            if q.agg is AggOp.QUANTILE:
+                # Histogram counts summed in float64 and rounded to float32:
+                # the reference's float32 counts wherever no bin passes
+                # 2^24.
+                qv, dens = exec_lib.grouped_quantile(
+                    values, mask.to(torch.float32), g, n_groups, q.quantile,
+                    accumulate=torch.float64)
+                est = est_lib.estimate(AggOp.QUANTILE, mom,
+                                       quantile_value=qv,
+                                       quantile_density=dens, q=q.quantile)
+            else:
+                est = est_lib.estimate(q.agg, mom)
+            vals_h = est.value.cpu().numpy()
+            ns = est.n.cpu().numpy()
+            dt = time.perf_counter() - t0
+            sp.set(rows_read=tbl.n_rows, elapsed_s=dt)
+        self._observe_scan(dt, tbl.n_rows)
         groups = []
         for gidx in range(len(vals_h)):
             if ns[gidx] == 0:
@@ -1573,6 +1827,12 @@ def _union_answers(q: Query, answers: list[Answer]) -> Answer:
     return Answer(q, groups, answers[0].sample_phi, answers[0].sample_k,
                   sum(a.rows_read for a in answers), answers[0].rows_total,
                   sum(a.elapsed_s for a in answers), answers[0].confidence,
+                  # One degraded disjunct makes the union degraded (the
+                  # widest loss across sub-answers is reported).
+                  degraded=any(a.degraded for a in answers),
+                  shards_lost=max(a.shards_lost for a in answers),
+                  shards_total=max(a.shards_total for a in answers),
+                  staleness_s=max(a.staleness_s for a in answers),
                   # The union claims the bound only when EVERY disjunct did.
                   bound_met=(None if all(m is None for m in mets)
                              else all(bool(m) for m in mets)),

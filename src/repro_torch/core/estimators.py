@@ -200,6 +200,41 @@ def grouped_moments(values: torch.Tensor, rates: torch.Tensor,
         var_count=seg(vfac), var_sum=seg(vfac * x), var_sum2=seg(vfac * x * x))
 
 
+def reweight_moments(mom: GroupedMoments, factor: float) -> GroupedMoments:
+    """Second-phase HT correction after losing fault-domain shards.
+
+    Shards are disjoint stratum partitions; losing L of S leaves survivors
+    whose rows compose their inclusion rate r with a second inclusion phase
+    of rate 1/f, f = S/(S-L). The composed rate r/f gives HT weight f·w, so
+    the weighted point leaves scale by f, and the per-row variance term
+
+        (1-r')/r'² = f²(1-r)/r² + f(f-1)/r,
+
+    so each variance leaf becomes f²·var + f(f-1)·(matching w-leaf of the
+    survivors). f > 1 strictly grows every variance: degraded CIs are wider
+    than the clean scan's. `n` counts surviving rows and is not reweighted.
+    f, f² and f(f-1) are float32 scalars, as in the reference."""
+    f = np.float32(factor)
+    ff, g = float(f * f), float(f * (f - np.float32(1.0)))
+    f = float(f)
+    return GroupedMoments(
+        n=mom.n,
+        wsum=f * mom.wsum,
+        wxsum=f * mom.wxsum,
+        wx2sum=f * mom.wx2sum,
+        var_count=ff * mom.var_count + g * mom.wsum,
+        var_sum=ff * mom.var_sum + g * mom.wxsum,
+        var_sum2=ff * mom.var_sum2 + g * mom.wx2sum)
+
+
+def moments_finite(mom: GroupedMoments) -> bool:
+    """True iff every statistic is finite: the detection boundary for a
+    poisoned (NaN/Inf) shard partial, caught here before it reaches the
+    cross-shard sum. One reduction over the seven leaves on their device,
+    then one read of a bool."""
+    return bool(torch.isfinite(mom.stacked()).all())
+
+
 def moments_slice(mom: GroupedMoments, i: int) -> GroupedMoments:
     """Query i of a batched GroupedMoments (leaves [Q, G] → [G])."""
     return GroupedMoments(*(getattr(mom, f.name)[i]

@@ -32,6 +32,9 @@ scan over the selection as a single atom column).
 from __future__ import annotations
 
 import dataclasses
+import functools
+import time
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -39,7 +42,11 @@ import torch
 from repro_torch.core import estimators as est_lib
 from repro_torch.core.sampling import SampleFamily
 from repro_torch.core.types import QUANTILE_BINS, CmpOp, Predicate, cmp_fns
+from repro_torch.fault import inject
+from repro_torch.fault.inject import (AllShardsLostError, FaultError,
+                                      ShardScanError)
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import trace as obs_trace
 
 _CMP = cmp_fns()
 # The reference kernels' per-query constant block: lane 0 holds k, the
@@ -837,3 +844,172 @@ def make_subsampled_quantile_fn(struct, value_col: str,
         return mom_sub, qval, dens, qsub
 
     return fn
+
+
+# ---------------------------------------------------------------------------
+# Fault-domain sharded scans (replicated logical shards over a striped block)
+# ---------------------------------------------------------------------------
+#
+# Fault domains are a logical partition of the block: each stratum hashes to
+# one of `n_logical` shards, so the shards are disjoint row sets whose
+# per-shard GroupedMoments partials sum to the full scan's statistics. Every
+# scan program takes the block's `valid` mask as an argument, so a per-shard
+# scan is the same program, the same kernel launch, with
+# `valid & (stratum_hash == s)` in that slot.
+#
+# This path engages only under an armed non-empty FaultPlan (the engine's
+# engagement rule): the shards sum in another order than the single fused
+# pass, and the empty-plan bit-identity contract (docs/FAULTS.md) forbids
+# that unless faults are possible.
+#
+# The hash is the reference's uint32 one, (uint32(strat) · 2654435761) mod
+# 2^32 mod n_logical. torch has no general uint32 arithmetic on the card,
+# and an int64 product of two 32-bit values can pass 2^63, so the low 32
+# bits of the product are formed exactly in int64 from the multiplier's
+# 16-bit halves: u·M ≡ u·lo + ((u·hi) mod 2^16)·2^16 (mod 2^32), every term
+# below 2^48. A negative stratum id hashes as its uint32 cast does in numpy.
+
+_MULT_HI, _MULT_LO = _SHARD_HASH_MULT >> 16, _SHARD_HASH_MULT & 0xFFFF
+_LOW16, _LOW32 = 0xFFFF, 0xFFFFFFFF
+
+
+def _shard_hash(strat: torch.Tensor, n_logical: int) -> torch.Tensor:
+    """int64 shard of every stratum id (any integer dtype, any device)."""
+    u = strat.to(torch.int64) & _LOW32
+    h = (u * _MULT_LO + (((u * _MULT_HI) & _LOW16) << 16)) & _LOW32
+    return h % n_logical
+
+
+def shard_valid_mask(strat: torch.Tensor, valid: torch.Tensor, shard: int,
+                     *, n_logical: int) -> torch.Tensor:
+    """Validity mask restricted to one logical fault-domain shard: stratum
+    ids hash onto [0, n_logical), so shards are disjoint stratum
+    partitions. Torch ops on the block's device."""
+    return valid & (_shard_hash(strat, n_logical) == shard)
+
+
+def shard_of_strata(strata, n_logical: int) -> np.ndarray:
+    """Host-side view of shard_valid_mask's hash: int32 shard per stratum id
+    (numpy or torch integers)."""
+    t = torch.as_tensor(np.asarray(strata) if not torch.is_tensor(strata)
+                        else strata.cpu())
+    return _shard_hash(t, n_logical).numpy().astype(np.int32)
+
+
+def _poison_moments(mom: est_lib.GroupedMoments) -> est_lib.GroupedMoments:
+    """Corrupt a partial with NaNs (what a poison fault turns a shard's
+    result into; the detection layer must refuse it)."""
+    return est_lib.GroupedMoments.from_stacked(mom.stacked() * float("nan"))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardScanReport:
+    """What the sharded scan survived: the provenance an Answer carries."""
+    n_shards: int                 # logical shards scanned
+    lost: tuple[int, ...]         # shards with no surviving replica
+    rerouted: tuple[int, ...]     # shards served by a replica > 0
+    reweight: float               # HT factor S/(S-L) applied (1.0 = none)
+
+    @property
+    def degraded(self) -> bool:
+        return bool(self.lost)
+
+
+def merge_shard_reports(reports: Sequence["ShardScanReport | None"]
+                        ) -> "ShardScanReport | None":
+    """Union the reports of chunked scans over one family (batches past the
+    engine's 64 queries a launch): a shard lost in ANY chunk is reported
+    lost, the widest reweight wins."""
+    reps = [r for r in reports if r is not None]
+    if not reps:
+        return None
+    lost = sorted({s for r in reps for s in r.lost})
+    rerouted = sorted({s for r in reps for s in r.rerouted})
+    return ShardScanReport(max(r.n_shards for r in reps), tuple(lost),
+                           tuple(rerouted), max(r.reweight for r in reps))
+
+
+def run_sharded_scan(call, striped: StripedFamily, *, n_logical: int,
+                     n_replicas: int = 2, site_ctx: dict | None = None,
+                     deadline_s: float | None = None, placement=None
+                     ) -> tuple[est_lib.GroupedMoments, ShardScanReport]:
+    """Execute `call(valid_mask) -> GroupedMoments` once per logical shard,
+    with replica re-route and HT reweighting of the survivors.
+
+    `call` launches the scan and synchronises the device before it returns,
+    so the straggler deadline measures the attempt. Per shard, up to
+    `n_replicas` attempts run the SAME deterministic launch under distinct
+    (shard, replica) fault-site identities: a replica is a re-execution
+    that a fault plan can fail independently. An attempt fails on an
+    injected kill, a partial that is not finite (poison detection), or,
+    with `deadline_s`, an attempt past the straggler deadline. Shards whose
+    every replica fails are LOST: the surviving partials are summed in
+    shard order and HT-reweighted by S/(S-L) (estimators.reweight_moments),
+    which widens every CI. Raises AllShardsLostError when nothing survives.
+    Only FaultErrors fail an attempt: a CUDA error or a failed kernel build
+    (a RuntimeError from torch) propagates, with no replica and no retry.
+
+    With a `FamilyPlacement` (sharding/placement.py) each attempt also
+    carries the PROCESS it executes on: the chain length overrides
+    `n_replicas` (hot families run longer chains) and the fault site gains
+    a `process` key, so a FaultSpec matching `(("process", p),)` kills
+    every attempt placed on process p, with fail-over to replicas placed
+    elsewhere."""
+    ctx = dict(site_ctx or {})
+    partials: list[est_lib.GroupedMoments] = []
+    lost: list[int] = []
+    rerouted: list[int] = []
+    for s in range(n_logical):
+        mask = shard_valid_mask(striped.strat, striped.valid, s,
+                                n_logical=n_logical)
+        chain = (placement.replicas_for(s) if placement is not None
+                 else tuple(None for _ in range(n_replicas)))
+        mom = None
+        for r, proc in enumerate(chain):
+            t0 = time.perf_counter()
+            pctx = {} if proc is None else {"process": proc}
+            # Each attempt is its own span: the trace of a degraded query
+            # shows every replica tried, which ones the plan failed, the
+            # process of each, and which one served.
+            with obs_trace.span("scan.shard", shard=s, replica=r,
+                                **pctx) as sp:
+                try:
+                    action = inject.site("shard.scan", shard=s, replica=r,
+                                         **pctx, **ctx)
+                    m = call(mask)
+                    if action == "poison":
+                        m = _poison_moments(m)
+                    if deadline_s is not None \
+                            and time.perf_counter() - t0 > deadline_s:
+                        raise ShardScanError(
+                            f"shard {s} replica {r} missed the straggler "
+                            f"deadline ({deadline_s:.3f}s)")
+                    if not est_lib.moments_finite(m):
+                        raise ShardScanError(
+                            f"shard {s} replica {r} returned non-finite "
+                            "statistics (poisoned partial)")
+                    mom = m
+                    sp.set(ok=True)
+                    break
+                except FaultError as e:
+                    sp.set(ok=False, error=type(e).__name__)
+                    continue    # next replica; other errors propagate
+        if mom is None:
+            lost.append(s)
+        else:
+            if r > 0:
+                rerouted.append(s)
+            partials.append(mom)
+    if not partials:
+        n_rep = (placement.n_replicas if placement is not None
+                 else n_replicas)
+        raise AllShardsLostError(
+            f"all {n_logical} logical shards lost every one of "
+            f"{n_rep} replicas")
+    total = est_lib.GroupedMoments.from_stacked(
+        functools.reduce(torch.add, [p.stacked() for p in partials]))
+    factor = n_logical / (n_logical - len(lost))
+    if lost:
+        total = est_lib.reweight_moments(total, factor)
+    return total, ShardScanReport(n_logical, tuple(lost), tuple(rerouted),
+                                  factor)

@@ -155,6 +155,27 @@ def cmp_fns():
     }
 
 
+def _canon_value(v) -> Any:
+    """Canonical hashable Python scalar for a predicate constant: numpy
+    scalars fold onto their Python equivalents, so cache keys and QCS
+    statistics do not split on the producer's array library."""
+    if isinstance(v, (bool, np.bool_)):
+        return bool(v)
+    if isinstance(v, (int, np.integer)):
+        return int(v)
+    if isinstance(v, (float, np.floating)):
+        return float(v)
+    if isinstance(v, (str, np.str_)):
+        return str(v)
+    return v
+
+
+def _atom_order(a: "Atom") -> tuple:
+    """Total order over atoms of any value type (repr breaks ties across
+    types where `<` would raise)."""
+    return (a.column, a.op.value, type(a.value).__name__, repr(a.value))
+
+
 @dataclasses.dataclass(frozen=True)
 class Atom:
     """A single comparison predicate: `column <op> value`. For categorical
@@ -163,6 +184,10 @@ class Atom:
     column: str
     op: CmpOp
     value: Any
+
+    def normalized(self) -> "Atom":
+        v = _canon_value(self.value)
+        return self if v is self.value else dataclasses.replace(self, value=v)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,6 +198,14 @@ class Conjunction:
     @property
     def columns(self) -> frozenset[str]:
         return frozenset(a.column for a in self.atoms)
+
+    def normalized(self) -> "Conjunction":
+        """Canonical atom order, duplicate atoms dropped (AND is
+        idempotent): permutations of one conjunction compare and hash
+        equal."""
+        atoms = sorted((a.normalized() for a in self.atoms), key=_atom_order)
+        return Conjunction(tuple(a for i, a in enumerate(atoms)
+                                 if i == 0 or a != atoms[i - 1]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,6 +228,15 @@ class Predicate:
         for d in self.disjuncts:
             out |= d.columns
         return out
+
+    def normalized(self) -> "Predicate":
+        """Sorted conjuncts, each in canonical atom order, duplicates dropped
+        (OR is idempotent). Disjunct order is not semantic for the union
+        rewrite, so sorting keeps the answer."""
+        conjs = sorted((c.normalized() for c in self.disjuncts),
+                       key=lambda c: tuple(_atom_order(a) for a in c.atoms))
+        return Predicate(tuple(c for i, c in enumerate(conjs)
+                               if i == 0 or c != conjs[i - 1]))
 
 
 class AggOp(enum.Enum):
@@ -248,6 +290,34 @@ class Query:
         """Query template columns: WHERE ∪ GROUP BY (paper's φ^T)."""
         return self.predicate.columns | frozenset(self.group_by)
 
+    def normalized(self) -> "Query":
+        """Canonical, hashable form: the normalized predicate, and fields
+        without meaning for the aggregate folded to defaults (COUNT ignores
+        the value column; `quantile` matters only for QUANTILE), so cache
+        keys and QCS statistics never split on permutations of one query.
+        Idempotent."""
+        bound = self.bound
+        if isinstance(bound, ErrorBound):
+            bound = ErrorBound(float(bound.eps), float(bound.confidence),
+                               bool(bound.relative), bool(bound.strict))
+        elif isinstance(bound, TimeBound):
+            bound = TimeBound(float(bound.seconds), float(bound.confidence))
+        return dataclasses.replace(
+            self,
+            predicate=self.predicate.normalized(),
+            value_column=None if self.agg is AggOp.COUNT else self.value_column,
+            group_by=tuple(str(c) for c in self.group_by),
+            quantile=(float(self.quantile) if self.agg is AggOp.QUANTILE
+                      else 0.5),
+            bound=bound,
+            joins=tuple(self.joins))
+
+
+def normalize_query(q: Query) -> Query:
+    """Module-level alias of Query.normalized (service cache and workload
+    keys)."""
+    return q.normalized()
+
 
 @dataclasses.dataclass(frozen=True)
 class QueryTemplate:
@@ -277,10 +347,24 @@ class Answer:
     rows_total: int               # rows in the original table
     elapsed_s: float
     confidence: float
+    # Degradation provenance (docs/FAULTS.md): `degraded` marks an answer
+    # whose error contract differs from the clean path's, by shard loss
+    # (HT-reweighted, CIs widened) or by a stale cache serve (staleness_s >
+    # 0 says how old).
+    degraded: bool = False
+    shards_lost: int = 0          # fault-domain shards with no live replica
+    shards_total: int = 0         # logical shards scanned (0: unsharded)
+    staleness_s: float = 0.0      # age of a stale-cache serve (0: fresh)
     # A-priori ERROR WITHIN contract provenance: `certified` says whether
     # the pilot certified (family, K) before the main scan; `bound_met` is
-    # certified AND the realized CI half-width inside eps. None on unbounded
-    # and TimeBound queries.
+    # certified AND the realized CI half-width (after any degradation
+    # widening) inside eps. None on unbounded and TimeBound queries.
     bound_met: bool | None = None
     certified: bool | None = None
     predicted_half_width: float | None = None
+    # When the query was traced: its span tree (obs.trace.QueryTrace) and
+    # per-stage seconds ({"parse": s, "plan": s, "scan": s, ..., "total":
+    # s}). Metadata attached after execution and never cached: a traced
+    # answer is bit-identical to an untraced one.
+    trace: Any = None
+    timings: dict[str, float] | None = None

@@ -14,6 +14,12 @@ allocates outputs and per-chunk scratch with torch.empty (agg_scan up to 8
 groups and agg_scan_batched: a scratch buffer kept per stream), launches
 on the current stream and raises if the launch failed. Its `launches`
 attribute counts the kernel's launches; nothing else touches it.
+
+The wrappers may be called from several threads at once (the BlinkQL
+service's dispatcher and its solo callers): the builds, the per-stream
+scratch buffers and the launch counts are kept under locks, and each
+launch goes to the current stream of the calling thread on the tensors'
+card.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -147,11 +154,27 @@ def _load(lib: Library, path: Path) -> ctypes.CDLL:
     return handle
 
 
+_BUILD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a wrapper's `launches` (threads may launch at once)."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
 def build_all(names=None) -> dict[str, ctypes.CDLL]:
     """Compile the named libraries (default: all) that are not built yet,
     one nvcc per source, all started together, and load them. Each build
     writes to a temporary file and renames it, so concurrent builders
-    cannot load a half-written library."""
+    cannot load a half-written library; in one process, one thread builds
+    and the others wait for it."""
+    with _BUILD_LOCK:
+        return _build_all(names)
+
+
+def _build_all(names) -> dict[str, ctypes.CDLL]:
     names = list(LIBRARIES) if names is None else list(names)
     pending = []
     for name in names:
@@ -481,7 +504,7 @@ def agg_scan_fused_cuda(values, unit, strat, freq_table, valid, atom_cols,
             torch.cuda.current_stream(device).cuda_stream)
         del keep
     _raise_on(rc, "agg_scan_fused")
-    agg_scan_fused_cuda.launches += 1
+    count_launch(agg_scan_fused_cuda)
     return out
 
 
@@ -529,7 +552,7 @@ def quantile_scan_cuda(values, unit, strat, freq_table, valid, atom_cols,
             hist.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
         del keep
     _raise_on(rc, "quantile_scan")
-    quantile_scan_cuda.launches += 1
+    count_launch(quantile_scan_cuda)
     return mom, hist
 
 
@@ -551,19 +574,27 @@ def agg_scan_plan(n: int, g: int, n_sms: int) -> tuple[int, int, int]:
 # One scratch buffer per (device, stream): agg_scan's ticket word (zero
 # between launches: the kernel's last block resets it) and its chunk
 # partials. Launches on one stream run in order, so they may share it;
-# another stream gets its own.
+# another stream gets its own. Two threads on one stream (the default
+# stream of a card is every thread's until it sets another) share the
+# buffer the same way; the lock makes a first use or a growth by one thread
+# and a lookup by another see one buffer, and a caller keeps a reference to
+# the tensor it got until its launches are enqueued, so a buffer replaced
+# by a larger one is not freed under it.
 _SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
+_SCRATCH_LOCK = threading.Lock()
 
 
 def _stream_scratch(cache: dict, device, stream: int,
                     nbytes: int) -> torch.Tensor:
     """The cache's zeroed buffer for (device, stream), grown to nbytes."""
     key = (device.index, stream)
-    buf = cache.get(key)
-    if buf is None or buf.numel() * 4 < nbytes:
-        buf = torch.zeros(-(-nbytes // 4), dtype=torch.int32, device=device)
-        cache[key] = buf
-    return buf
+    with _SCRATCH_LOCK:
+        buf = cache.get(key)
+        if buf is None or buf.numel() * 4 < nbytes:
+            buf = torch.zeros(-(-nbytes // 4), dtype=torch.int32,
+                              device=device)
+            cache[key] = buf
+        return buf
 
 
 def _agg_scan_scratch(device, stream: int, nbytes: int) -> torch.Tensor:
@@ -629,7 +660,7 @@ def agg_scan_cuda(values, rates, mask, group_codes,
         n_groups, n, rows, chunks, gt, partial, ticket, out.data_ptr(),
         stream)
     _raise_on(rc, "agg_scan")
-    agg_scan_cuda.launches += 1
+    count_launch(agg_scan_cuda)
     return out
 
 
@@ -708,8 +739,9 @@ def agg_scan_batched_cuda(values, freq, entry_key, atom_cols, group_codes,
                       device=device)
     bits, partial = batched_scratch(min(q_all, MAX_QUERIES), n_groups, rows,
                                     chunks)
-    scratch = _stream_scratch(_BATCHED_SCRATCH, device, stream,
-                              bits + partial).data_ptr()
+    scratch_buf = _stream_scratch(_BATCHED_SCRATCH, device, stream,
+                                  bits + partial)
+    scratch = scratch_buf.data_ptr()
     for q0, q in batched_launches(q_all):
         rc = lib.agg_scan_batched_launch(
             values.data_ptr(), _VALUE_TAGS[values.dtype], freq.data_ptr(),
@@ -720,8 +752,8 @@ def agg_scan_batched_cuda(values, freq, entry_key, atom_cols, group_codes,
             scratch if bits else None, scratch + bits,
             out.data_ptr() + 4 * q0 * 7 * n_groups, stream)
         _raise_on(rc, "agg_scan_batched")
-        agg_scan_batched_cuda.launches += 1
-    del keep
+        count_launch(agg_scan_batched_cuda)
+    del keep, scratch_buf
     return out
 
 

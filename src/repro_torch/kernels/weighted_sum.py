@@ -54,7 +54,7 @@ def weighted_sum_cuda(values, weights, mask
             partial.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     agg_scan._raise_on(rc, "weighted_sum")
-    weighted_sum_cuda.launches += 1
+    agg_scan.count_launch(weighted_sum_cuda)
     return out[0], out[1], out[2]
 
 

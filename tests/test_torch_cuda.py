@@ -1085,3 +1085,107 @@ def test_decayed_dead_stratum_zero_leaves_every_kernel_equal_plain(
             rtol=RTOL, atol=ATOL)
     _assert_answers_equal(cpu, card, _mutation_queries()[:4],
                           ("agg_scan_fused", "quantile_scan"))
+
+
+@pytest.mark.cuda
+def test_wrappers_from_eight_threads_equal_one_thread(cuda_device):
+    """Eight threads launch agg_scan (its one-launch kernel with the
+    per-stream scratch and ticket word), agg_scan_batched (its per-stream
+    scratch) and the fused scan at once, the scratch buffers dropped first
+    so their first use is concurrent: every output equals the same launch
+    from one thread bit for bit, and every launch is counted."""
+    import threading
+    rng = np.random.default_rng(31)
+    rates = _rate_case(rng, 100_003, 6, np.float32, cuda_device)
+    t = _case(rng, 100_003, 6, 7, 1, cuda_device)
+    struct, slots = ((CmpOp.LE,),), (0,)
+    batched_in = _batched_from_fused(t, 1)
+
+    def launch_all():
+        return (agg_scan.agg_scan_cuda(*rates, 6),
+                agg_scan.agg_scan_batched_cuda(*batched_in, t["ks"],
+                                               t["pred_consts"], struct, 6),
+                _call(agg_scan.agg_scan_fused_cuda, t, struct, slots, 6))
+    want = launch_all()
+    torch.cuda.synchronize()
+    agg_scan._SCRATCH.clear()
+    agg_scan._BATCHED_SCRATCH.clear()
+    names = ("agg_scan_cuda", "agg_scan_batched_cuda", "agg_scan_fused_cuda")
+    before = [getattr(agg_scan, n).launches for n in names]
+    barrier = threading.Barrier(8)
+    got, errors = {}, []
+
+    def worker(i):
+        try:
+            barrier.wait()
+            got[i] = launch_all()
+            torch.cuda.synchronize()
+        except BaseException as e:   # noqa: BLE001 — re-raised below
+            errors.append(e)
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert not errors and not any(th.is_alive() for th in threads), errors
+    for i in range(8):
+        for a, b in zip(got[i], want):
+            assert torch.equal(a, b)
+    assert [getattr(agg_scan, n).launches - b0
+            for n, b0 in zip(names, before)] == [8, 8, 8]
+
+
+@pytest.mark.cuda
+def test_fault_plans_and_service_on_the_card(cuda_device):
+    """On the card: a replica-0 kill on every shard equals the clean
+    sharded scan bit for bit, one shard lost degrades the answer, and
+    BlinkQL from eight session threads answers bit for bit as query() on
+    the same engine."""
+    import threading
+    from repro_torch.fault.inject import FaultPlan, FaultSpec, arm
+    from repro_torch.service import (BlinkQLService, ServiceConfig,
+                                     parse_blinkql)
+    db = BlinkDB(EngineConfig(k1=400.0, m=3, seed=1), device="cuda")
+    db.register_table("sessions", table_lib.from_columns(
+        "sessions", synth.sessions_table(60_000, seed=2)))
+    db.add_family("sessions", ("City",))
+    db.add_family("sessions", ())
+    assert db.device.index is not None
+    text = ("SELECT SUM(SessionTime) FROM sessions GROUP BY City "
+            "ERROR WITHIN 20%")
+    q = parse_blinkql(text, db).normalized()
+    db.query(q)
+
+    def run(*specs):
+        with arm(FaultPlan(list(specs), seed=0)):
+            return db.query(q)
+    clean = run(FaultSpec(site="shard.scan", kind="kill",
+                          match=(("shard", 99),)))
+    rerouted = run(FaultSpec(site="shard.scan", kind="kill",
+                             match=(("replica", 0),)))
+    lost = run(FaultSpec(site="shard.scan", kind="kill",
+                         match=(("shard", 1),)))
+    assert clean.shards_total == 4 and not clean.degraded
+    assert [(g.key, g.estimate, g.stderr) for g in rerouted.groups] == \
+        [(g.key, g.estimate, g.stderr) for g in clean.groups]
+    assert lost.degraded and lost.shards_lost == 1
+    cities = db.tables["sessions"].dictionaries["City"]
+    texts = [f"SELECT AVG(SessionTime) FROM sessions WHERE City = '{c}' "
+             "ERROR WITHIN 10%" for c in cities[:8]]
+    got, barrier = {}, threading.Barrier(8)
+    with BlinkQLService(db, config=ServiceConfig(batch_window_s=0.01,
+                                                 use_cache=False)) as svc:
+        def session(i):
+            barrier.wait()
+            got[i] = svc.submit(texts[i])
+        threads = [threading.Thread(target=session, args=(i,))
+                   for i in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        assert not any(th.is_alive() for th in threads)
+    for i, t in enumerate(texts):
+        want = db.query(parse_blinkql(t, db).normalized())
+        assert [(g.key, g.estimate, g.stderr) for g in got[i].groups] == \
+            [(g.key, g.estimate, g.stderr) for g in want.groups]

@@ -34,9 +34,14 @@ def one_torch_thread():
                           "Q1 true relative errors"]),
     ("torch_approx_analytics", ["eps= 0.02", "COUNT(os0 OR os5)",
                                 "p95(SessionTime)", "rare city"]),
+    ("torch_telemetry_queries", ["per-domain AVG(loss) within 10%@95%",
+                                 "late high-grad events", "EXPLAIN",
+                                 "'hits': 1", "'healthy': True"]),
 ])
 def test_example_runs_on_the_cpu(capsys, name, markers):
-    _example(name).main(["--device", "cpu", "--rows", "40000"])
+    size = (["--steps", "5000"] if name == "torch_telemetry_queries"
+            else ["--rows", "40000"])
+    _example(name).main(["--device", "cpu", *size])
     out = capsys.readouterr().out
     for m in markers:
         assert m in out, (m, out)
@@ -59,6 +64,7 @@ def test_query_driver_time_bound(capsys):
 @pytest.mark.parametrize("run", [
     lambda: _example("torch_quickstart").main(["--rows", "1000"]),
     lambda: _example("torch_approx_analytics").main(["--rows", "1000"]),
+    lambda: _example("torch_telemetry_queries").main(["--steps", "200"]),
     lambda: query_launch.main(["--rows", "1000"]),
 ])
 def test_entry_points_run_on_the_card_by_default(run):

@@ -9,7 +9,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     sorted((ROOT / "examples").glob("torch_*.py")) + \
-    [ROOT / "chip_smoke.py", ROOT / "kernel_times.py"]
+    [ROOT / "chip_smoke.py", ROOT / "kernel_times.py",
+     ROOT / "compare_answers.py"]
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)\b(?!_))", re.M)
 
@@ -24,6 +25,13 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import repro_torch.launch.query, repro_torch.obs.clock\n"
         "import repro_torch.core.maintenance, repro_torch.obs.metrics\n"
         "from repro_torch.core import estimators, executor, joins\n"
+        "import repro_torch.fault, repro_torch.fault.inject\n"
+        "import repro_torch.fault.supervisor, repro_torch.sharding\n"
+        "import repro_torch.sharding.placement, repro_torch.service\n"
+        "import repro_torch.service.parser, repro_torch.service.cache\n"
+        "import repro_torch.service.workload, repro_torch.service.scheduler\n"
+        "import repro_torch.obs, repro_torch.obs.trace\n"
+        "import repro_torch.launch.roofline\n"
         "bad = [m for m in sys.modules if m in ('jax', 'repro')\n"
         "       or m.startswith(('jax.', 'repro.'))]\n"
         "assert not bad, bad\n"
@@ -39,6 +47,19 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "             'add_invalidation_listener'):\n"
         "    assert hasattr(BlinkDB, name), name\n"
         "assert hasattr(repro_torch.core.maintenance, 'SampleMaintainer')\n"
+        "for name in ('run_sharded_scan', 'shard_valid_mask',\n"
+        "             'shard_of_strata', 'merge_shard_reports'):\n"
+        "    assert hasattr(executor, name), name\n"
+        "for name in ('reweight_moments', 'moments_finite'):\n"
+        "    assert hasattr(estimators, name), name\n"
+        "for name in ('mark_hot_family', '_fault_sharding_active'):\n"
+        "    assert hasattr(BlinkDB, name), name\n"
+        "assert hasattr(repro_torch.service, 'BlinkQLService')\n"
+        "assert hasattr(repro_torch.obs, 'QueryTrace')\n"
+        "assert hasattr(repro_torch.fault, 'FaultPlan')\n"
+        "assert hasattr(repro_torch.sharding.placement, 'PlacementMap')\n"
+        "assert hasattr(repro_torch.launch.roofline, 'scan_bytes_per_row')\n"
+        "assert not hasattr(repro_torch.launch.roofline, 'HBM_BW')\n"
         "# importing builds no kernel: nvcc runs at a kernel's first launch\n"
         "assert all(lib.handle is None for lib in agg_scan.LIBRARIES.values())\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -49,6 +70,13 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
 
 def test_no_port_file_imports_jax_or_reference():
     assert len(PORT_FILES) > 10
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for sub in ("fault/inject.py", "fault/supervisor.py",
+                "sharding/placement.py", "service/parser.py",
+                "service/cache.py", "service/workload.py",
+                "service/scheduler.py", "obs/trace.py",
+                "launch/roofline.py"):
+        assert f"src/repro_torch/{sub}" in names, sub
     for path in PORT_FILES:
         hits = _FORBIDDEN.findall(path.read_text())
         assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
