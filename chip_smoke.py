@@ -100,6 +100,16 @@ Phases, each reported on its own lines:
      answer bit-identical to query() on the same engine, the repeats from
      the cache, EXPLAIN and SHOW METRICS; qps, submit latency p50/p99,
      batches and fused launches by Q;
+  3h. the multi-device path (between 3g and 4): BlinkDB(mesh=DeviceMesh)
+     in spawned worlds of 2 and 4 ranks on the one card (gloo carries the
+     partials), on a sessions table cut to 5M rows (K1 25,000): phase 3's
+     16 queries, a QUANTILE GROUP BY, 12 of phase 3b's batch, a
+     subsampled CI, and an append followed by two queries, twice from
+     scratch; every rank's launches of the fused, quantile and agg_scan
+     kernels held against their plain versions, the answers equal in bits
+     across ranks and runs and held to the same session on one device
+     (family, K and keys; rtol 1e-4, a QUANTILE within one bin); each
+     kernel's times on a rank's stripe of phase 3's families;
   4. times: each kernel at the main path's shapes (agg_scan_fused and
      quantile_scan at G = 1, 6, 200 and 500) against its bound and its
      plain version, quantile_scan beside the yardstick agg_scan_fused +
@@ -2668,6 +2678,281 @@ def phase_serving(torch, np, main, card: str, device="cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 3h
+
+MESH_WORLDS = (2, 4)
+MESH_KERNELS = ("agg_scan_fused", "quantile_scan", "agg_scan")
+# The mesh's own table: phase 3's table and families (20M rows) made the
+# phase take 167.3 s (two worlds, two runs each, every launch held to
+# plain), past its ~120 s; cut to a quarter, K1 at phase 3's ratio.
+MESH_ROWS, MESH_K1 = 5_000_000, 25_000.0
+
+
+def mesh_source(db, path: str) -> None:
+    """Pickle db's sessions table (its host columns) and families for the
+    ranks."""
+    import pickle
+    from repro_torch.core import table as table_lib
+    tbl = db.tables["sessions"]
+    host = table_lib.Table(tbl.schema, tbl.columns_host, tbl.dictionaries,
+                           tbl.n_rows, live=tbl.live)
+    with open(path, "wb") as f:
+        pickle.dump((host, dict(db.families["sessions"])), f,
+                    protocol=pickle.HIGHEST_PROTOCOL)
+
+
+def mesh_session(main, path: str, device: str, runs: int):
+    """Phase 3h's workload, the same on every rank, `runs` times from
+    scratch: phase 3's 16 queries, one QUANTILE GROUP BY, 12 of phase 3b's
+    batch through query_batch, one subsampled CI, and an append of 50,000
+    rows followed by two queries; every launch held against its plain
+    version."""
+    from repro_torch.core import (AggOp, Atom, CmpOp, ErrorBound, Predicate,
+                                  Query)
+    from repro_torch.data import synth
+    from repro_torch.launch import mesh as mesh_lib
+    t = "sessions"
+    step = mesh_lib.Step
+    return mesh_lib.Session(t, {"k1": MESH_K1}, (
+        step("main", "query", tuple(q for _, q, _ in main["results"])),
+        step("quantile", "query", (Query(
+            t, AggOp.QUANTILE, "SessionTime", quantile=0.5,
+            group_by=("City",), bound=ErrorBound(0.10)),)),
+        step("batch", "batch", tuple(batch_queries(
+            Query, AggOp, Atom, CmpOp, Predicate, ErrorBound)[:12])),
+        step("subsampled", "subsampled", (Query(
+            t, AggOp.AVG, "SessionTime", group_by=("OS",),
+            bound=ErrorBound(0.10)),)),
+        step("append", "append", (
+            Query(t, AggOp.COUNT, group_by=("OS",), bound=ErrorBound(0.10)),
+            Query(t, AggOp.AVG, "SessionTime", bound=ErrorBound(0.05),
+                  predicate=Predicate.where(
+                      Atom("City", CmpOp.EQ, "city007")))),
+             rows=synth.sessions_table(50_000, seed=11))),
+        source=path, device=device, runs=runs, check_plain=True)
+
+
+def hold_mesh_to_one(np, db, session, one, run) -> dict:
+    """A mesh run's answers against one device's on the same session:
+    family always, K and group keys except under WITHIN SECONDS (which
+    refits its latency model); estimates within rtol 1e-4, a QUANTILE also
+    within one bin of its family's histogram range. Counts what held how."""
+    from repro_torch.core import AggOp, TimeBound
+    out = {"rtol": 0, "bin": 0, "time_bound": 0}
+    for step, (label, want), (_, got) in zip(session.steps, one, run,
+                                             strict=True):
+        for q, w, g in zip(step.queries, want, got, strict=True):
+            if g[0] != w[0]:
+                raise AssertionError(f"mesh {label} {q}: family {g[0]} != "
+                                     f"{w[0]}")
+            if isinstance(q.bound, TimeBound):
+                out["time_bound"] += 1
+                continue
+            if g[1] != w[1] or [x[0] for x in g[7]] != [x[0] for x in w[7]]:
+                raise AssertionError(f"mesh {label} {q}: K {g[1]} vs {w[1]} "
+                                     f"or group keys differ")
+            bin_w = 0.0
+            if q.agg is AggOp.QUANTILE and w[0] != ("<exact>",):
+                lo, hi = db._family_range("sessions", w[0], q.value_column)
+                bin_w = (hi - lo) / 256.0
+            for gx, wx in zip(g[7], w[7]):
+                if np.isclose(gx[1], wx[1], rtol=1e-4, atol=0.0):
+                    out["rtol"] += 1
+                elif abs(gx[1] - wx[1]) <= bin_w:
+                    out["bin"] += 1
+                else:
+                    raise AssertionError(
+                        f"mesh {label} {q} group {gx[0]}: {gx[1]!r} vs one "
+                        f"device's {wx[1]!r}")
+    return out
+
+
+def stripe_times(torch, db, card: str) -> dict:
+    """Each engine-path kernel on a rank's stripe (shard 0 of S = 2 and 4)
+    of phase 3's 20M-row families beside the whole block (S = 1), at one
+    main-path shape each: ms by CUDA events over 20 launches (the
+    wrapper's host work included), device ms by torch.profiler, the plain
+    version, the bound."""
+    from repro_torch.core import AggOp, Atom, CmpOp, Predicate, Query
+    from repro_torch.core import executor as exec_lib
+    from repro_torch.kernels import agg_scan, ref
+    t = "sessions"
+    fused_q = timed_queries()[0][0]
+    quant_q = timed_queries()[1][0]
+    wide_q = ("COUNT(*) WHERE URL NOT IN (200 URLs) GROUP BY OS",
+              Query(t, AggOp.COUNT, group_by=("OS",), predicate=not_in(
+                  Atom, CmpOp, Predicate, "URL", "url", 500, 200)))
+    out = {name: [] for name in MESH_KERNELS}
+    for n_shards in (1,) + MESH_WORLDS:
+        for name, (label, q) in (("agg_scan_fused", fused_q),
+                                 ("quantile_scan", quant_q),
+                                 ("agg_scan", wide_q)):
+            phi = ("URL",) if name == "agg_scan" else db._select_phi(t, q)
+            k = db.families[t][phi].ks[0]
+            striped = exec_lib.stripe_family(db.families[t][phi], db.device,
+                                             n_shards=n_shards, shard=0)
+            args, struct, slots, g = kernel_args(torch, db, q, phi, k,
+                                                 striped)
+            if name == "agg_scan_fused":
+                fn = functools.partial(agg_scan.agg_scan_fused_cuda, *args,
+                                       struct, slots, g)
+                plain = functools.partial(ref.agg_scan_fused_ref, *args,
+                                          struct, slots, g)
+                out_t = fn()
+                bnd = bound_for(args, struct, out_t, 4 * out_t.numel())
+            elif name == "quantile_scan":
+                lo, hi = db._family_range(t, phi, q.value_column)
+                qargs = (*args[:-1], lo, hi, args[-1])
+                fn = functools.partial(agg_scan.quantile_scan_cuda, *qargs,
+                                       struct, slots, g)
+                plain = functools.partial(ref.quantile_scan_ref, *qargs,
+                                          struct, slots, g)
+                mom, hist = fn()
+                bnd = bound_for(args, struct, mom,
+                                4 * (mom.numel() + hist.numel()))
+            else:
+                key, vals = db._scan_key(t, q, phi)
+                k_t = torch.tensor(k, dtype=torch.float32, device=db.device)
+                pred = exec_lib.eval_pred_flat(
+                    key[2], striped.columns, torch.tensor(
+                        exec_lib.flatten_pred_vals(vals),
+                        dtype=torch.float32, device=db.device))
+                freq, sel = exec_lib.query_selection(
+                    pred, k_t, *exec_lib.scan_args(striped)[1:])
+                inputs = exec_lib.agg_scan_inputs(sel, freq, k_t,
+                                                  striped.columns, None,
+                                                  "OS")
+                fn = functools.partial(agg_scan.agg_scan_cuda, *inputs, g)
+                plain = functools.partial(ref.agg_scan_ref, *inputs, g)
+                out_t = fn()
+                bnd = bound(nbytes(*inputs, out_t),
+                            20.0 * float(out_t[0].sum()))
+            ms = time_cuda(torch, fn, warmup=3, reps=20)
+            dev = device_ms(torch, fn, 20)
+            plain_ms = time_cuda(torch, plain, warmup=1, reps=3)
+            log_time(name, f"{label} family={phi} S={n_shards} shard 0",
+                     striped, g, ms, plain_ms, bnd, card,
+                     extra=f" device_ms={dev:.4f}")
+            out[name].append({"S": n_shards, "label": label,
+                              "slots": striped.n_local, "G": g, "ms": ms,
+                              "device_ms": dev, "plain_ms": plain_ms,
+                              "bound_ms": bnd[0], "bound_by": bnd[1],
+                              "library_ms": None})
+    return out
+
+
+def log_steps(who: str, seconds) -> None:
+    """A session run's seconds by step (host clock, device synchronised;
+    the scan spans hold the launches, their plain versions and the
+    gathers)."""
+    for label, sec in seconds:
+        log(f"    {who}, step {label}: wall_ms={1e3 * sec['wall_s']:.3f} "
+            f"scan_ms={1e3 * sec['scan_s']:.3f} gather_ms="
+            f"{1e3 * sec['gather_s']:.3f} gathers={sec['gathers']} "
+            f"host_ms={1e3 * (sec['wall_s'] - sec['scan_s']):.3f}")
+
+
+def phase_mesh(torch, np, main, card: str, device="cuda") -> dict:
+    """BlinkDB(mesh=) over torch.distributed on the one card. Its table
+    (MESH_ROWS rows, K1 = MESH_K1; families City, URL, uniform) is built
+    here and pickled for the ranks; mesh_session runs once on one device
+    here, then in spawned worlds of 2 and 4 ranks (every rank on cuda:0,
+    gloo carrying the partials), twice from scratch, each rank's launch
+    counts at 0 from its start. Checks: every rank launched the fused,
+    quantile and agg_scan kernels and held every launch to its plain
+    version; the ranks' answers are equal in bits, and so are a world's
+    two runs (WITHIN SECONDS aside); they hold to one device's
+    (hold_mesh_to_one); every answer is finite. Then each kernel's times
+    on a rank's stripe of phase 3's families (stripe_times)."""
+    import tempfile
+    from repro_torch.core import BlinkDB, TimeBound
+    from repro_torch.launch import mesh as mesh_lib
+    t_phase = time.perf_counter()
+    out = {"worlds": {}}
+    time_bound = [isinstance(q.bound, TimeBound)
+                  for _, q, _ in main["results"]]
+
+    def steady(run):
+        """A run without its WITHIN SECONDS answers."""
+        return [(label, [a for a, tb in zip(recs, time_bound) if not tb]
+                 if label == "main" else recs) for label, recs in run]
+
+    with tempfile.TemporaryDirectory(prefix="phase3h-") as tmp:
+        path = f"{tmp}/sessions.pkl"
+        t0 = time.perf_counter()
+        db, _, _, _ = sessions_engine(
+            lambda config, device: BlinkDB(
+                dataclasses.replace(config, k1=MESH_K1), device=device),
+            MESH_ROWS, device)
+        mesh_source(db, path)
+        log(f"  cut: {MESH_ROWS} base rows, K1 = {MESH_K1:.0f} (phase 3's "
+            f"20M rows took this phase past ~120 s); table and families "
+            f"built and pickled for the ranks in "
+            f"{time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        one = mesh_lib.run_session(mesh_session(main, path, device, 1))
+        one_run = one["runs"][0]
+        log(f"  one device: the session in {time.perf_counter() - t0:.1f}s, "
+            "launches " + " ".join(f"{k}={one['launches'][k]}"
+                                   for k in MESH_KERNELS))
+        log_steps("one device", one["seconds"][0])
+        session = mesh_session(main, path, device, 2)
+        for world in MESH_WORLDS:
+            t0 = time.perf_counter()
+            ranks = mesh_lib.run_ranks(mesh_lib.session_rank, world, session,
+                                       timeout=400.0)
+            wall = time.perf_counter() - t0
+            for r, res in enumerate(ranks):
+                for name in MESH_KERNELS:
+                    n = res["launches"][name]
+                    held = res["held"].get(name, [0.0, 0])
+                    if (device == "cuda" and n == 0) or held[1] != n:
+                        raise AssertionError(
+                            f"world {world} rank {r}: {name} launched {n} "
+                            f"times, {held[1]} held to its plain version")
+                if res["runs"] != ranks[0]["runs"]:
+                    raise AssertionError(f"world {world}: rank {r}'s "
+                                         f"answers differ from rank 0's")
+                for label, recs in res["runs"][0]:
+                    for a in recs:
+                        if not a[7] or not np.isfinite(
+                                [g[1:5] for g in a[7]]).all():
+                            raise AssertionError(
+                                f"world {world} {label}: empty or "
+                                f"non-finite answer")
+            runs = ranks[0]["runs"]
+            if steady(runs[0]) != steady(runs[1]):
+                raise AssertionError(f"world {world}: the session's two "
+                                     f"runs differ")
+            held1 = hold_mesh_to_one(np, db, session, one_run, runs[0])
+            n_answers = sum(len(recs) for _, recs in runs[0])
+            log_steps(f"world {world} rank 0 second run",
+                      ranks[0]["seconds"][1])
+            worst = {name: max(res["held"].get(name, [0.0])[0]
+                               for res in ranks) for name in MESH_KERNELS}
+            log(f"  world {world}: {world} ranks on one card over gloo in "
+                f"{wall:.1f}s; {n_answers} answers a run, equal bits on "
+                f"every rank and in both runs; against one device: "
+                f"{held1['rtol']} groups within rtol 1e-4, {held1['bin']} "
+                f"within one bin, {held1['time_bound']} WITHIN SECONDS "
+                f"by family; launches by rank "
+                + " ".join(f"{k}={[res['launches'][k] for res in ranks]}"
+                           for k in MESH_KERNELS)
+                + "; held to plain, max |diff| "
+                + " ".join(f"{k}={v:.6e}" for k, v in worst.items()))
+            out["worlds"][world] = {
+                "seconds": wall, "held": held1, "worst": worst,
+                "launches": [res["launches"] for res in ranks],
+                "steps": ranks[0]["seconds"]}
+        del db
+    out["stripe_times"] = stripe_times(torch, main["db"], card)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 3h ok: worlds {list(MESH_WORLDS)} on one card, every "
+        f"rank's launches held to plain, answers equal across ranks and "
+        f"runs and held to one device's; {out['seconds']:.1f}s")
+    return out
+
+
 # ----------------------------------------------------------------- phase 4
 
 def time_cuda(torch, fn, warmup: int, reps: int) -> float:
@@ -3077,7 +3362,7 @@ def phase_times_subsampled(torch, sub_db, card: str) -> dict:
 
 
 def kernels_record(worst, record, main, batch, ops_path, times, sample,
-                   l2_times, subj, sub_times, mut, serving,
+                   l2_times, subj, sub_times, mut, serving, mesh,
                    card: str) -> list[dict]:
     """The kernels' JSON record: one entry per kernel, its launches on its
     path, its worst disagreement with its plain version over every phase,
@@ -3107,6 +3392,9 @@ def kernels_record(worst, record, main, batch, ops_path, times, sample,
             if checked:  # phase 3e's and 3f's launches, each against plain
                 errs.append((max(w[0] for w in checked.values()),
                              max(w[1] for w in checked.values())))
+        if kname in MESH_KERNELS:  # phase 3h's ranks, each against plain
+            errs.append((max(w["worst"][kname]
+                             for w in mesh["worlds"].values()), 0.0))
         entry = {
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
@@ -3187,6 +3475,15 @@ def kernels_record(worst, record, main, batch, ops_path, times, sample,
             entry["mutation_launches_by_G"] = mut["by_groups"].get(kname, {})
             entry["mutation_launches_by_table"] = mut["by_table"].get(kname,
                                                                       {})
+        if kname in MESH_KERNELS:
+            entry.update(
+                mesh_launches_by_world={
+                    str(w): [r[kname] for r in v["launches"]]
+                    for w, v in mesh["worlds"].items()},
+                mesh_stripe_times=mesh["stripe_times"][kname],
+                mesh_path=("BlinkDB(mesh=DeviceMesh).query, query_batch, a "
+                           "subsampled CI and an append, each rank's "
+                           "launches over its stripe (phase 3h)"))
         if kname == "agg_scan_fused":
             entry["mutation_compaction"] = {
                 str(phi): sides for phi, sides in mut["compaction"].items()}
@@ -3265,16 +3562,21 @@ def main() -> int:
         "BlinkDB.query and BlinkQLService")
     serving = phase_serving(torch, np, main, card)
 
+    log("phase 3h: the multi-device path, BlinkDB(mesh=DeviceMesh) over "
+        "torch.distributed, worlds of 2 and 4 ranks on one card")
+    mesh = phase_mesh(torch, np, main, card)
+
     log(f"phase 4: times at the main path's shapes ({card})")
     times = phase_times(torch, main["db"], card)
     l2_times = phase_times_l2(torch, sample["db"], card)
     sub_times = phase_times_subsampled(torch, subj["sub_db"], card)
     kernels = kernels_record(worst, record, main, batch, ops_path, times,
                              sample, l2_times, subj, sub_times, mut, serving,
-                             card)
+                             mesh, card)
     log(f"smoke total {time.perf_counter() - t_start:.1f}s (phase 3d "
         f"{sample['seconds']:.1f}s, phase 3e {subj['seconds']:.1f}s, phase "
-        f"3f {mut['seconds']:.1f}s, phase 3g {serving['seconds']:.1f}s)")
+        f"3f {mut['seconds']:.1f}s, phase 3g {serving['seconds']:.1f}s, "
+        f"phase 3h {mesh['seconds']:.1f}s)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -28,6 +28,15 @@ a lost shard degrades the answer (HT reweight, wider CIs) instead of
 failing it; without one the single fused pass runs, bit for bit as
 before. Every scan is a declared fault site ("engine.scan") and a span of
 the query's trace (obs.trace) when one is active.
+
+With `mesh=` (a torch.distributed DeviceMesh, its data axes `data_axes`)
+the engine runs SPMD, one process per data shard: every rank builds the
+same engine from the same config, tables and families, keeps only its own
+stripe of each family on its device, scans it with the same kernels and
+merges the partials in shard order (executor.merge_partials), so every
+rank returns the same Answer. Host clocks that steer a decision (the
+WITHIN SECONDS latency probes, the straggler deadline) are agreed as the
+slowest rank's.
 """
 from __future__ import annotations
 
@@ -189,10 +198,17 @@ class _BatchJob:
 
 
 class BlinkDB:
-    def __init__(self, config: EngineConfig | None = None, device=None):
+    def __init__(self, config: EngineConfig | None = None, device=None,
+                 mesh=None, data_axes: Sequence[str] = ("data",)):
         self.config = config or EngineConfig()
         self.device = resolve_device(self.config.device if device is None
                                      else device)
+        # The data mesh (None: one device). The engine's device stays its
+        # own: on a one-card machine every rank scans on that card.
+        self.mesh = mesh
+        self.data_axes = tuple(data_axes)
+        self._axes = (None if mesh is None
+                      else exec_lib.mesh_axes(mesh, self.data_axes))
         # The engine's registry: what hangs off this engine (the service's
         # scheduler, cache and workload monitor, the sample maintainer)
         # registers its instruments here, so two engines in one process
@@ -589,8 +605,7 @@ class BlinkDB:
             if striped is not None:
                 upd = exec_lib.stripe_append(striped, merged, block)
                 if upd is None:   # outgrew its padding or a narrow dtype
-                    self._set_striped(table_name, phi, exec_lib.stripe_family(
-                        merged, self.device))
+                    self._set_striped(table_name, phi, self._stripe(merged))
                     self._drop_programs(table_name, phi)
                     restriped.append(phi)
                 else:
@@ -673,8 +688,7 @@ class BlinkDB:
         if striped is None:
             return False   # nothing striped: the next stripe is compact
         fam = self.families[table_name][phi]
-        fresh = exec_lib.stripe_family(fam, self.device,
-                                       min_local=striped.n_local)
+        fresh = self._stripe(fam, min_local=striped.n_local)
         self._set_striped(table_name, phi, fresh)
         if fresh.shape_class != striped.shape_class:
             self._drop_programs(table_name, phi)
@@ -752,8 +766,7 @@ class BlinkDB:
         self._bump_generation(table_name, phi)
         striped = self._striped.get((table_name, phi))
         if striped is not None:
-            fresh = exec_lib.stripe_family(new_fam, self.device,
-                                           min_local=striped.n_local)
+            fresh = self._stripe(new_fam, min_local=striped.n_local)
             self._set_striped(table_name, phi, fresh)
             if fresh.shape_class != striped.shape_class:
                 self._drop_programs(table_name, phi)
@@ -845,12 +858,29 @@ class BlinkDB:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _n_shards(self) -> int:
+        """Data shards of the mesh (the product of its data axes' sizes);
+        1 without a mesh."""
+        return 1 if self._axes is None else self._axes.n_shards
+
+    def _shard(self) -> int:
+        """This rank's data shard; 0 without a mesh."""
+        return 0 if self._axes is None else self._axes.shard
+
+    def _stripe(self, fam: samp_lib.SampleFamily,
+                min_local: int | None = None) -> exec_lib.StripedFamily:
+        """The rank's stripe of a family on the engine's device."""
+        return exec_lib.stripe_family(fam, self.device, self._n_shards(),
+                                      self._shard(), min_local=min_local)
+
+    def _mesh_kw(self) -> dict:
+        return {"mesh": self.mesh, "data_axes": self.data_axes}
+
     def _striped_for(self, table_name: str,
                      phi: tuple[str, ...]) -> exec_lib.StripedFamily:
         key = (table_name, phi)
         if key not in self._striped:
-            fam = self.families[table_name][phi]
-            self._striped[key] = exec_lib.stripe_family(fam, self.device)
+            self._striped[key] = self._stripe(self.families[table_name][phi])
         return self._striped[key]
 
     def _table_of(self, table_name: str, col: str
@@ -1021,10 +1051,11 @@ class BlinkDB:
         selected rows' range for a template of 126 atoms or more)."""
         striped = self._striped_for(table_name, phi)
         key, vals = self._scan_key(table_name, q, phi)
-        fn = self._quantile_programs.get(key)
+        pkey = key + (self._n_shards(),)
+        fn = self._quantile_programs.get(pkey)
         if fn is None:
-            fn = exec_lib.make_quantile_fn(*key[2:])
-            self._quantile_programs[key] = fn
+            fn = exec_lib.make_quantile_fn(*key[2:], **self._mesh_kw())
+            self._quantile_programs[pkey] = fn
         lo, hi = self._family_range(table_name, phi, q.value_column)
         mom, qv, dens = fn(k, vals, q.quantile, lo, hi,
                            *exec_lib.scan_args(striped))
@@ -1081,7 +1112,8 @@ class BlinkDB:
                              striped: exec_lib.StripedFamily,
                              group_col: str | None) -> torch.Tensor:
         """The subsampled scans' int32 group column g·B + sub over a
-        family's striped block (sub alone when ungrouped), cached per
+        family's striped block (sub alone when ungrouped; on a mesh the
+        rank's row of the reference's [S, n_local] codes), cached per
         (table, family, group column, B) and dropped with the block."""
         b = self.config.n_subsamples
         key = (table_name, phi, group_col, b)
@@ -1089,7 +1121,8 @@ class BlinkDB:
         if gsub is None or gsub.shape != striped.unit.shape:
             if group_col is None:
                 gsub = torch.from_numpy(exec_lib.subsample_codes(
-                    1, striped.n_local, b)[0]).to(self.device)
+                    self._n_shards(), striped.n_local, b)[self._shard()]
+                ).to(self.device)
             else:
                 gsub = exec_lib.subsample_group_column(
                     striped.columns[group_col],
@@ -1114,7 +1147,7 @@ class BlinkDB:
         group_col, n_groups = key[4], key[5]
         b = self.config.n_subsamples
         gsub = self._subsample_codes_for(table_name, phi, striped, group_col)
-        pkey = key + (b,)
+        pkey = key + (self._n_shards(), b)
         args = exec_lib.scan_args(striped)
         inject.site("engine.scan", table=table_name)
         with obs_trace.span("scan", table=table_name, k=float(k),
@@ -1126,7 +1159,8 @@ class BlinkDB:
             if q.agg is AggOp.QUANTILE:
                 fn = self._subsampled_quantile_programs.get(pkey)
                 if fn is None:
-                    fn = exec_lib.make_subsampled_quantile_fn(*key[2:], b)
+                    fn = exec_lib.make_subsampled_quantile_fn(
+                        *key[2:], b, **self._mesh_kw())
                     self._subsampled_quantile_programs[pkey] = fn
                 mom_sub, qv, dens, qsub = fn(k, vals, q.quantile, gsub, *args)
                 est = est_lib.subsampling_estimate(
@@ -1136,7 +1170,8 @@ class BlinkDB:
             else:
                 fn = self._subsampled_programs.get(pkey)
                 if fn is None:
-                    fn = exec_lib.make_subsampled_query_fn(*key[2:], b)
+                    fn = exec_lib.make_subsampled_query_fn(
+                        *key[2:], b, **self._mesh_kw())
                     self._subsampled_programs[pkey] = fn
                 mom_sub = fn(k, vals, gsub, *args)
                 est = est_lib.subsampling_estimate(q.agg, mom_sub, n_groups,
@@ -1452,8 +1487,11 @@ class BlinkDB:
                 return float(mom.n.sum()), dt
             probes = elp_lib.run_probes(
                 fam, run_at_k, n_probes=self.config.probe_resolutions)
-            model = elp_lib.fit_latency([p.rows_read for p in probes],
-                                        [p.elapsed_s for p in probes])
+            # On a mesh every rank fits the slowest rank's times, so all
+            # pick the same K.
+            model = elp_lib.fit_latency(
+                [p.rows_read for p in probes],
+                exec_lib.agree_max([p.elapsed_s for p in probes], self._axes))
             self._latency[(table_name, phi)] = model
         return elp_lib.pick_k_for_time(fam, model, q.bound.seconds,
                                        headroom_s=headroom_s)
@@ -1529,13 +1567,16 @@ class BlinkDB:
             b = self.config.n_subsamples
             lead = (self._subsample_codes_for(table_name, phi, striped,
                                               group_col),)
-            programs, pkey = self._batched_subsampled_programs, scan_key + (b,)
+            programs = self._batched_subsampled_programs
+            pkey = scan_key + (self._n_shards(), b)
             make = functools.partial(exec_lib.make_batched_subsampled_query_fn,
-                                     n_subsamples=b)
+                                     n_subsamples=b, **self._mesh_kw())
         else:
             lead = ()
-            programs, pkey = self._batched_programs, scan_key
-            make = exec_lib.make_batched_query_fn
+            programs = self._batched_programs
+            pkey = scan_key + (self._n_shards(),)
+            make = functools.partial(exec_lib.make_batched_query_fn,
+                                     **self._mesh_kw())
         fn = programs.get(pkey)
         if fn is None:
             fn = make(*scan_key[2:])
@@ -1571,7 +1612,8 @@ class BlinkDB:
                     n_replicas=self.config.shard_replicas,
                     site_ctx={"table": table_name},
                     deadline_s=self.config.straggler_deadline_s,
-                    placement=self._placement_for(table_name, phi))
+                    placement=self._placement_for(table_name, phi),
+                    axes=self._axes)
             else:
                 mom = fn(ks_t, consts_t, *lead, *args)
             self._sync()

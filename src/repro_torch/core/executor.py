@@ -1,10 +1,15 @@
-"""Query execution over sample families on one device (counterpart of
-`repro.core.executor`, single shard).
+"""Query execution over sample families (counterpart of
+`repro.core.executor`).
 
 A query executes as ONE fused pass over a striped family block: predicate
 evaluation, HT weighting and the grouped reduction of the sufficient
-statistics (GroupedMoments). With one device there is no shard axis: the
-block's arrays are 1-D.
+statistics (GroupedMoments). The block's arrays are 1-D: on one device the
+whole family, on a mesh (one process per data shard, SPMD) the rank's row
+of the reference's [S, n_local] block, slot j of the family at shard
+j % S, local position j // S. Every rank launches the same kernels on its
+stripe; the partials are all-gathered over the mesh's data group and
+summed in shard order 0..S-1 (`merge_partials`), so every rank holds the
+same bits.
 
 Memory-lean striped layout: the block stores only the sampling primitives —
 per-row `unit` (f32), stratum id `strat` (narrowest int holding the
@@ -149,13 +154,17 @@ class StripedFamily:
     freq_table: torch.Tensor           # f32[D_padded] per-stratum F
     n_rows: int                        # occupied slots (ghosts included)
     table_rows: int
-    # Host mirror: physical base-row id per occupied slot; -1 marks a slot
-    # a tombstone already ghosted. Tombstones find their slots here,
-    # without reading the device.
+    # Host mirror: physical base-row id per occupied slot of the whole
+    # family, in linear slot order; -1 marks a slot a tombstone already
+    # ghosted. Tombstones find their slots here, without reading the device.
     slot_row_ids: np.ndarray | None = None
-    # Self-excluded slots: rows a merge pushed past K_1 and tombstoned
-    # rows. The compaction trigger reads it.
+    # Self-excluded slots of the whole family: rows a merge pushed past K_1
+    # and tombstoned rows. The compaction trigger reads it.
     n_ghosts: int = 0
+    # Data shards of the layout and the one whose slots the device arrays
+    # hold (slot j of the family <-> shard j % S, local j // S).
+    n_shards: int = 1
+    shard: int = 0
 
     @property
     def n_local(self) -> int:
@@ -163,7 +172,7 @@ class StripedFamily:
 
     @property
     def capacity(self) -> int:
-        return self.n_local
+        return self.n_shards * self.n_local
 
     @property
     def ghost_fraction(self) -> float:
@@ -172,11 +181,11 @@ class StripedFamily:
 
     @property
     def shape_class(self) -> tuple:
-        """The reference's program signature of the block, one device so
-        no shard count: (slots, column dtypes, strat dtype, padded table
-        length). A change retires the family's ELP decisions and latency
-        model, as the reference's recompile does."""
-        return (self.n_local,
+        """The reference's program signature of the block: (shards, slots
+        per shard, column dtypes, strat dtype, padded table length). A
+        change retires the family's ELP decisions and latency model, as the
+        reference's recompile does."""
+        return (self.n_shards, self.n_local,
                 tuple(sorted((c, a.dtype) for c, a in self.columns.items())),
                 self.strat.dtype, int(self.freq_table.shape[0]))
 
@@ -187,8 +196,10 @@ class StripedFamily:
                              self.freq_table, *self.columns.values()))
 
 
-def _padded_local(n: int) -> int:
-    n_local = int(max(n, 1) * (1.0 + _STRIPE_HEADROOM)) + 1
+def _padded_local(n: int, n_shards: int = 1) -> int:
+    """Slots per shard of a family of n rows over n_shards shards."""
+    n_local = -(-max(n, 1) // n_shards)
+    n_local = int(n_local * (1.0 + _STRIPE_HEADROOM)) + 1
     return -(-n_local // _STRIPE_BLOCK) * _STRIPE_BLOCK
 
 
@@ -234,18 +245,20 @@ def _storage_dtype(a: np.ndarray) -> np.dtype:
     return a.dtype
 
 
-def stripe_family(fam: SampleFamily, device="cuda",
+def stripe_family(fam: SampleFamily, device="cuda", n_shards: int = 1,
+                  shard: int = 0,
                   min_local: int | None = None) -> StripedFamily:
-    """Pad the family on the host and move the block to `device`. One
-    device, one shard: the reference's [S, n_local] block with S=1 is the
-    1-D [n_local] block here. `min_local` pins the slot count to at least
-    that value: a compacting restripe passes the old block's, so the block
-    keeps its shape class."""
+    """Pad the family on the host and move row `shard` of the reference's
+    [n_shards, n_local] block (a.reshape(n_local, S).T) to `device`: slot j
+    of the family lies at shard j % S, local position j // S. With S = 1
+    it is the whole family. `min_local` pins the slots per shard to at
+    least that value: a compacting restripe passes the old block's, so the
+    block keeps its shape class."""
     n = fam.n_rows
-    n_local = _padded_local(n)
+    n_local = _padded_local(n, n_shards)
     if min_local is not None:
         n_local = max(n_local, int(min_local))
-    pad = n_local - n
+    pad = n_local * n_shards - n
 
     def stripe(arr, fill, dtype=None):
         a = np.asarray(arr)
@@ -253,7 +266,8 @@ def stripe_family(fam: SampleFamily, device="cuda",
             a = a.astype(dtype)
         if pad:
             a = np.concatenate([a, np.full((pad,) + a.shape[1:], fill, a.dtype)])
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return torch.from_numpy(np.ascontiguousarray(a[shard::n_shards])).to(
+            device)
 
     strat = fam.row_strata
     cols = {c: stripe(a, 0, _storage_dtype(a))
@@ -267,7 +281,8 @@ def stripe_family(fam: SampleFamily, device="cuda",
         freq_table=torch.from_numpy(_padded_freq_table(
             fam.stratum_freqs.astype(np.float32))).to(device),
         n_rows=n, table_rows=fam.table_rows,
-        slot_row_ids=fam.row_ids.astype(np.int64).copy())
+        slot_row_ids=fam.row_ids.astype(np.int64).copy(),
+        n_shards=n_shards, shard=shard)
 
 
 def _scatter(t: torch.Tensor, slots: torch.Tensor, vals) -> torch.Tensor:
@@ -275,6 +290,11 @@ def _scatter(t: torch.Tensor, slots: torch.Tensor, vals) -> torch.Tensor:
     out = t.clone()
     out[slots] = torch.as_tensor(vals).to(device=t.device, dtype=t.dtype)
     return out
+
+
+def _own_slots(striped: StripedFamily, slots: np.ndarray) -> np.ndarray:
+    """Which of the family slots `slots` lie on the block's shard."""
+    return slots % striped.n_shards == striped.shard
 
 
 def stripe_append(striped: StripedFamily, fam: SampleFamily,
@@ -287,7 +307,9 @@ def stripe_append(striped: StripedFamily, fam: SampleFamily,
     result equals the reference's block slot for slot. Returns None when
     the delta outgrows the capacity or a value or stratum id overflows its
     narrow storage dtype: the caller then restripes in full, which picks
-    the dtypes and the shape anew."""
+    the dtypes and the shape anew. Both tests read the whole delta, so on a
+    mesh every rank decides alike; each rank scatters the delta slots j
+    with j % S == its shard, at local positions j // S."""
     d = block.n_rows
     start = striped.n_rows
     if start + d > striped.capacity:
@@ -303,11 +325,13 @@ def stripe_append(striped: StripedFamily, fam: SampleFamily,
         for c, v in block.columns.items():
             if not _fits_dtype(v, cols[c].dtype):
                 return None
-        slots = torch.arange(start, start + d, device=device)
-        cols = {c: _scatter(cols[c], slots, np.asarray(v))
+        j = np.arange(start, start + d)
+        mine = _own_slots(striped, j)
+        slots = torch.from_numpy(j[mine] // striped.n_shards).to(device)
+        cols = {c: _scatter(cols[c], slots, np.asarray(v)[mine])
                 for c, v in block.columns.items()}
-        unit = _scatter(unit, slots, block.unit.astype(np.float32))
-        strat = _scatter(strat, slots, block.strata.astype(np.int64))
+        unit = _scatter(unit, slots, block.unit.astype(np.float32)[mine])
+        strat = _scatter(strat, slots, block.strata.astype(np.int64)[mine])
         valid = _scatter(valid, slots, True)
     return StripedFamily(
         fam.phi, fam.ks, cols, valid, unit, strat, freq_table, start + d,
@@ -315,7 +339,8 @@ def stripe_append(striped: StripedFamily, fam: SampleFamily,
         slot_row_ids=np.concatenate([striped.slot_row_ids,
                                      block.row_ids.astype(np.int64)]),
         # rows the rescale pushed past K_1 stay as ghosts until compaction
-        n_ghosts=striped.n_ghosts + block.n_dropped_old)
+        n_ghosts=striped.n_ghosts + block.n_dropped_old,
+        n_shards=striped.n_shards, shard=striped.shard)
 
 
 def stripe_tombstone(striped: StripedFamily, dead_row_ids: np.ndarray,
@@ -324,7 +349,8 @@ def stripe_tombstone(striped: StripedFamily, dead_row_ids: np.ndarray,
     derived entry_key +inf (it fails every prefix test), valid := False
     covers the other readers. No column, table or key changes, and the
     block keeps its shape class. Slots are found through the host
-    slot_row_ids mirror and marked -1 there, so no row counts twice.
+    slot_row_ids mirror of the whole family and marked -1 there, so no row
+    counts twice; the device arrays take the slots on the block's shard.
     `table_rows` is the post-mutation LIVE table count."""
     if table_rows is None:
         table_rows = striped.table_rows
@@ -335,7 +361,8 @@ def stripe_tombstone(striped: StripedFamily, dead_row_ids: np.ndarray,
     slots = np.flatnonzero(np.isin(ids[: striped.n_rows], dead_row_ids))
     if slots.size == 0:
         return dataclasses.replace(striped, table_rows=table_rows)
-    idx = torch.from_numpy(slots).to(striped.unit.device)
+    idx = torch.from_numpy(slots[_own_slots(striped, slots)]
+                           // striped.n_shards).to(striped.unit.device)
     new_ids = ids.copy()
     new_ids[slots] = -1
     return dataclasses.replace(
@@ -384,23 +411,121 @@ def query_selection(pred: torch.Tensor, k: torch.Tensor, unit, strat,
     return freq, pred & valid & (ek < k)
 
 
+# ---------------------------------------------------------------------------
+# The data mesh: one process per shard, partials merged in shard order
+# ---------------------------------------------------------------------------
+#
+# The counterpart of the reference's shard_map + psum. Every rank runs the
+# same program on its own stripe and launches the same kernels as one
+# device; its partial (moments, and a QUANTILE's histogram) goes to the CPU
+# and is all-gathered over the data group (gloo), then every rank sums the
+# gathered partials in shard order 0..S-1. No all_reduce (its order of
+# summation is not fixed) and no float atomics: every rank ends with the
+# same bits, run after run. One collective serves a whole batch, as the
+# reference's single psum of the stacked [7, Q, G] statistics does.
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshAxes:
+    """The data axes of a DeviceMesh as one process group: its size S and
+    this rank's shard, the rank's position in the group (the order the
+    gathered partials arrive in)."""
+    group: object
+    n_shards: int
+    shard: int
+
+
+def mesh_axes(mesh, data_axes: Sequence[str] = ("data",)) -> MeshAxes:
+    """Resolve `mesh` (a torch.distributed DeviceMesh) over `data_axes`;
+    raises TypeError for anything else. Several data axes act as one, in
+    the mesh's row-major order (their flattened group)."""
+    from torch.distributed import get_rank, get_world_size
+    from torch.distributed.device_mesh import DeviceMesh
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch.distributed DeviceMesh with "
+                        f"the data axes {tuple(data_axes)}, not "
+                        f"{type(mesh).__name__}")
+    data_axes = tuple(data_axes)
+    names = mesh.mesh_dim_names or ()
+    missing = [a for a in data_axes if a not in names]
+    if missing:
+        raise ValueError(f"mesh has no axes {missing} (axes: {names})")
+    sub = mesh[data_axes] if data_axes != names else mesh
+    group = (sub.get_group(0) if sub.ndim == 1
+             else sub._flatten().get_group(0))
+    return MeshAxes(group, get_world_size(group), get_rank(group))
+
+
+def _gather(t: torch.Tensor, axes: MeshAxes) -> list[torch.Tensor]:
+    """Every rank's copy of `t` (on the CPU), in shard order. A span of the
+    active trace ("mesh.gather"): the copy to the host and the collective,
+    the wait for the slowest rank included."""
+    from torch.distributed import all_gather
+    with obs_trace.span("mesh.gather", shards=axes.n_shards,
+                        bytes=t.numel() * t.element_size()):
+        t = t.detach().cpu().contiguous()
+        out = [torch.empty_like(t) for _ in range(axes.n_shards)]
+        all_gather(out, t, group=axes.group)
+    return out
+
+
+def merge_partials(parts: Sequence[torch.Tensor],
+                   axes: MeshAxes) -> list[torch.Tensor]:
+    """Sum each of a rank's float32 partials over the data axes: ONE
+    all_gather of them all, flattened into one CPU buffer, then a sum of
+    the gathered buffers in shard order 0..S-1. Returns tensors shaped as
+    `parts` on their device, equal in every bit on every rank."""
+    flat = torch.cat([p.reshape(-1).to(torch.float32) for p in parts])
+    total = functools.reduce(torch.add, _gather(flat, axes)).to(
+        parts[0].device)
+    out, off = [], 0
+    for p in parts:
+        out.append(total[off: off + p.numel()].reshape(p.shape))
+        off += p.numel()
+    return out
+
+
+def merge_moments(mom: est_lib.GroupedMoments, axes: MeshAxes | None,
+                  *extra: torch.Tensor):
+    """merge_partials of a rank's moments (and any `extra` partials, such
+    as histograms) in one collective; unchanged without a mesh."""
+    if axes is None:
+        return (mom, *extra) if extra else mom
+    merged = merge_partials((mom.stacked(), *extra), axes)
+    mom = est_lib.GroupedMoments.from_stacked(merged[0])
+    return (mom, *merged[1:]) if extra else mom
+
+
+def agree_max(values: Sequence[float], axes: MeshAxes | None) -> list[float]:
+    """Each value's maximum over the ranks (host clocks: a latency model
+    or a straggler deadline must decide alike on every rank); the values
+    themselves without a mesh."""
+    if axes is None:
+        return [float(v) for v in values]
+    t = torch.tensor([float(v) for v in values], dtype=torch.float64)
+    return torch.stack(_gather(t, axes)).amax(dim=0).tolist()
+
+
+def _axes_of(mesh, data_axes) -> MeshAxes | None:
+    return None if mesh is None else mesh_axes(mesh, data_axes)
+
+
 def run_query_striped(striped: StripedFamily, bound_pred,
                       value_col: str | None, group_col: str | None,
                       n_groups: int, k: float, mesh=None,
+                      data_axes: Sequence[str] = ("data",),
                       use_pallas: bool = False) -> est_lib.GroupedMoments:
     """Un-compiled execution of one query over a striped family (tests and
     one-off scans): the steps of the engine's wide path, with the bound
-    predicate's mask. One device only; a mesh comes with the multi-device
-    slice of the port."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_query_striped over a mesh comes with the multi-device "
-            "slice of the port (ROADMAP queue 1 item 9)")
+    predicate's mask. On a mesh, `striped` is the rank's stripe and the
+    partials merge in shard order."""
+    axes = _axes_of(mesh, data_axes)
     k_t = torch.tensor(k, dtype=torch.float32, device=striped.unit.device)
     freq, sel = query_selection(predicate_mask(striped.columns, bound_pred),
                                 k_t, *scan_args(striped)[1:])
-    return selection_moments(sel, freq, k_t, striped.columns, value_col,
-                             group_col, n_groups, use_pallas=use_pallas)
+    return merge_moments(selection_moments(
+        sel, freq, k_t, striped.columns, value_col, group_col, n_groups,
+        use_pallas=use_pallas), axes)
 
 
 def pred_structure(bound: tuple[tuple[BoundAtom, ...], ...]):
@@ -496,7 +621,8 @@ def _make_wide_batched_fn(struct, value_col, group_col, n_groups):
 
 
 def make_batched_query_fn(struct, value_col: str | None,
-                          group_col: str | None, n_groups: int):
+                          group_col: str | None, n_groups: int, mesh=None,
+                          data_axes: Sequence[str] = ("data",)):
     """The fused multi-query program of one (family × template): returns
     fn(ks, pred_consts, cols, unit, strat, freq_table, valid) ->
     GroupedMoments with leaves [Q, G]; ks is f32[Q] (per-query resolution
@@ -504,20 +630,29 @@ def make_batched_query_fn(struct, value_col: str | None,
     Q at most 64. One launch of the fused kernel (kernels/ops.py: the CUDA
     kernel on the card, its plain version on the CPU); query q of it has
     the bits of the same query launched alone. A template over 127 atoms
-    runs the wide path instead: one agg_scan launch per query."""
+    runs the wide path instead: one agg_scan launch per query. On a mesh
+    the block is the rank's stripe, and the batch's partials merge in one
+    collective."""
+    axes = _axes_of(mesh, data_axes)
     if not fits_const_block(struct, 1):
-        return _make_wide_batched_fn(struct, value_col, group_col, n_groups)
-    ops_struct, acol_names, atom_slots = _kernel_template(struct)
+        fn = _make_wide_batched_fn(struct, value_col, group_col, n_groups)
+    else:
+        ops_struct, acol_names, atom_slots = _kernel_template(struct)
 
-    def fn(ks, pred_consts, cols, unit, strat, freq_table, valid):
-        return kops.agg_scan_fused(
-            cols[value_col] if value_col is not None else None,
-            unit, strat, freq_table, valid,
-            tuple(cols[c] for c in acol_names),
-            cols[group_col] if group_col is not None else None,
-            ks, pred_consts, ops_struct, atom_slots, n_groups)
+        def fn(ks, pred_consts, cols, unit, strat, freq_table, valid):
+            return kops.agg_scan_fused(
+                cols[value_col] if value_col is not None else None,
+                unit, strat, freq_table, valid,
+                tuple(cols[c] for c in acol_names),
+                cols[group_col] if group_col is not None else None,
+                ks, pred_consts, ops_struct, atom_slots, n_groups)
+    if axes is None:
+        return fn
 
-    return fn
+    def merged(*args):
+        return merge_moments(fn(*args), axes)
+
+    return merged
 
 
 def _query_consts(k: float, pred_vals, device) -> tuple[torch.Tensor,
@@ -530,14 +665,16 @@ def _query_consts(k: float, pred_vals, device) -> tuple[torch.Tensor,
 
 
 def make_query_fn(struct, value_col: str | None, group_col: str | None,
-                  n_groups: int):
+                  n_groups: int, mesh=None,
+                  data_axes: Sequence[str] = ("data",)):
     """The fused query program of one (family × template): returns
     fn(k, pred_vals, cols, unit, strat, freq_table, valid) -> GroupedMoments
     over the primitive layout. k and the predicate constants are arguments,
     so every instantiation of the template reuses it. The scan is the
     batched program at Q = 1 (for a template over 127 atoms, the wide
-    path's agg_scan launch)."""
-    batched = make_batched_query_fn(struct, value_col, group_col, n_groups)
+    path's agg_scan launch), merged over the mesh when there is one."""
+    batched = make_batched_query_fn(struct, value_col, group_col, n_groups,
+                                    mesh, data_axes)
 
     def fn(k, pred_vals, cols, unit, strat, freq_table, valid):
         ks, consts = _query_consts(k, pred_vals, unit.device)
@@ -629,13 +766,18 @@ def hist_to_quantile(hist: torch.Tensor, lo, hi, q
     return torch.where(empty, zero, qval), torch.where(empty, zero, density)
 
 
-def _masked_range(v: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
-    """f32[2] (min, max) of v where sel; an empty selection gives the
-    finite range (0, 0), so every group then reports (0, 0)."""
+def _masked_range(v: torch.Tensor, sel: torch.Tensor,
+                  axes: MeshAxes | None = None) -> torch.Tensor:
+    """f32[2] (min, max) of v where sel, over every rank's stripe on a
+    mesh; an empty selection gives the finite range (0, 0), so every group
+    then reports (0, 0)."""
     inf = torch.tensor(float("inf"), dtype=v.dtype, device=v.device)
     rng = (torch.stack([torch.where(sel, v, inf).min(),
                         torch.where(sel, v, -inf).max()]) if v.numel()
            else torch.stack([inf, -inf]))
+    if axes is not None:
+        every = torch.stack(_gather(rng, axes))
+        rng = torch.stack([every[:, 0].min(), every[:, 1].max()])
     return torch.where(torch.isfinite(rng), rng, torch.zeros_like(rng))
 
 
@@ -668,17 +810,18 @@ def grouped_quantile(values: torch.Tensor, weights: torch.Tensor,
     return hist_to_quantile(hist.to(f32).reshape(n_groups, n_bins), lo, hi, q)
 
 
-def selected_range(values: torch.Tensor,
-                   sel: torch.Tensor) -> tuple[float, float]:
+def selected_range(values: torch.Tensor, sel: torch.Tensor,
+                   axes: MeshAxes | None = None) -> tuple[float, float]:
     """(min, max) as host floats of the selected values as float32: the
-    reference's data range (the rows with positive weight); (0, 0) when
-    nothing is selected."""
-    lo, hi = _masked_range(values.to(torch.float32), sel).tolist()
+    reference's data range (the rows with positive weight), over every
+    rank's stripe on a mesh; (0, 0) when nothing is selected."""
+    lo, hi = _masked_range(values.to(torch.float32), sel, axes).tolist()
     return lo, hi
 
 
 def make_quantile_fn(struct, value_col: str | None, group_col: str | None,
-                     n_groups: int):
+                     n_groups: int, mesh=None,
+                     data_axes: Sequence[str] = ("data",)):
     """The one-pass QUANTILE program of one (family × template): returns
     fn(k, pred_vals, level, lo, hi, cols, unit, strat, freq_table, valid)
     -> (GroupedMoments, quantile_value[G], density[G]). One quantile-scan
@@ -694,9 +837,17 @@ def make_quantile_fn(struct, value_col: str | None, group_col: str | None,
     max of the selected values (the `lo`, `hi` arguments are unused), and
     one quantile-scan launch takes the selection as its single atom column
     (template ((EQ,),), constant 1). The moments equal agg_scan's over the
-    same selection bit for bit, so query_batch stays equal to query()."""
+    same selection bit for bit, so query_batch stays equal to query().
+
+    On a mesh each rank scans its stripe over the same range (the
+    family's, or the selected rows' range over every stripe), its moments
+    and histogram merge in one collective, and the quantile is read off
+    the merged histogram once: the one QUANTILE semantics of the port,
+    where the reference's mesh path bins over the data's range in jnp."""
+    axes = _axes_of(mesh, data_axes)
     if not fits_const_block(struct, 3):
-        return _make_wide_quantile_fn(struct, value_col, group_col, n_groups)
+        return _make_wide_quantile_fn(struct, value_col, group_col, n_groups,
+                                      axes)
     ops_struct, acol_names, atom_slots = _kernel_template(struct)
 
     def fn(k, pred_vals, level, lo, hi, cols, unit, strat, freq_table, valid):
@@ -707,13 +858,14 @@ def make_quantile_fn(struct, value_col: str | None, group_col: str | None,
             tuple(cols[c] for c in acol_names),
             cols[group_col] if group_col is not None else None,
             ks, lo, hi, consts, ops_struct, atom_slots, n_groups)
+        mom, hist = merge_moments(mom, axes, hist)
         qval, dens = hist_to_quantile(hist, lo, hi, level)
         return mom, qval, dens
 
     return fn
 
 
-def _make_wide_quantile_fn(struct, value_col, group_col, n_groups):
+def _make_wide_quantile_fn(struct, value_col, group_col, n_groups, axes):
     """make_quantile_fn's program for a template of 126 atoms or more."""
 
     def fn(k, pred_vals, level, lo, hi, cols, unit, strat, freq_table, valid):
@@ -721,12 +873,13 @@ def _make_wide_quantile_fn(struct, value_col, group_col, n_groups):
         _, sel = query_selection(eval_pred_flat(struct, cols, consts[0]),
                                  ks[0], unit, strat, freq_table, valid)
         values = cols[value_col]
-        lo, hi = selected_range(values, sel)
+        lo, hi = selected_range(values, sel, axes)
         one = torch.ones((1, 1), dtype=torch.float32, device=unit.device)
         mom, hist = kops.quantile_scan(
             values, unit, strat, freq_table, valid, (sel,),
             cols[group_col] if group_col is not None else None,
             ks, lo, hi, one, ((CmpOp.EQ,),), (0,), n_groups)
+        mom, hist = merge_moments(mom, axes, hist)
         qval, dens = hist_to_quantile(hist, lo, hi, level)
         return mom, qval, dens
 
@@ -772,7 +925,8 @@ def subsample_group_column(group_codes: torch.Tensor, sub: torch.Tensor,
 
 def make_batched_subsampled_query_fn(struct, value_col: str | None,
                                      group_col: str | None, n_groups: int,
-                                     n_subsamples: int):
+                                     n_subsamples: int, mesh=None,
+                                     data_axes: Sequence[str] = ("data",)):
     """make_batched_query_fn with per-subsample segments: returns
     fn(ks, pred_consts, gsub, cols, unit, strat, freq_table, valid) ->
     GroupedMoments [Q, n_groups·B] (group-major: segment g·B + j), where
@@ -781,10 +935,12 @@ def make_batched_subsampled_query_fn(struct, value_col: str | None,
     (or, over 127 atoms, the wide path's agg_scan launches) with gsub as
     its group column and n_groups·B groups, so a query's moments have the
     same bits alone as in a batch, and the streamed bytes are the plain
-    scan's plus one int32 column."""
+    scan's plus one int32 column. On a mesh gsub is the rank's row of the
+    reference's [S, n_local] codes, and the partials merge as the plain
+    scan's do."""
     del group_col   # folded into gsub by the caller
     inner = make_batched_query_fn(struct, value_col, _SUB_GROUP,
-                                  n_groups * n_subsamples)
+                                  n_groups * n_subsamples, mesh, data_axes)
 
     def fn(ks, pred_consts, gsub, cols, unit, strat, freq_table, valid):
         return inner(ks, pred_consts, {**cols, _SUB_GROUP: gsub}, unit,
@@ -795,12 +951,14 @@ def make_batched_subsampled_query_fn(struct, value_col: str | None,
 
 def make_subsampled_query_fn(struct, value_col: str | None,
                              group_col: str | None, n_groups: int,
-                             n_subsamples: int):
+                             n_subsamples: int, mesh=None,
+                             data_axes: Sequence[str] = ("data",)):
     """make_query_fn analogue with per-subsample segments: returns
     fn(k, pred_vals, gsub, cols, unit, strat, freq_table, valid) ->
     GroupedMoments [n_groups·B]; the batched program at Q = 1."""
     batched = make_batched_subsampled_query_fn(struct, value_col, group_col,
-                                               n_groups, n_subsamples)
+                                               n_groups, n_subsamples, mesh,
+                                               data_axes)
 
     def fn(k, pred_vals, gsub, cols, unit, strat, freq_table, valid):
         ks, consts = _query_consts(k, pred_vals, unit.device)
@@ -812,7 +970,8 @@ def make_subsampled_query_fn(struct, value_col: str | None,
 
 def make_subsampled_quantile_fn(struct, value_col: str,
                                 group_col: str | None, n_groups: int,
-                                n_subsamples: int):
+                                n_subsamples: int, mesh=None,
+                                data_axes: Sequence[str] = ("data",)):
     """QUANTILE subsampling program: returns fn(k, pred_vals, level, gsub,
     cols, unit, strat, freq_table, valid) -> (mom_sub [G·B], qval[G],
     dens[G], qsub[G·B]). As the reference's subsampled path, it bins over
@@ -820,15 +979,18 @@ def make_subsampled_quantile_fn(struct, value_col: str,
     evaluated with torch ops, then two quantile-scan launches take it as
     their single atom column (as the wide path does), one over the G
     groups (the point estimate and its density) and one over gsub's G·B
-    segments (the per-subsample moments and replicate quantiles)."""
+    segments (the per-subsample moments and replicate quantiles). On a
+    mesh the range spans every rank's selection, and the two scans'
+    partials merge in one collective."""
     b = n_subsamples
+    axes = _axes_of(mesh, data_axes)
 
     def fn(k, pred_vals, level, gsub, cols, unit, strat, freq_table, valid):
         ks, consts = _query_consts(k, pred_vals, unit.device)
         _, sel = query_selection(eval_pred_flat(struct, cols, consts[0]),
                                  ks[0], unit, strat, freq_table, valid)
         values = cols[value_col]
-        lo, hi = selected_range(values, sel)
+        lo, hi = selected_range(values, sel, axes)
         one = torch.ones((1, 1), dtype=torch.float32, device=unit.device)
 
         def scan(codes, groups):
@@ -838,8 +1000,10 @@ def make_subsampled_quantile_fn(struct, value_col: str,
 
         _, hist = scan(cols[group_col] if group_col is not None else None,
                        n_groups)
-        qval, dens = hist_to_quantile(hist, lo, hi, level)
         mom_sub, hist_sub = scan(gsub, n_groups * b)
+        mom_sub, hist, hist_sub = merge_moments(mom_sub, axes, hist,
+                                                hist_sub)
+        qval, dens = hist_to_quantile(hist, lo, hi, level)
         qsub, _ = hist_to_quantile(hist_sub, lo, hi, level)
         return mom_sub, qval, dens, qsub
 
@@ -931,7 +1095,8 @@ def merge_shard_reports(reports: Sequence["ShardScanReport | None"]
 
 def run_sharded_scan(call, striped: StripedFamily, *, n_logical: int,
                      n_replicas: int = 2, site_ctx: dict | None = None,
-                     deadline_s: float | None = None, placement=None
+                     deadline_s: float | None = None, placement=None,
+                     axes: MeshAxes | None = None
                      ) -> tuple[est_lib.GroupedMoments, ShardScanReport]:
     """Execute `call(valid_mask) -> GroupedMoments` once per logical shard,
     with replica re-route and HT reweighting of the survivors.
@@ -954,7 +1119,12 @@ def run_sharded_scan(call, striped: StripedFamily, *, n_logical: int,
     `n_replicas` (hot families run longer chains) and the fault site gains
     a `process` key, so a FaultSpec matching `(("process", p),)` kills
     every attempt placed on process p, with fail-over to replicas placed
-    elsewhere."""
+    elsewhere.
+
+    On a mesh (`axes`) the logical shards partition the rank's stripe and
+    `call` runs the mesh program, so every attempt is one collective on
+    every rank; the fault plan decides alike on each, and the straggler
+    deadline reads the slowest rank's time."""
     ctx = dict(site_ctx or {})
     partials: list[est_lib.GroupedMoments] = []
     lost: list[int] = []
@@ -979,8 +1149,8 @@ def run_sharded_scan(call, striped: StripedFamily, *, n_logical: int,
                     m = call(mask)
                     if action == "poison":
                         m = _poison_moments(m)
-                    if deadline_s is not None \
-                            and time.perf_counter() - t0 > deadline_s:
+                    if deadline_s is not None and agree_max(
+                            [time.perf_counter() - t0], axes)[0] > deadline_s:
                         raise ShardScanError(
                             f"shard {s} replica {r} missed the straggler "
                             f"deadline ({deadline_s:.3f}s)")

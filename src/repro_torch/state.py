@@ -28,3 +28,24 @@ def install_families(db: BlinkDB, table_name: str,
             raise ValueError(f"units for family {phi!r} have shape {u.shape}; "
                              f"table {table_name!r} has {n} rows")
         db.add_family(table_name, phi, units=u)
+
+
+def adopt_families(db: BlinkDB, table_name: str,
+                   families: Mapping[tuple[str, ...], object]) -> None:
+    """Install families already built (SampleFamily objects, host arrays
+    only: another engine's, or unpickled) into `db` as its own: each
+    family's derived state starts empty and its generation bumps, as after
+    BlinkDB.add_family."""
+    for phi, fam in families.items():
+        db.families.setdefault(table_name, {})[tuple(phi)] = fam
+        db._drop_derived(table_name, tuple(phi))
+        db._bump_generation(table_name, tuple(phi))
+    db._bump_generation(table_name, None)
+
+
+def shard_row(block, shard: int):
+    """Row `shard` of a reference [S, n_local] block, as numpy: an array,
+    or a mapping of them (the reference's striped columns)."""
+    if isinstance(block, Mapping):
+        return {k: shard_row(v, shard) for k, v in block.items()}
+    return np.asarray(block)[shard]

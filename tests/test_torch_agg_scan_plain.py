@@ -322,9 +322,12 @@ def test_run_query_striped_matches_reference(striped, use_pallas, k):
             rtol=RTOL, atol=ATOL)
 
 
-def test_run_query_striped_paths_agree_and_mesh_waits(striped):
+def test_run_query_striped_paths_agree_and_mesh_waits(striped, tmp_path):
     """use_pallas=True (ops.agg_scan) and False (grouped_moments) agree;
-    the mesh branch names the multi-device slice of the port."""
+    over a world-1 gloo DeviceMesh the mesh branch (the stripe's partial,
+    all-gathered and summed in shard order) gives the no-mesh moments bit
+    for bit, and a mesh that is not a DeviceMesh is refused."""
+    from repro_torch.launch import mesh as mesh_lib
     _, p, port = striped
     bound = _bound(exec_lib, port, [("dt", CmpOp.GE, 3)])
     a = exec_lib.run_query_striped(p, bound, "SessionTime", None, 1, 200.0)
@@ -332,7 +335,14 @@ def test_run_query_striped_paths_agree_and_mesh_waits(striped):
                                    use_pallas=True)
     np.testing.assert_allclose(a.stacked().numpy(), b.stacked().numpy(),
                                rtol=RTOL, atol=ATOL)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with mesh_lib.process_group(0, 1, str(tmp_path / "store")):
+        m = mesh_lib.make_host_mesh()
+        for use_pallas, want in ((False, a), (True, b)):
+            got = exec_lib.run_query_striped(p, bound, "SessionTime", None,
+                                             1, 200.0, mesh=m,
+                                             use_pallas=use_pallas)
+            assert torch.equal(got.stacked(), want.stacked())
+    with pytest.raises(TypeError, match="DeviceMesh"):
         exec_lib.run_query_striped(p, bound, "SessionTime", None, 1, 200.0,
                                    mesh=object())
 

@@ -1189,3 +1189,42 @@ def test_fault_plans_and_service_on_the_card(cuda_device):
         want = db.query(parse_blinkql(t, db).normalized())
         assert [(g.key, g.estimate, g.stderr) for g in got[i].groups] == \
             [(g.key, g.estimate, g.stderr) for g in want.groups]
+
+
+@pytest.mark.cuda
+def test_two_rank_mesh_on_the_card_holds_every_launch_to_plain(cuda_device):
+    """Two ranks on the card (gloo carries the partials): every launch of
+    the fused, quantile and agg_scan kernels on each rank's stripe is held
+    against its plain version, the ranks answer in equal bits, and the
+    answers match one device's (family, K, keys exact; rtol 1e-4)."""
+    from repro_torch.launch import mesh as mesh_lib
+    t = "sessions"
+    genre = Predicate.where(Atom("Genre", CmpOp.EQ, "genre03"))
+    queries = (
+        Query(t, AggOp.SUM, "SessionTime", group_by=("City",),
+              bound=ErrorBound(0.1)),
+        Query(t, AggOp.COUNT, predicate=genre, group_by=("OS",),
+              bound=ErrorBound(0.1)),
+        Query(t, AggOp.QUANTILE, "SessionTime", quantile=0.5,
+              group_by=("OS",), bound=ErrorBound(0.1)),
+        Query(t, AggOp.AVG, "SessionTime", bound=ErrorBound(0.1),
+              predicate=Predicate.where(*[
+                  Atom("City", CmpOp.NE, f"city{199 - j:03d}")
+                  for j in range(130)])))
+    session = mesh_lib.Session(
+        t, {"k1": 400.0, "m": 3, "seed": 1},
+        (mesh_lib.Step("query", "query", queries),
+         mesh_lib.Step("batch", "batch", queries)),
+        families=(("City",), ("OS",), ()), n_rows=200_000, table_seed=2,
+        device="cuda", check_plain=True)
+    one = mesh_lib.run_session(session)
+    ranks = mesh_lib.run_ranks(mesh_lib.session_rank, 2, session,
+                               timeout=600.0)
+    for r, out in enumerate(ranks):
+        assert all(out["launches"][k] > 0 for k in out["launches"]), r
+        assert out["held"]["agg_scan_fused"][1] == \
+            out["launches"]["agg_scan_fused"]
+        assert out["runs"] == ranks[0]["runs"], r
+    run = ranks[0]["runs"][0]
+    assert mesh_lib.records_match(run, one["runs"][0], 1e-4) is None
+    assert run[1][1] == run[0][1]      # query_batch = query(), bit for bit

@@ -187,16 +187,20 @@ def test_engine_defaults_to_cuda():
 
 
 def test_later_slices_raise_not_implemented(engines):
-    """The multi-device scan is a later slice and raises; joins and
-    subsampling CIs have landed (tests/test_torch_joins.py,
+    """The multi-device scan has landed (tests/test_torch_mesh.py): a mesh
+    must be a torch.distributed DeviceMesh, and anything else is refused
+    with a TypeError, by the scan and by the engine. Joins and subsampling
+    CIs have landed too (tests/test_torch_joins.py,
     tests/test_torch_subsampling.py): the engine takes them, and refuses
     a CI method it does not know."""
     from repro_torch.core import executor as exec_lib
     _, port = engines
     striped = port._striped_for("sessions", ("OS",))
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         exec_lib.run_query_striped(striped, (), None, None, 1, 100.0,
                                    mesh=object())
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        P.BlinkDB(device="cpu", mesh=object())
     assert P.BlinkDB(P.EngineConfig(ci_method="subsampling"),
                      device="cpu").config.n_subsamples == 32
     with pytest.raises(ValueError, match="ci_method"):

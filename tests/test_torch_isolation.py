@@ -31,7 +31,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import repro_torch.service.parser, repro_torch.service.cache\n"
         "import repro_torch.service.workload, repro_torch.service.scheduler\n"
         "import repro_torch.obs, repro_torch.obs.trace\n"
-        "import repro_torch.launch.roofline\n"
+        "import repro_torch.launch.roofline, repro_torch.launch.mesh\n"
         "bad = [m for m in sys.modules if m in ('jax', 'repro')\n"
         "       or m.startswith(('jax.', 'repro.'))]\n"
         "assert not bad, bad\n"
@@ -60,6 +60,14 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "assert hasattr(repro_torch.sharding.placement, 'PlacementMap')\n"
         "assert hasattr(repro_torch.launch.roofline, 'scan_bytes_per_row')\n"
         "assert not hasattr(repro_torch.launch.roofline, 'HBM_BW')\n"
+        "for name in ('make_host_mesh', 'run_ranks', 'process_group',\n"
+        "             'session_rank', 'run_session', 'held_to_plain'):\n"
+        "    assert hasattr(repro_torch.launch.mesh, name), name\n"
+        "for name in ('mesh_axes', 'merge_partials', 'agree_max'):\n"
+        "    assert hasattr(executor, name), name\n"
+        "# importing starts no process group\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
         "# importing builds no kernel: nvcc runs at a kernel's first launch\n"
         "assert all(lib.handle is None for lib in agg_scan.LIBRARIES.values())\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -75,7 +83,7 @@ def test_no_port_file_imports_jax_or_reference():
                 "sharding/placement.py", "service/parser.py",
                 "service/cache.py", "service/workload.py",
                 "service/scheduler.py", "obs/trace.py",
-                "launch/roofline.py"):
+                "launch/roofline.py", "launch/mesh.py"):
         assert f"src/repro_torch/{sub}" in names, sub
     for path in PORT_FILES:
         hits = _FORBIDDEN.findall(path.read_text())
