@@ -110,6 +110,20 @@ Phases, each reported on its own lines:
      across ranks and runs and held to the same session on one device
      (family, K and keys; rtol 1e-4, a QUANTILE within one bin); each
      kernel's times on a rank's stripe of phase 3's families;
+  3i. the LM substrate's serving path (between 3h and 4), qwen2-1.5b at
+     full width and depth (28 layers, 1.54B parameters, float32 weights
+     from a seeded generator on the card): float32 compute with TF32 off,
+     prefill 64 + decode 64 against the teacher-forced forward over 128
+     (rtol/atol 2e-2); the same widths cut to 2 layers, float32 logits on
+     the card against the CPU's (rtol/atol 1e-3) and greedy tokens equal;
+     ServeEngine.generate in the bfloat16 default at B = 8, P = 128, 64
+     new tokens, twice, bit-equal and in range (prefill ms, decode ms a
+     step, tok/s, the device's busy share by torch.profiler, the share of
+     tokens equal to float32 compute's); the 2-layer cut through
+     CheckpointManager and back, equal tokens; python -m
+     repro_torch.launch.serve --arch qwen2-1.5b as a subprocess, exit 0
+     and its [serve] line. No TPU kernel lies on this path (the products
+     are torch.einsum), so the kernels' record is unchanged;
   4. times: each kernel at the main path's shapes (agg_scan_fused and
      quantile_scan at G = 1, 6, 200 and 500) against its bound and its
      plain version, quantile_scan beside the yardstick agg_scan_fused +
@@ -2953,6 +2967,267 @@ def phase_mesh(torch, np, main, card: str, device="cuda") -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 3i
+
+LM_ARCH = "qwen2-1.5b"        # full width and depth: 28 layers, 1.54B params
+LM_SERVE_ARGS = ["--arch", LM_ARCH, "--batch", "4", "--prompt-len", "16",
+                 "--new-tokens", "32"]
+LM_CUT_LAYERS = 2             # (c) and (e): the same widths, 2 layers
+LM_BATCH, LM_PROMPT, LM_NEW = 8, 128, 64     # (d), the serving run
+
+
+def hold_close(torch, label, got, want, rtol, atol) -> float:
+    """Raise unless got is allclose to want; log the worst ratio."""
+    ratio = tol_ratio(torch, got.float().cpu(), want.float().cpu(), rtol,
+                      atol)
+    log(f"  {label}: max |diff| "
+        f"{(got.float().cpu() - want.float().cpu()).abs().max().item():.3e},"
+        f" worst ratio {ratio:.3f} of rtol {rtol:g} / atol {atol:g}")
+    if not ratio <= 1.0:
+        raise AssertionError(f"{label}: outside rtol {rtol} / atol {atol} "
+                             f"(ratio {ratio})")
+    return ratio
+
+
+@contextlib.contextmanager
+def no_tf32(torch):
+    """float32 products in float32 (TF32 off), the setting restored."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+
+
+def lm_prompts(np, cfg, batch: int, length: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.vocab_size, (batch, length)).astype(np.int32)
+
+
+def timed_generate(torch, engine, prompts, n_new: int):
+    """(tokens, host seconds) of one ServeEngine.generate, device
+    synchronised on both sides (generate ends in a device-to-host copy)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, n_new)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def device_busy_share(torch, engine, prompts, n_new: int) -> tuple:
+    """(device ms, wall ms) of one generate under torch.profiler: the sum of
+    the kernels' device time, and the host clock around the call."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = timed_generate(torch, engine, prompts, n_new)
+    dev_us = sum(getattr(e, "self_device_time_total", 0.0)
+                 for e in prof.key_averages()
+                 if getattr(e, "device_type", None) is not None
+                 and "CUDA" in str(e.device_type))
+    return dev_us / 1e3, 1e3 * wall
+
+
+def phase_lm_serving(torch, np, card: str, device="cuda") -> dict:
+    """The LM substrate's serving path (repro_torch.models, .serve,
+    .checkpoint, .launch.serve) on qwen2-1.5b at full width: (a) the model
+    from a seeded generator on the card in float32; (b) float32 compute,
+    TF32 off: prefill 64 + decode 64 against the teacher-forced forward
+    over 128 (rtol/atol 2e-2); (c) the same widths cut to 2 layers, its
+    float32 logits on the card against the CPU's (rtol/atol 1e-3) and
+    greedy tokens equal; (d) ServeEngine.generate in the bfloat16 default
+    at B = 8, P = 128, 64 new tokens, twice, bit-equal, every token in
+    range: prefill ms, decode ms a step, tok/s, the device's busy share,
+    and the share of tokens equal to float32 compute's; (e) the 2-layer
+    cut through CheckpointManager and back, equal tokens; (f) python -m
+    repro_torch.launch.serve as a user runs it."""
+    import copy
+    import os
+    import tempfile
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.state import lm_params_from_reference
+    from repro_torch.train.step import StepConfig
+
+    @dataclasses.dataclass(frozen=True)
+    class F32Step(StepConfig):
+        @property
+        def compute_dtype(self):
+            return torch.float32
+
+    t_phase = time.perf_counter()
+    out = {}
+    cfg = get_config(LM_ARCH)
+    # (a) the model
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = model_lib.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    bias = (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim * cfg.qkv_bias
+    extra = cfg.n_layers * (2 * cfg.d_model + bias) + cfg.d_model
+    if n_params != cfg.param_count() + extra:   # + norms and QKV biases
+        raise AssertionError(f"{n_params} parameters, not "
+                             f"{cfg.param_count()} + {extra}")
+    out["model"] = {"params": n_params, "bytes": n_bytes,
+                    "build_s": time.perf_counter() - t0,
+                    "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    log(f"  (a) {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads (kv {cfg.n_kv_heads}, d_head {cfg.head_dim}), "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n_params} parameters, "
+        f"{n_bytes} bytes float32, built in {out['model']['build_s']:.2f}s; "
+        f"torch.cuda.max_memory_allocated "
+        f"{out['model']['max_memory_allocated']}")
+
+    # (b) the float32 path held to itself
+    toks = torch.from_numpy(lm_prompts(np, cfg, 2, 128, 1)).to(device)
+    t0 = time.perf_counter()
+    with no_tf32(torch):
+        full, _, _ = model_lib.forward(model, cfg, toks, "train",
+                                       compute_dtype=torch.float32)
+        caches = model_lib.init_cache(cfg, 2, 128, dtype=torch.float32,
+                                      device=device)
+        logits, caches = model_lib.prefill(model, cfg, toks[:, :64], caches,
+                                           compute_dtype=torch.float32)
+        steps = [logits]
+        for t in range(64, 128):
+            lg, caches, _ = model_lib.forward(model, cfg, toks[:, t:t + 1],
+                                              "decode", caches, t,
+                                              torch.float32)
+            steps.append(lg)
+        got = torch.cat(steps, dim=1)
+    if not (torch.isfinite(full).all() and torch.isfinite(got).all()):
+        raise AssertionError("(b): non-finite logits")
+    out["f32_ratio"] = hold_close(
+        torch, "(b) float32, TF32 off: prefill 64 + decode 64 against the "
+        "forward over 128", got, full, 2e-2, 2e-2)
+    del full, got, steps, caches, logits
+    log(f"  (b) took {time.perf_counter() - t0:.2f}s")
+
+    # (c) a 2-layer cut at full width: the card against the CPU
+    t0 = time.perf_counter()
+    cut = dataclasses.replace(cfg, n_layers=LM_CUT_LAYERS)
+    cut_cpu = model_lib.init_params(cut, torch.Generator().manual_seed(1))
+    cut_card = copy.deepcopy(cut_cpu).to(device)
+    ctoks = lm_prompts(np, cut, 2, 32, 2)
+    with no_tf32(torch):
+        want, _, _ = model_lib.forward(cut_cpu, cut, torch.from_numpy(ctoks),
+                                       compute_dtype=torch.float32)
+        got, _, _ = model_lib.forward(cut_card, cut,
+                                      torch.from_numpy(ctoks).to(device),
+                                      compute_dtype=torch.float32)
+        out["card_vs_cpu_ratio"] = hold_close(
+            torch, f"(c) {LM_CUT_LAYERS}-layer cut, float32 logits, card "
+            f"against CPU", got, want, 1e-3, 1e-3)
+        cut_prompts = ctoks[:, :16]
+        tok_cpu = ServeEngine(cut, cut_cpu, ServeConfig(), F32Step()
+                              ).generate(cut_prompts, 8)
+        tok_card = ServeEngine(cut, cut_card, ServeConfig(), F32Step()
+                               ).generate(cut_prompts, 8)
+    if not np.array_equal(tok_card, tok_cpu):
+        raise AssertionError(f"(c): greedy tokens differ\n{tok_card}\n"
+                             f"{tok_cpu}")
+    log(f"  (c) greedy tokens equal on card and CPU ({tok_card.shape}); "
+        f"{time.perf_counter() - t0:.2f}s")
+    del cut_cpu, want, got
+
+    # (d) the serving path: bfloat16 default, B = 8, P = 128, 64 new
+    t0 = time.perf_counter()
+    prompts = lm_prompts(np, cfg, LM_BATCH, LM_PROMPT, 3)
+    engine = ServeEngine(cfg, model, ServeConfig(batch=LM_BATCH))
+    _, first_s = timed_generate(torch, engine, prompts, 2)
+    prefill_s = sorted(timed_generate(torch, engine, prompts, 1)[1]
+                       for _ in range(3))[1]
+    run1, s1 = timed_generate(torch, engine, prompts, LM_NEW)
+    run2, s2 = timed_generate(torch, engine, prompts, LM_NEW)
+    if not np.array_equal(run1, run2):
+        raise AssertionError("(d): two bfloat16 runs differ")
+    if run1.shape != (LM_BATCH, LM_PROMPT + LM_NEW) or run1.min() < 0 \
+            or run1.max() >= cfg.vocab_size:
+        raise AssertionError(f"(d): tokens {run1.shape} out of range "
+                             f"[{run1.min()}, {run1.max()}]")
+    gen_s = min(s1, s2)
+    decode_ms = 1e3 * (gen_s - prefill_s) / (LM_NEW - 1)
+    tok_s = LM_BATCH * LM_NEW / gen_s
+    dev_ms, wall_ms = device_busy_share(torch, engine, prompts, 8)
+    busy = (f"{dev_ms:.3f} of {wall_ms:.3f} ms "
+            f"({100 * dev_ms / wall_ms:.1f}%)" if dev_ms > 0
+            else "not measured (the profiler saw no device time)")
+    f32_tokens = ServeEngine(cfg, model, ServeConfig(batch=LM_BATCH),
+                             F32Step()).generate(prompts, LM_NEW)
+    share = float((f32_tokens[:, LM_PROMPT:] == run1[:, LM_PROMPT:]).mean())
+    out["serve"] = {"first_call_s": first_s, "prefill_ms": 1e3 * prefill_s,
+                    "decode_ms_per_step": decode_ms, "generate_s": gen_s,
+                    "tok_per_s": tok_s, "device_ms_8_new": dev_ms,
+                    "wall_ms_8_new": wall_ms, "bf16_equals_f32": share,
+                    "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    log(f"  (d) ServeEngine.generate, bfloat16 compute, B = {LM_BATCH}, "
+        f"P = {LM_PROMPT}, {LM_NEW} new ({card}): first call (2 new) "
+        f"{first_s:.3f}s; prefill {1e3 * prefill_s:.3f} ms (generate of 1 "
+        f"new, median of 3); generate {gen_s:.3f}s ({s1:.3f}, {s2:.3f}), "
+        f"decode {decode_ms:.3f} ms a step, {tok_s:.1f} tok/s; two runs "
+        f"bit-equal; device busy over an 8-new generate: {busy}")
+    log(f"  (d) bfloat16 greedy tokens equal to float32 compute's at "
+        f"{100 * share:.1f}% of the {LM_BATCH * LM_NEW} new positions "
+        f"(not gated); torch.cuda.max_memory_allocated "
+        f"{out['serve']['max_memory_allocated']}; "
+        f"{time.perf_counter() - t0:.2f}s")
+    del engine
+
+    # (e) checkpoint round trip of the 2-layer cut
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="lm_ckpt_") as tmp:
+        mgr = CheckpointManager(tmp, keep=1)
+        mgr.save(1, {"params": cut_card.param_tree()})
+        mgr.wait()
+        back = model_lib.empty(cut, device)
+        _, state = mgr.restore({"params": back.param_tree()})
+        back.load_state_dict(lm_params_from_reference(cut, state["params"],
+                                                      device), assign=True)
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(tmp) for f in fs)
+    for (name, a), (_, b) in zip(cut_card.named_parameters(),
+                                 back.named_parameters()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"(e): {name} changed through the checkpoint")
+    with no_tf32(torch):
+        tok_back = ServeEngine(cut, back, ServeConfig(), F32Step()
+                               ).generate(cut_prompts, 8)
+    if not np.array_equal(tok_back, tok_card):
+        raise AssertionError("(e): restored model generates other tokens")
+    log(f"  (e) CheckpointManager: {size} bytes saved and restored, weights "
+        f"and tokens equal; {time.perf_counter() - t0:.2f}s")
+    del cut_card, back, state, model
+    torch.cuda.empty_cache()
+
+    # (f) the normal entry point
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                           *LM_SERVE_ARGS], env=env, capture_output=True,
+                          text=True, timeout=600)
+    line = [s for s in proc.stdout.splitlines() if s.startswith("[serve]")]
+    if proc.returncode != 0 or not line:
+        raise AssertionError(f"(f): launch.serve exited {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    out["launch_line"] = line[0]
+    log(f"  (f) python -m repro_torch.launch.serve {' '.join(LM_SERVE_ARGS)}"
+        f": {line[0]} ({time.perf_counter() - t0:.2f}s with start-up)")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 3i ok: {cfg.name} at full width served, float32 path held "
+        f"to itself, card to CPU, bfloat16 runs bit-equal, checkpoint round "
+        f"trip, launch.serve exit 0; {out['seconds']:.1f}s")
+    return out
+
+
 # ----------------------------------------------------------------- phase 4
 
 def time_cuda(torch, fn, warmup: int, reps: int) -> float:
@@ -3566,6 +3841,11 @@ def main() -> int:
         "torch.distributed, worlds of 2 and 4 ranks on one card")
     mesh = phase_mesh(torch, np, main, card)
 
+    log("phase 3i: the LM substrate's serving path, qwen2-1.5b at full "
+        "width: models.DecoderLM, ServeEngine, CheckpointManager, "
+        "launch.serve")
+    lm = phase_lm_serving(torch, np, card)
+
     log(f"phase 4: times at the main path's shapes ({card})")
     times = phase_times(torch, main["db"], card)
     l2_times = phase_times_l2(torch, sample["db"], card)
@@ -3576,7 +3856,7 @@ def main() -> int:
     log(f"smoke total {time.perf_counter() - t_start:.1f}s (phase 3d "
         f"{sample['seconds']:.1f}s, phase 3e {subj['seconds']:.1f}s, phase "
         f"3f {mut['seconds']:.1f}s, phase 3g {serving['seconds']:.1f}s, "
-        f"phase 3h {mesh['seconds']:.1f}s)")
+        f"phase 3h {mesh['seconds']:.1f}s, phase 3i {lm['seconds']:.1f}s)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -122,7 +122,7 @@ def resolve_device(device) -> torch.device:
     allocates and launches on the engine's card."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available: BlinkDB runs on the card "
+        raise RuntimeError("CUDA is not available: the port runs on the card "
                            "by default; pass device='cpu' to run on the CPU")
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")

@@ -1,0 +1,98 @@
+"""Shared model building blocks (counterpart of `repro.models.common`): the
+parameter factory, RMSNorm and rotary embeddings.
+
+Parameters are `nn.Parameter`s of the reference's shapes. A layer's weights
+are stacked over the pattern's repeats (a leading [R] axis), as the
+reference stacks them for `lax.scan`; the port loops over R in Python. The
+logical-axis trees of the reference wait for `sharding/rules.py`.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+
+class ParamFactory:
+    """Creates parameters with the reference's shapes and scales from one
+    explicit `torch.Generator`, on its device. Without a generator the
+    parameters are left uninitialised on `device`, to be loaded."""
+
+    def __init__(self, generator: torch.Generator | None,
+                 dtype: torch.dtype = torch.float32,
+                 device: torch.device | str | None = None):
+        self.generator = generator
+        self.dtype = dtype
+        self.device = generator.device if generator is not None else device
+
+    def _new(self, shape, repeats: int | None) -> torch.Tensor:
+        full = ((repeats,) if repeats else ()) + tuple(shape)
+        return torch.empty(full, dtype=self.dtype, device=self.device)
+
+    def dense(self, shape: tuple[int, ...], repeats: int | None = None,
+              scale: float | None = None) -> nn.Parameter:
+        """normal × scale, by default 1/√fan_in with fan_in = shape[0] of
+        one layer's weight (`ParamFactory.dense`)."""
+        w = self._new(shape, repeats)
+        if self.generator is not None:
+            s = scale if scale is not None else \
+                1.0 / math.sqrt(max(shape[0], 1))
+            w.normal_(generator=self.generator).mul_(s)
+        return nn.Parameter(w)
+
+    def zeros(self, shape, repeats: int | None = None) -> nn.Parameter:
+        w = self._new(shape, repeats)
+        if self.generator is not None:
+            w.zero_()
+        return nn.Parameter(w)
+
+    def ones(self, shape, repeats: int | None = None) -> nn.Parameter:
+        w = self._new(shape, repeats)
+        if self.generator is not None:
+            w.fill_(1.0)
+        return nn.Parameter(w)
+
+    def embedding(self, vocab: int, d: int) -> nn.Parameter:
+        return self.dense((vocab, d), scale=0.02)
+
+
+def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """torch.einsum of two operands in one dtype. On the CPU a 16-bit
+    product is formed in float32 and rounded once, as XLA's CPU dot forms
+    the reference's (torch's CPU bfloat16 GEMM sums in another order and
+    lands one ulp away in ~1e-4 of the elements, which a few layers then
+    spread); on the card cuBLAS sums a bfloat16 product in float32."""
+    if a.device.type == "cpu" and a.dtype in (torch.bfloat16, torch.float16):
+        return torch.einsum(eq, a.float(), b.float()).to(a.dtype)
+    return torch.einsum(eq, a, b)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """float32 inside, cast back to x's dtype."""
+    dt = x.dtype
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * weight.float()).to(dt)
+
+
+def rope_cos_sin(positions: torch.Tensor, d_head: int,
+                 theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """positions [...,] -> cos/sin [..., d_head//2] (f32)."""
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32,
+                        device=positions.device) / d_head
+    inv = 1.0 / (theta ** exps)
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x [..., S, D]; cos/sin broadcastable [..., S, D/2] (half-split
+    rotary), cos and sin cast to x's dtype before the multiply."""
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    cos = cos.to(x.dtype)
+    sin = sin.to(x.dtype)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

@@ -1,0 +1,262 @@
+"""The decoder LM over a repeating layer pattern (counterpart of
+`repro.models.model`), dense pattern only.
+
+`DecoderLM` is an `nn.Module` whose parameters map one to one onto the
+reference's tree: `embed`, `final_norm`, `lm_head` (untied heads) and
+`layers.<pattern pos>.<name>`, each layer weight stacked over the repeats
+with a leading [R] axis. Where the reference `lax.scan`s the stack, the
+port loops over R in Python. Modes:
+  * train   — full-sequence forward, logits only (under torch.no_grad)
+  * prefill — full-sequence forward + cache build
+  * decode  — one-token step against the caches
+
+Caches are per-pattern-position `KVCache`s with a leading [R] axis, written
+in place. The functional entry points of the reference (`init_params`,
+`init_cache`, `forward`, `prefill`, `decode_step`, ...) are thin functions
+over the module.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.core.engine import resolve_device
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import mlp as mlp_lib
+from repro_torch.models.common import ParamFactory, einsum, rms_norm
+
+MODES = ("train", "prefill", "decode")
+
+
+# ------------------------------------------------------------ dims helpers
+
+def attn_dims(cfg: ModelConfig) -> attn_lib.AttnDims:
+    return attn_lib.AttnDims(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                             cfg.head_dim, cfg.qkv_bias, cfg.rope_theta)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for what later slices of the port bring
+    (ROADMAP.md queue 1, the LM substrate's items)."""
+    later = {"mamba": "the Mamba and xLSTM slice (models/mamba.py)",
+             "mlstm": "the Mamba and xLSTM slice (models/xlstm.py)",
+             "slstm": "the Mamba and xLSTM slice (models/xlstm.py)",
+             "xattn": "the cross-attention and audio codebooks slice",
+             "moe": "the MoE slice (models/moe.py)"}
+    for spec in cfg.pattern:
+        if spec.mixer != "attn":
+            raise NotImplementedError(
+                f"{cfg.name}: mixer {spec.mixer!r} is not ported yet; it "
+                f"comes with {later.get(spec.mixer, 'a later LM slice')}")
+        if spec.channel not in ("mlp", "none"):
+            raise NotImplementedError(
+                f"{cfg.name}: channel {spec.channel!r} is not ported yet; it "
+                f"comes with {later.get(spec.channel, 'a later LM slice')}")
+    for field, item in (("n_experts", later["moe"]),
+                        ("n_codebooks", later["xattn"]),
+                        ("n_vision_tokens", later["xattn"])):
+        if getattr(cfg, field):
+            raise NotImplementedError(
+                f"{cfg.name}: {field}={getattr(cfg, field)} is not ported "
+                f"yet; it comes with {item}")
+
+
+# ------------------------------------------------------------ the module
+
+class Layer(nn.Module):
+    """One pattern position's weights, stacked over the repeats."""
+
+    def __init__(self, pf: ParamFactory, spec: LayerSpec, cfg: ModelConfig):
+        super().__init__()
+        r = cfg.n_repeats
+        self.norm1 = pf.ones((cfg.d_model,), r)
+        self.attn = attn_lib.Attention(pf, attn_dims(cfg), r)
+        if spec.channel == "mlp":
+            self.norm2 = pf.ones((cfg.d_model,), r)
+            self.mlp = mlp_lib.MLP(pf, cfg.d_model, cfg.d_ff, r)
+
+
+def _cast_tree(module: nn.Module, dtype, r: int):
+    """Layer r's weights as the reference's nested dict: norms as stored
+    (rms_norm reads them in float32), the rest in `dtype`."""
+    out = {}
+    for name, child in module.named_children():
+        out[name] = _cast_tree(child, dtype, r)
+    for name, p in module.named_parameters(recurse=False):
+        out[name] = p[r] if name.startswith("norm") else p[r].to(dtype)
+    return out
+
+
+class DecoderLM(nn.Module):
+    """The dense decoder. Build it with `init_params` (random, from a
+    generator) or `empty(cfg, device)` followed by `load_state_dict`."""
+
+    def __init__(self, cfg: ModelConfig, pf: ParamFactory):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        self.embed = pf.embedding(cfg.vocab_size, cfg.d_model)
+        self.final_norm = pf.ones((cfg.d_model,))
+        if not cfg.tie_embeddings:
+            self.lm_head = pf.dense((cfg.d_model, cfg.vocab_size))
+        self.layers = nn.ModuleList(Layer(pf, spec, cfg)
+                                    for spec in cfg.pattern)
+        self._compute = None   # (key, weights in a compute dtype)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def param_tree(self) -> dict:
+        """The parameters as the reference's tree: nested dicts, `layers` a
+        tuple over pattern positions (checkpoint names and `like`)."""
+        tree: dict = {}
+        for name, p in self.named_parameters():
+            *path, leaf = name.split(".")
+            node = tree
+            for key in path:
+                node = node.setdefault(key, {})
+            node[leaf] = p
+        tree["layers"] = tuple(tree["layers"][str(i)]
+                               for i in range(len(self.layers)))
+        return tree
+
+    @torch.no_grad()
+    def compute_weights(self, dtype: torch.dtype) -> dict:
+        """The weights in the compute dtype, cast once and kept until a
+        parameter changes (the reference casts `w.astype(x.dtype)` inside
+        each einsum; the rounding is the same). Layer weights come as
+        [repeat][pattern pos] -> the reference's per-layer dict."""
+        params = list(self.parameters())
+        key = (dtype, tuple((p.data_ptr(), p._version) for p in params))
+        if self._compute is None or self._compute[0] != key:
+            self._compute = None   # free the old copy before casting anew
+            head = self.embed if self.cfg.tie_embeddings else self.lm_head
+            weights = {
+                "embed": self.embed.to(dtype),
+                "head": head.to(dtype),
+                "layers": [[_cast_tree(layer, dtype, r)
+                            for layer in self.layers]
+                           for r in range(self.cfg.n_repeats)]}
+            self._compute = (key, weights)
+        return self._compute[1]
+
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor, mode: str = "train",
+                caches=None, pos: int | None = None,
+                compute_dtype: torch.dtype = torch.bfloat16):
+        """tokens int [B,S]. Returns (logits, caches, aux); the caches are
+        written in place, aux (the MoE slice's loss) is 0."""
+        if mode not in MODES:
+            raise ValueError(f"mode {mode!r} not in {MODES}")
+        if (caches is None) != (mode == "train"):
+            raise ValueError("mode 'train' takes no caches; prefill and "
+                             "decode need them")
+        cfg = self.cfg
+        w = self.compute_weights(compute_dtype)
+        x = embed_tokens(w, cfg, tokens)
+        for r, layer_ws in enumerate(w["layers"]):
+            for i, spec in enumerate(cfg.pattern):
+                cache = None
+                if caches is not None:
+                    cache = attn_lib.KVCache(caches[i].k[r], caches[i].v[r])
+                x, _ = apply_layer(spec, layer_ws[i], x, cfg, mode, cache, pos)
+        x = rms_norm(x, self.final_norm, cfg.norm_eps)
+        logits = output_logits(w, cfg, x)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return logits, caches, aux
+
+
+# ------------------------------------------------------------ functional API
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                dtype: torch.dtype = torch.float32) -> DecoderLM:
+    """A DecoderLM drawn from `generator`, on the generator's device, with
+    the reference's shapes, names and scales (jax.random and
+    torch.Generator draw different numbers: carry the reference's weights
+    with `repro_torch.state.lm_params_from_reference`)."""
+    return DecoderLM(cfg, ParamFactory(generator, dtype))
+
+
+def empty(cfg: ModelConfig, device="cuda",
+          dtype: torch.dtype = torch.float32) -> DecoderLM:
+    """A DecoderLM with uninitialised parameters on `device`, to load."""
+    return DecoderLM(cfg, ParamFactory(None, dtype, resolve_device(device)))
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device="cuda"):
+    """Tuple over pattern positions; leaves stacked [R, ...]."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    return tuple(attn_lib.init_kv_cache(batch, attn_dims(cfg), max_len, dtype,
+                                        device, cfg.n_repeats)
+                 for _ in cfg.pattern)
+
+
+def apply_layer(spec: LayerSpec, p, x, cfg: ModelConfig, mode: str,
+                cache=None, pos=None):
+    """One layer: pre-norm attention and MLP, each with its residual.
+    Returns (x, cache)."""
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    if mode == "train":
+        y = attn_lib.attention_train(p["attn"], h, attn_dims(cfg),
+                                     cfg.q_chunk, cfg.k_chunk)
+    elif mode == "prefill":
+        y, cache = attn_lib.attention_prefill(p["attn"], h, attn_dims(cfg),
+                                              cache, cfg.q_chunk, cfg.k_chunk)
+    else:
+        y, cache = attn_lib.attention_decode(p["attn"], h, attn_dims(cfg),
+                                             cache, int(pos))
+    x = x + y
+    if spec.channel == "mlp":
+        h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+        x = x + mlp_lib.apply_mlp(p["mlp"], h2)
+    return x, cache
+
+
+def embed_tokens(weights: dict, cfg: ModelConfig, tokens):
+    """The embedding rows of `tokens`, in the compute dtype of `weights`
+    (`DecoderLM.compute_weights`)."""
+    return weights["embed"][tokens]
+
+
+def output_logits(weights: dict, cfg: ModelConfig, x):
+    """The head over `weights` (`DecoderLM.compute_weights`): tied
+    `bsd,vd->bsv` or untied `bsd,dv->bsv`, in x's dtype."""
+    if cfg.tie_embeddings:
+        return einsum("bsd,vd->bsv", x, weights["head"])
+    return einsum("bsd,dv->bsv", x, weights["head"])
+
+
+def _model_for(params: DecoderLM, cfg: ModelConfig) -> DecoderLM:
+    if params.cfg != cfg:
+        raise ValueError(f"params were built for {params.cfg.name}, "
+                         f"not for the config given ({cfg.name})")
+    return params
+
+
+def forward(params: DecoderLM, cfg: ModelConfig, tokens, mode: str = "train",
+            caches=None, pos=None, compute_dtype=torch.bfloat16):
+    """tokens int [B,S]. Returns (logits, caches, aux)."""
+    return _model_for(params, cfg)(tokens, mode, caches, pos, compute_dtype)
+
+
+def decode_step(params: DecoderLM, cfg: ModelConfig, tokens, caches, pos,
+                compute_dtype=torch.bfloat16):
+    """One serve step: tokens [B,1] at position `pos`. Returns
+    (next_tokens int32 [B,1], caches); the argmax is taken on logits in the
+    compute dtype (the first maximum, as jnp.argmax)."""
+    logits, caches, _ = forward(params, cfg, tokens, "decode", caches=caches,
+                                pos=pos, compute_dtype=compute_dtype)
+    nxt = torch.argmax(logits[..., -1, :], dim=-1).to(torch.int32)
+    return nxt[..., None], caches
+
+
+def prefill(params: DecoderLM, cfg: ModelConfig, tokens, caches,
+            compute_dtype=torch.bfloat16):
+    logits, caches, _ = forward(params, cfg, tokens, "prefill", caches=caches,
+                                compute_dtype=compute_dtype)
+    return logits, caches
+

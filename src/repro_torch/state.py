@@ -1,19 +1,26 @@
-"""Carrying sampling state from the reference package into the port.
+"""Carrying sampling state and LM weights from the reference package into
+the port.
 
 `jax.random` and `torch.Generator` draw different numbers from one seed, so
 a family built by each package from the same seed differs row for row. To
 hold the port against the reference, the reference's per-row priorities
 (`repro.core.sampling.base_units(n, seed[, uniform=True])`, as numpy) are
-handed to the port's builders as `units=`. This module takes plain numpy
-arrays and never imports the reference.
+handed to the port's builders as `units=`, and the reference's LM weights
+(`repro.models.model.init_params`, as numpy) become the port model's state
+through `lm_params_from_reference`. This module takes plain numpy arrays
+and never imports the reference.
 """
 from __future__ import annotations
 
 from typing import Mapping
 
 import numpy as np
+import torch
 
-from repro_torch.core.engine import BlinkDB
+from repro_torch.checkpoint.ckpt import SEP, flatten_with_paths
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.engine import BlinkDB, resolve_device
+from repro_torch.models import model as model_lib
 
 
 def install_families(db: BlinkDB, table_name: str,
@@ -49,3 +56,20 @@ def shard_row(block, shard: int):
     if isinstance(block, Mapping):
         return {k: shard_row(v, shard) for k, v in block.items()}
     return np.asarray(block)[shard]
+
+
+def lm_params_from_reference(cfg: ModelConfig, params_np,
+                             device="cuda") -> dict[str, torch.Tensor]:
+    """The reference's LM parameter tree (`init_params(cfg, key)[0]` as
+    numpy, or a restored checkpoint's "params") as a state dict of the
+    port's `DecoderLM` for `cfg`, on `device`: "layers/0/attn/wq" becomes
+    "layers.0.attn.wq", shapes and dtypes kept. Load it with
+    `model.load_state_dict(..., assign=True)`, which checks every name and
+    shape."""
+    model_lib.check_supported(cfg)
+    device = resolve_device(device)
+    out = {}
+    for path, leaf in flatten_with_paths(params_np):
+        out[path.replace(SEP, ".")] = torch.from_numpy(
+            np.array(leaf)).to(device)
+    return out

@@ -7,15 +7,22 @@ port's dependencies:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
+import contextlib
+import copy
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core import (AggOp, Atom, BlinkDB, CmpOp, Conjunction,
                               EngineConfig, ErrorBound, Predicate, Query)
 from repro_torch.core import table as table_lib
 from repro_torch.data import synth
 from repro_torch.kernels import agg_scan, ops, ref
+from repro_torch.models import model as model_lib
+from repro_torch.serve.engine import ServeConfig, ServeEngine
 
 RTOL, ATOL = 2e-5, 1e-3   # the reference's kernel tolerance
 
@@ -1228,3 +1235,71 @@ def test_two_rank_mesh_on_the_card_holds_every_launch_to_plain(cuda_device):
     run = ranks[0]["runs"][0]
     assert mesh_lib.records_match(run, one["runs"][0], 1e-4) is None
     assert run[1][1] == run[0][1]      # query_batch = query(), bit for bit
+
+
+# ------------------------------------------------------------ the LM substrate
+
+def _lm_on_card(n_layers=3):
+    """A reduced qwen2 (GQA, QKV bias, tied head) drawn on the CPU from a
+    seeded generator, and its copy on the card."""
+    cfg = dataclasses.replace(get_config("qwen2-1.5b").reduced(),
+                              n_layers=n_layers)
+    cpu = model_lib.init_params(cfg, torch.Generator().manual_seed(0))
+    return cfg, cpu, copy.deepcopy(cpu).to("cuda")
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.cuda
+def test_lm_prefill_plus_decode_reproduces_forward_on_card(cuda_device):
+    cfg, _, model = _lm_on_card()
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 32)).astype(np.int32)).to(cuda_device)
+    with _no_tf32():
+        full, _, _ = model_lib.forward(model, cfg, toks, "train",
+                                       compute_dtype=torch.float32)
+        caches = model_lib.init_cache(cfg, 2, 32, dtype=torch.float32,
+                                      device=cuda_device)
+        logits, caches = model_lib.prefill(model, cfg, toks[:, :16], caches,
+                                           compute_dtype=torch.float32)
+        got = [logits]
+        for t in range(16, 32):
+            lg, caches, _ = model_lib.forward(model, cfg, toks[:, t:t + 1],
+                                              "decode", caches, t,
+                                              torch.float32)
+            got.append(lg)
+    torch.testing.assert_close(torch.cat(got, 1), full, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_lm_bf16_generate_repeats_bitwise_on_card(cuda_device):
+    cfg, _, model = _lm_on_card()
+    eng = ServeEngine(cfg, model, ServeConfig())
+    prompts = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (4, 16)).astype(np.int32)
+    a = eng.generate(prompts, 16)
+    b = eng.generate(prompts, 16)
+    np.testing.assert_array_equal(a, b)
+    assert a.shape == (4, 32) and a.min() >= 0 and a.max() < cfg.vocab_size
+
+
+@pytest.mark.cuda
+def test_lm_f32_logits_on_card_equal_the_cpu(cuda_device):
+    cfg, cpu, model = _lm_on_card()
+    toks = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 32)).astype(np.int32)
+    want, _, _ = model_lib.forward(cpu, cfg, torch.from_numpy(toks),
+                                   compute_dtype=torch.float32)
+    with _no_tf32():
+        got, _, _ = model_lib.forward(
+            model, cfg, torch.from_numpy(toks).to(cuda_device),
+            compute_dtype=torch.float32)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from repro_torch.launch import query as query_launch
+from repro_torch.launch import serve as serve_launch
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -47,6 +48,15 @@ def test_example_runs_on_the_cpu(capsys, name, markers):
         assert m in out, (m, out)
 
 
+def test_serve_example_runs_on_the_cpu(capsys):
+    _example("torch_serve_lm").main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    for arch in ("qwen2-1.5b", "codeqwen1.5-7b"):
+        assert f"{arch}" in out and "out=(4, 40)  on cpu" in out, out
+    for arch in ("xlstm-125m", "jamba-v0.1-52b"):
+        assert f"{arch}" in out and "waits for" in out, out
+
+
 def test_query_driver_runs_on_the_cpu(capsys):
     query_launch.main(["--device", "cpu", "--rows", "40000", "--k1", "600"])
     out = capsys.readouterr().out
@@ -66,6 +76,8 @@ def test_query_driver_time_bound(capsys):
     lambda: _example("torch_approx_analytics").main(["--rows", "1000"]),
     lambda: _example("torch_telemetry_queries").main(["--steps", "200"]),
     lambda: query_launch.main(["--rows", "1000"]),
+    lambda: _example("torch_serve_lm").main([]),
+    lambda: serve_launch.main(["--reduced", "--new-tokens", "2"]),
 ])
 def test_entry_points_run_on_the_card_by_default(run):
     """Without --device each entry point asks for the card, and without

@@ -32,6 +32,13 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import repro_torch.service.workload, repro_torch.service.scheduler\n"
         "import repro_torch.obs, repro_torch.obs.trace\n"
         "import repro_torch.launch.roofline, repro_torch.launch.mesh\n"
+        "import repro_torch.configs, repro_torch.configs.base\n"
+        "import repro_torch.models.common, repro_torch.models.mlp\n"
+        "import repro_torch.models.attention, repro_torch.models.model\n"
+        "import repro_torch.checkpoint.ckpt, repro_torch.train.step\n"
+        "import repro_torch.serve.engine, repro_torch.launch.serve\n"
+        "for arch in repro_torch.configs.all_archs():\n"
+        "    repro_torch.configs.get_config(arch)\n"
         "bad = [m for m in sys.modules if m in ('jax', 'repro')\n"
         "       or m.startswith(('jax.', 'repro.'))]\n"
         "assert not bad, bad\n"
@@ -60,6 +67,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "assert hasattr(repro_torch.sharding.placement, 'PlacementMap')\n"
         "assert hasattr(repro_torch.launch.roofline, 'scan_bytes_per_row')\n"
         "assert not hasattr(repro_torch.launch.roofline, 'HBM_BW')\n"
+        "assert hasattr(repro_torch.state, 'lm_params_from_reference')\n"
+        "for name in ('DecoderLM', 'init_params', 'init_cache', 'forward',\n"
+        "             'prefill', 'decode_step'):\n"
+        "    assert hasattr(repro_torch.models.model, name), name\n"
         "for name in ('make_host_mesh', 'run_ranks', 'process_group',\n"
         "             'session_rank', 'run_session', 'held_to_plain'):\n"
         "    assert hasattr(repro_torch.launch.mesh, name), name\n"
@@ -83,8 +94,13 @@ def test_no_port_file_imports_jax_or_reference():
                 "sharding/placement.py", "service/parser.py",
                 "service/cache.py", "service/workload.py",
                 "service/scheduler.py", "obs/trace.py",
-                "launch/roofline.py", "launch/mesh.py"):
+                "launch/roofline.py", "launch/mesh.py", "configs/base.py",
+                "configs/qwen2_1_5b.py", "models/common.py", "models/mlp.py",
+                "models/attention.py", "models/model.py",
+                "checkpoint/ckpt.py", "train/step.py", "serve/engine.py",
+                "launch/serve.py"):
         assert f"src/repro_torch/{sub}" in names, sub
+    assert ROOT / "examples" / "torch_serve_lm.py" in PORT_FILES
     for path in PORT_FILES:
         hits = _FORBIDDEN.findall(path.read_text())
         assert not hits, f"{path.relative_to(ROOT)} imports {hits}"

@@ -1,0 +1,305 @@
+"""The port's dense decoder (`repro_torch.models`) against the reference's
+(`repro.models`) on the CPU: the same weights (the reference's
+`init_params`, carried by `repro_torch.state.lm_params_from_reference`) and
+the same tokens (numpy, fixed seed) through RMSNorm, RoPE, chunked causal
+attention, the teacher-forced forward, prefill and ten decode steps.
+
+The four dense archs, reduced, with 3 layers, cover GQA and MHA, QKV bias or
+none, and tied or untied heads. Tolerances: float32 compute rtol/atol 1e-4
+(logits and caches; greedy tokens exactly), bfloat16 compute 2e-2 (the
+reference's own cache tolerance, tests/test_models_smoke.py).
+
+XLA's CPU compiler may by default keep bfloat16 intermediates in float32
+(`xla_allow_excess_precision`), skipping roundings that the reference's
+jnp program asks for. The reference runs here compiled with that option
+off, so it rounds each bfloat16 op as written: the program the port
+mirrors.
+"""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_get_config
+from repro.models import attention as ref_attn
+from repro.models import common as ref_common
+from repro.models import model as ref_model
+from repro_torch.checkpoint.ckpt import flatten_with_paths
+from repro_torch.configs import all_archs, get_config
+from repro_torch.models import attention as port_attn
+from repro_torch.models import common as port_common
+from repro_torch.models import model as port_model
+from repro_torch.state import lm_params_from_reference
+
+jax.config.update("jax_default_matmul_precision", "float32")
+
+DENSE = ["qwen2-1.5b", "codeqwen1.5-7b", "mistral-large-123b", "llama3-405b"]
+NOT_DENSE = [a for a in all_archs() if a not in DENSE]
+B, S, PREFILL, DECODES = 2, 32, 16, 10
+DTYPES = {"float32": (jnp.float32, torch.float32, 1e-4),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+AS_WRITTEN = {"xla_allow_excess_precision": False}
+
+
+def ref_compiled(fn, *args):
+    """fn jitted and compiled for `args` with bfloat16 rounded as written."""
+    return jax.jit(fn).lower(*args).compile(compiler_options=AS_WRITTEN)
+
+
+def host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def cfgs(arch):
+    ref = dataclasses.replace(ref_get_config(arch).reduced(), n_layers=3)
+    port = dataclasses.replace(get_config(arch).reduced(), n_layers=3)
+    return ref, port
+
+
+@functools.lru_cache(maxsize=None)
+def weights(arch):
+    """The reference's parameters and the port model carrying them."""
+    ref_cfg, port_cfg = cfgs(arch)
+    params, _ = ref_model.init_params(ref_cfg, jax.random.PRNGKey(7))
+    model = port_model.empty(port_cfg, "cpu")
+    model.load_state_dict(lm_params_from_reference(
+        port_cfg, jax.tree.map(np.asarray, params), "cpu"), assign=True)
+    return params, model
+
+
+def tokens(cfg):
+    rng = np.random.default_rng(11)
+    return rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def runs(arch, dtype_name):
+    """Both packages' logits and caches: the teacher-forced forward over S,
+    prefill of the first PREFILL tokens, DECODES decode steps, and
+    decode_step's tokens at the last of them."""
+    ref_cfg, port_cfg = cfgs(arch)
+    jdt, tdt, _ = DTYPES[dtype_name]
+    params, model = weights(arch)
+    toks = tokens(ref_cfg)
+    jt = jnp.asarray(toks)
+    out = {"ref": {}, "port": {}}
+
+    fwd = ref_compiled(lambda p, t: ref_model.forward(
+        p, ref_cfg, t, "train", compute_dtype=jdt, remat=False)[0], params, jt)
+    out["ref"]["train"] = host(fwd(params, jt))
+    out["port"]["train"] = host(port_model.forward(
+        model, port_cfg, torch.from_numpy(toks), "train", compute_dtype=tdt)[0])
+
+    rc = ref_model.init_cache(ref_cfg, B, S, dtype=jnp.float32)
+    pre_t = jt[:, :PREFILL]
+    pre = ref_compiled(lambda p, t, c: ref_model.prefill(
+        p, ref_cfg, t, c, compute_dtype=jdt), params, pre_t, rc)
+    logits, rc = pre(params, pre_t, rc)
+    ref_logits = [host(logits)]
+    dec = ref_compiled(lambda p, t, c, pos: ref_model.forward(
+        p, ref_cfg, t, "decode", caches=c, pos=pos, compute_dtype=jdt)[:2],
+        params, jt[:, :1], rc, jnp.int32(0))
+    for t in range(PREFILL, PREFILL + DECODES):
+        logits, rc = dec(params, jt[:, t:t + 1], rc, jnp.int32(t))
+        ref_logits.append(host(logits))
+    step = ref_compiled(lambda p, t, c, pos: ref_model.decode_step(
+        p, ref_cfg, t, c, pos, compute_dtype=jdt)[0],
+        params, jt[:, :1], rc, jnp.int32(0))
+    last = PREFILL + DECODES
+    out["ref"]["next"] = np.asarray(step(params, jt[:, last:last + 1], rc,
+                                         jnp.int32(last)))
+    out["ref"]["steps"] = np.concatenate(ref_logits, axis=1)
+    out["ref"]["cache"] = [(host(c.k), host(c.v)) for c in rc]
+
+    tc = port_model.init_cache(port_cfg, B, S, dtype=torch.float32,
+                               device="cpu")
+    tt = torch.from_numpy(toks)
+    logits, tc = port_model.prefill(model, port_cfg, tt[:, :PREFILL], tc,
+                                    compute_dtype=tdt)
+    port_logits = [host(logits)]
+    for t in range(PREFILL, PREFILL + DECODES):
+        logits, tc, _ = port_model.forward(model, port_cfg, tt[:, t:t + 1],
+                                           "decode", tc, t, tdt)
+        port_logits.append(host(logits))
+    out["port"]["steps"] = np.concatenate(port_logits, axis=1)
+    out["port"]["cache"] = [(host(c.k), host(c.v)) for c in tc]
+    nxt, _ = port_model.decode_step(model, port_cfg, tt[:, last:last + 1],
+                                    [port_attn.KVCache(k.clone(), v.clone())
+                                     for k, v in tc], last, tdt)
+    out["port"]["next"] = nxt.numpy()
+    return out
+
+
+# ------------------------------------------------------------ building blocks
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_and_rope_match(dtype):
+    jdt, tdt, _ = DTYPES[dtype]
+    rng = np.random.default_rng(0)
+    x = rng.normal(0, 2, (2, 4, 12, 32)).astype(np.float32)
+    w = rng.normal(1, 0.1, 32).astype(np.float32)
+    xj, xt = jnp.asarray(x).astype(jdt), torch.from_numpy(x).to(tdt)
+    np.testing.assert_allclose(
+        host(port_common.rms_norm(xt, torch.from_numpy(w), 1e-5)),
+        host(ref_common.rms_norm(xj, jnp.asarray(w), 1e-5)),
+        rtol=1e-6, atol=1e-6)
+    pos = rng.integers(0, 4000, (2, 12))
+    for theta in (1e4, 5e5, 1e6):
+        rc, rs = ref_common.rope_cos_sin(jnp.asarray(pos), 32, theta)
+        tc, ts = port_common.rope_cos_sin(torch.from_numpy(pos), 32, theta)
+        np.testing.assert_allclose(host(tc), host(rc), rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(host(ts), host(rs), rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(
+            host(port_common.apply_rope(xt, tc[:, None], ts[:, None])),
+            host(ref_common.apply_rope(xj, rc[:, None], rs[:, None])),
+            rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("heads, kv, q_chunk, k_chunk", [
+    (4, 2, 8, 16), (4, 4, 16, 8), (6, 2, 8, 8), (2, 1, 32, 32)])
+def test_chunked_causal_attention_matches(heads, kv, q_chunk, k_chunk):
+    """Chunks < S (the first three cases): kv chunks in a q chunk's future
+    are skipped; the last case is one chunk each."""
+    rng = np.random.default_rng(heads * 10 + kv)
+    q = rng.normal(0, 1, (2, heads, 32, 16)).astype(np.float32)
+    k = rng.normal(0, 1, (2, kv, 32, 16)).astype(np.float32)
+    v = rng.normal(0, 1, (2, kv, 32, 16)).astype(np.float32)
+    want = ref_attn.chunked_causal_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), q_chunk, k_chunk)
+    got = port_attn.chunked_causal_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        q_chunk, k_chunk)
+    np.testing.assert_allclose(host(got), host(want), rtol=1e-5, atol=1e-5)
+
+
+def test_chunked_causal_attention_keeps_the_multiple_check():
+    q = torch.zeros(1, 2, 24, 16)
+    with pytest.raises(ValueError, match="multiple"):
+        port_attn.chunked_causal_attention(q, q, q, 16, 16)
+
+
+# ------------------------------------------------------------ the model
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_parameter_tree_maps_one_to_one(arch):
+    """The port's parameters carry the reference's names and shapes."""
+    params, model = weights(arch)
+    ref_names = [(p, np.shape(a)) for p, a in
+                 flatten_with_paths(jax.tree.map(np.asarray, params))]
+    port_names = [(p, tuple(t.shape)) for p, t in
+                  flatten_with_paths(model.param_tree())]
+    assert port_names == ref_names
+    assert ("layers/0/attn/wq", (3, 64, 4, 16)) in port_names
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", DENSE)
+def test_forward_matches_reference(arch, dtype):
+    r = runs(arch, dtype)
+    tol = DTYPES[dtype][2]
+    assert r["port"]["train"].shape == (B, S, 128)
+    np.testing.assert_allclose(r["port"]["train"], r["ref"]["train"],
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", DENSE)
+def test_prefill_and_decode_logits_match_reference(arch, dtype):
+    r = runs(arch, dtype)
+    tol = DTYPES[dtype][2]
+    assert r["port"]["steps"].shape == (B, PREFILL + DECODES, 128)
+    np.testing.assert_allclose(r["port"]["steps"], r["ref"]["steps"],
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", DENSE)
+def test_caches_match_reference(arch, dtype):
+    r = runs(arch, dtype)
+    tol = DTYPES[dtype][2]
+    for (pk, pv), (rk, rv) in zip(r["port"]["cache"], r["ref"]["cache"]):
+        assert pk.shape == (3, B, rk.shape[2], S, 16)
+        np.testing.assert_allclose(pk, rk, rtol=tol, atol=tol)
+        np.testing.assert_allclose(pv, rv, rtol=tol, atol=tol)
+        assert not pk[:, :, :, PREFILL + DECODES:].any()
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_decode_step_tokens_equal_reference(arch):
+    r = runs(arch, "float32")
+    assert r["port"]["next"].dtype == np.int32
+    assert r["port"]["next"].shape == (B, 1)
+    np.testing.assert_array_equal(r["port"]["next"], r["ref"]["next"])
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_prefill_plus_decode_reproduces_own_forward(arch):
+    """Cache correctness within the port, as the reference's own test
+    holds it (tests/test_models_smoke.py: float32 compute, rtol/atol 2e-2).
+    In bfloat16 the reference's own prefill + decode misses its forward at
+    that tolerance (29-52 of these 6,656 logits: decode attends in float32,
+    the forward in bfloat16), so there the port is held to the reference's
+    logits instead (above)."""
+    r = runs(arch, "float32")
+    n = PREFILL + DECODES
+    np.testing.assert_allclose(r["port"]["steps"], r["port"]["train"][:, :n],
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_compute_weights_are_cast_once_and_follow_loads():
+    _, model = weights("qwen2-1.5b")
+    w1 = model.compute_weights(torch.bfloat16)
+    assert model.compute_weights(torch.bfloat16) is w1
+    assert w1["layers"][0][0]["attn"]["wq"].dtype == torch.bfloat16
+    assert w1["layers"][0][0]["norm1"].dtype == torch.float32
+    f32 = model.compute_weights(torch.float32)
+    assert f32["embed"].data_ptr() == model.embed.data_ptr()
+    with torch.no_grad():
+        model.final_norm.mul_(1.0)   # any in-place write: the cast is stale
+    assert model.compute_weights(torch.float32) is not f32
+
+
+def test_init_params_has_the_reference_scales():
+    cfg = dataclasses.replace(get_config("codeqwen1.5-7b").reduced(),
+                              n_layers=2, d_model=256, d_ff=512)
+    gen = torch.Generator().manual_seed(0)
+    model = port_model.init_params(cfg, gen)
+    h, dh = cfg.n_heads, cfg.head_dim
+    for name, std in [("embed", 0.02), ("lm_head", 256 ** -0.5),
+                      ("layers.0.attn.wq", 256 ** -0.5),
+                      ("layers.0.attn.wo", (h * dh) ** -0.5),
+                      ("layers.0.mlp.wi", 256 ** -0.5),
+                      ("layers.0.mlp.wo", 512 ** -0.5)]:
+        got = dict(model.named_parameters())[name].std().item()
+        assert abs(got / std - 1) < 0.1, (name, got, std)
+    assert not model.layers[0].attn.bq.any()
+    assert (model.layers[0].norm1 == 1).all()
+    again = port_model.init_params(cfg, torch.Generator().manual_seed(0))
+    assert torch.equal(again.layers[0].mlp.wg, model.layers[0].mlp.wg)
+
+
+@pytest.mark.parametrize("arch", NOT_DENSE)
+def test_non_dense_archs_raise_not_implemented(arch):
+    cfg = get_config(arch).reduced()
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        port_model.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="slice"):
+        port_model.init_cache(cfg, 1, 8, device="cpu")
+
+
+def test_forward_checks_its_mode_and_config():
+    _, model = weights("llama3-405b")
+    _, cfg = cfgs("llama3-405b")
+    toks = torch.zeros((1, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="mode"):
+        model(toks, "sample")
+    with pytest.raises(ValueError, match="caches"):
+        model(toks, "prefill")
+    with pytest.raises(ValueError, match="built for"):
+        port_model.forward(model, dataclasses.replace(cfg, q_chunk=8), toks)
