@@ -124,6 +124,24 @@ Phases, each reported on its own lines:
      repro_torch.launch.serve --arch qwen2-1.5b as a subprocess, exit 0
      and its [serve] line. No TPU kernel lies on this path (the products
      are torch.einsum), so the kernels' record is unchanged;
+  3j. the LM substrate's training path (between 3i and 4), qwen2-1.5b at
+     full width and depth: six steps of make_train_step (f32 policy,
+     remat, bfloat16 compute, B = 8, T = 128 from SyntheticTokenStream)
+     through train.loop.train, every loss finite and the last below the
+     first (step ms split into forward+backward and optimizer, tokens/s,
+     the device's busy share, a seventh step's device time by
+     torch.profiler over the median step, and its top kernels, peak
+     memory); a 2-layer cut's float32 loss, grad norm
+     and every gradient leaf on the card against the CPU (rtol 1e-3, atol
+     1e-3 of the leaf's largest magnitude, TF32 off); the lowmem policy
+     (bfloat16 params, int8 moments) for 3 finite steps under (a)'s peak;
+     the 2-layer cut stopped after 2 steps at a checkpoint and resumed,
+     against 4 straight (rtol 1e-5); python -m repro_torch.launch.train
+     --arch qwen2-1.5b as a subprocess, exit 0 and its [train] line; and
+     the run's Telemetry as a BlinkDB table, the reference example's
+     BlinkQL through BlinkQLService, every agg_scan_fused launch held to
+     its plain version ("telemetry_launches" in the kernels' record),
+     answers equal to query()'s bit for bit;
   4. times: each kernel at the main path's shapes (agg_scan_fused and
      quantile_scan at G = 1, 6, 200 and 500) against its bound and its
      plain version, quantile_scan beside the yardstick agg_scan_fused +
@@ -3018,18 +3036,37 @@ def timed_generate(torch, engine, prompts, n_new: int):
     return out, time.perf_counter() - t0
 
 
-def device_busy_share(torch, engine, prompts, n_new: int) -> tuple:
-    """(device ms, wall ms) of one generate under torch.profiler: the sum of
-    the kernels' device time, and the host clock around the call."""
+def profiled_ms(torch, fn) -> tuple:
+    """(device ms, wall ms, top kernels) of fn() under torch.profiler: the
+    sum of the kernels' device time, the host clock around the call,
+    device synchronised on both sides, and the eight kernels of most
+    device time as (name, ms, launches)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, wall = timed_generate(torch, engine, prompts, n_new)
-    dev_us = sum(getattr(e, "self_device_time_total", 0.0)
-                 for e in prof.key_averages()
-                 if getattr(e, "device_type", None) is not None
-                 and "CUDA" in str(e.device_type))
-    return dev_us / 1e3, 1e3 * wall
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) is not None
+               and "CUDA" in str(e.device_type)]
+    dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return dev_us / 1e3, 1e3 * wall, [
+        (e.key, e.self_device_time_total / 1e3, e.count) for e in top]
+
+
+def device_busy_share(torch, engine, prompts, n_new: int) -> tuple:
+    """(device ms, wall ms) of one generate under torch.profiler."""
+    return profiled_ms(torch, lambda: engine.generate(prompts, n_new))[:2]
+
+
+def busy_text(dev_ms: float, wall_ms: float) -> str:
+    return (f"{dev_ms:.3f} of {wall_ms:.3f} ms "
+            f"({100 * dev_ms / wall_ms:.1f}%)" if dev_ms > 0
+            else "not measured (the profiler saw no device time)")
 
 
 def phase_lm_serving(torch, np, card: str, device="cuda") -> dict:
@@ -3090,7 +3127,7 @@ def phase_lm_serving(torch, np, card: str, device="cuda") -> dict:
     # (b) the float32 path held to itself
     toks = torch.from_numpy(lm_prompts(np, cfg, 2, 128, 1)).to(device)
     t0 = time.perf_counter()
-    with no_tf32(torch):
+    with no_tf32(torch), torch.no_grad():
         full, _, _ = model_lib.forward(model, cfg, toks, "train",
                                        compute_dtype=torch.float32)
         caches = model_lib.init_cache(cfg, 2, 128, dtype=torch.float32,
@@ -3118,7 +3155,7 @@ def phase_lm_serving(torch, np, card: str, device="cuda") -> dict:
     cut_cpu = model_lib.init_params(cut, torch.Generator().manual_seed(1))
     cut_card = copy.deepcopy(cut_cpu).to(device)
     ctoks = lm_prompts(np, cut, 2, 32, 2)
-    with no_tf32(torch):
+    with no_tf32(torch), torch.no_grad():
         want, _, _ = model_lib.forward(cut_cpu, cut, torch.from_numpy(ctoks),
                                        compute_dtype=torch.float32)
         got, _, _ = model_lib.forward(cut_card, cut,
@@ -3158,9 +3195,7 @@ def phase_lm_serving(torch, np, card: str, device="cuda") -> dict:
     decode_ms = 1e3 * (gen_s - prefill_s) / (LM_NEW - 1)
     tok_s = LM_BATCH * LM_NEW / gen_s
     dev_ms, wall_ms = device_busy_share(torch, engine, prompts, 8)
-    busy = (f"{dev_ms:.3f} of {wall_ms:.3f} ms "
-            f"({100 * dev_ms / wall_ms:.1f}%)" if dev_ms > 0
-            else "not measured (the profiler saw no device time)")
+    busy = busy_text(dev_ms, wall_ms)
     f32_tokens = ServeEngine(cfg, model, ServeConfig(batch=LM_BATCH),
                              F32Step()).generate(prompts, LM_NEW)
     share = float((f32_tokens[:, LM_PROMPT:] == run1[:, LM_PROMPT:]).mean())
@@ -3225,6 +3260,420 @@ def phase_lm_serving(torch, np, card: str, device="cuda") -> dict:
     log(f"phase 3i ok: {cfg.name} at full width served, float32 path held "
         f"to itself, card to CPU, bfloat16 runs bit-equal, checkpoint round "
         f"trip, launch.serve exit 0; {out['seconds']:.1f}s")
+    return out
+
+
+# ----------------------------------------------------------------- phase 3j
+
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 128   # (a) and (c)
+LM_TRAIN_STEPS, LM_LOWMEM_STEPS = 6, 3
+LM_TRAIN_ARGS = ["--arch", LM_ARCH, "--steps", "4", "--ckpt-every", "0"]
+# A short warm-up, so that six steps move the loss past the noise between
+# batches (launch.train warms up over 20 steps).
+LM_OPT = dict(lr=1e-3, warmup_steps=5, decay_steps=100)
+
+
+def telemetry_questions(n_steps: int) -> list[str]:
+    """The reference example's BlinkQL over its trainer's telemetry
+    (examples/telemetry_queries.py), the late phase from half the run;
+    the first repeated (the answer cache)."""
+    q1 = ("SELECT AVG(loss) FROM telemetry GROUP BY domain "
+          "ERROR WITHIN 10% AT CONFIDENCE 95%")
+    return [q1, f"SELECT COUNT(*) FROM telemetry WHERE step >= "
+                f"{n_steps // 2} AND grad_norm > 1.0 ERROR WITHIN 20% "
+                f"CONFIDENCE 95%", q1]
+
+
+@contextlib.contextmanager
+def timed_optimizer(torch, seconds: list):
+    """While active, each `train.optim.adamw_update` (as make_train_step
+    calls it) is timed on the host clock, device synchronised on both
+    sides, into `seconds`."""
+    from repro_torch.train import optim as optim_lib
+    update = optim_lib.adamw_update
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = update(*args, **kw)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+    optim_lib.adamw_update = timed
+    try:
+        yield seconds
+    finally:
+        optim_lib.adamw_update = update
+
+
+def timed_steps(torch, step_fn, seconds: list):
+    """step_fn timed on the host clock, device synchronised on both sides."""
+    def call(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(*args)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+    return call
+
+
+def step_losses(telemetry) -> list:
+    """One loss a step (Telemetry keeps a record per step and domain)."""
+    by_step = {}
+    for r in telemetry.records:
+        by_step.setdefault(r["step"], r["loss"])
+    return [by_step[k] for k in sorted(by_step)]
+
+
+def lm_batch(torch, stream) -> dict:
+    return {k: torch.from_numpy(v) for k, v in stream.next_batch().items()
+            if k in ("tokens", "labels")}
+
+
+def loss_and_grads(torch, model, cfg, batch, optim_lib, model_lib):
+    """(loss, grad norm, [(path, grad)]) of one float32 loss_fn."""
+    from repro_torch.checkpoint.ckpt import flatten_with_paths
+    leaves = flatten_with_paths(model.param_tree())
+    batch = {k: v.to(model.device) for k, v in batch.items()}
+    loss, _ = model_lib.loss_fn(model, cfg, batch,
+                                compute_dtype=torch.float32)
+    grads = torch.autograd.grad(loss, [p for _, p in leaves])
+    tree = dict(zip([p for p, _ in leaves], grads))
+    return loss.detach(), optim_lib.global_norm(tree), list(tree.items())
+
+
+def hold_telemetry(np, cols, answers) -> float:
+    """Every answer finite; each per-domain AVG(loss) a weighted mean of
+    that domain's records, so within their range (a tiny sample may miss
+    the exact mean by more than its closed-form CI: ROADMAP §3's
+    small-sample fault); the COUNT non-negative. Returns the worst
+    |estimate - exact mean| (not gated)."""
+    worst = 0.0
+    for ans in answers:
+        if not all(np.isfinite(g.estimate) and np.isfinite(g.stderr)
+                   for g in ans.groups):
+            raise AssertionError(f"(f): non-finite answer {ans}")
+    for g in answers[0].groups:
+        vals = cols["loss"][cols["domain"] == g.key[0]].astype(np.float64)
+        if not len(vals) or not (vals.min() * (1 - 1e-6) <= g.estimate
+                                 <= vals.max() * (1 + 1e-6)):
+            raise AssertionError(f"(f): AVG(loss) of domain {g.key[0]} "
+                                 f"{g.estimate} outside its records' "
+                                 f"range")
+        worst = max(worst, abs(g.estimate - vals.mean()))
+    if any(g.estimate < 0 for g in answers[1].groups):
+        raise AssertionError(f"(f): a negative COUNT {answers[1]}")
+    return worst
+
+
+def lm_train_run(torch, step_cfg, n_steps: int, device="cuda") -> tuple:
+    """Phase 3j (a)'s measured run (lm_train_times.py runs it too):
+    qwen2-1.5b at full width and depth from a seeded generator on
+    `device`, n_steps of make_train_step(step_cfg) through
+    train.loop.train, B = LM_TRAIN_BATCH and T = LM_TRAIN_SEQ from
+    SyntheticTokenStream; each step and its adamw_update timed on the host
+    clock, device synchronised on both sides; then one more step under
+    torch.profiler. Returns (the measurement, the run's Telemetry); the
+    device busy share is the profiled step's device time over the median
+    unprofiled step (medians over steps 2 to n_steps)."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import DataConfig, SyntheticTokenStream
+    from repro_torch.models import model as model_lib
+    from repro_torch.train import loop as loop_lib
+    from repro_torch.train import optim as optim_lib
+    from repro_torch.train import step as step_lib
+
+    cfg = get_config(LM_ARCH)
+    opt_cfg = optim_lib.OptConfig(**LM_OPT)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = model_lib.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0),
+        step_cfg.param_dtype)
+    opt = optim_lib.init_opt_state(model.param_tree(),
+                                   step_cfg.opt_config(opt_cfg))
+    stream = SyntheticTokenStream(DataConfig(cfg.vocab_size, LM_TRAIN_SEQ,
+                                             LM_TRAIN_BATCH, seed=0))
+    step_s, opt_s = [], []
+    step = step_lib.make_train_step(cfg, opt_cfg, step_cfg)
+    with timed_optimizer(torch, opt_s), \
+            tempfile.TemporaryDirectory(prefix="lm_train_") as tmp:
+        _, opt, telemetry = loop_lib.train(
+            timed_steps(torch, step, step_s), model, opt, stream,
+            loop_lib.LoopConfig(total_steps=n_steps, ckpt_every=0,
+                                log_every=n_steps, ckpt_dir=tmp),
+            resume=False)
+    dev_ms, wall_ms, top = profiled_ms(
+        torch, lambda: step(model, opt, lm_batch(torch, stream)))
+    med = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    med_opt = sorted(opt_s[1:])[len(opt_s[1:]) // 2]
+    return {"params": sum(p.numel() for p in model.parameters()),
+            "losses": step_losses(telemetry),
+            "step_ms": [1e3 * x for x in step_s],
+            "optimizer_ms": [1e3 * x for x in opt_s],
+            "median_step_ms": 1e3 * med,
+            "median_optimizer_ms": 1e3 * med_opt,
+            "median_fwd_bwd_ms": 1e3 * (med - med_opt),
+            "tokens_per_s": LM_TRAIN_BATCH * LM_TRAIN_SEQ / med,
+            "device_ms_one_step": dev_ms,
+            "profiled_wall_ms_one_step": wall_ms,
+            "device_busy_share": dev_ms / (1e3 * med),
+            "top_kernels": top,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()
+            }, telemetry
+
+
+def phase_lm_training(torch, np, card: str, device="cuda") -> dict:
+    """The LM substrate's training path (repro_torch.train, .data.tokens,
+    .launch.train) on qwen2-1.5b: (a) full width and depth, float32 weights
+    from a seeded generator on the card, StepConfig() (f32, remat on,
+    bfloat16 compute), B = 8, T = 128 from SyntheticTokenStream, six steps
+    through train.loop.train: every loss finite, the last below the first;
+    step ms (median after the first) split into forward+backward and
+    optimizer, tokens/s, the device's busy share (a seventh step's device
+    time under torch.profiler over the median step), peak memory
+    (`lm_train_run`); (b) the same widths cut to 2 layers, float32 compute with TF32
+    off: one step's loss, grad norm and every gradient leaf on the card
+    against the CPU (rtol 1e-3, atol 1e-3 of the leaf's largest magnitude);
+    (c) the lowmem policy (bfloat16 params, int8 moments) at full width, 3
+    finite steps, peak memory below (a)'s; (d) the 2-layer cut through the
+    loop: 4 steps straight against 2, a CheckpointManager save and restore,
+    then 2 more (losses rtol 1e-5; the card's embedding backward sums with
+    atomics); (e) python -m repro_torch.launch.train as a subprocess, exit 0
+    and its [train] line; (f) (a)'s Telemetry as a BlinkDB table, the
+    reference example's BlinkQL through BlinkQLService, every fused launch
+    held to its plain version, each answer equal to query()'s bit for bit
+    and each AVG within its domain's records' range."""
+    import copy
+    import os
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.core import BlinkDB, EngineConfig, QueryTemplate
+    from repro_torch.core import table as table_lib
+    from repro_torch.data.tokens import DataConfig, SyntheticTokenStream
+    from repro_torch.models import model as model_lib
+    from repro_torch.service import BlinkQLService, ServiceConfig, \
+        parse_blinkql
+    from repro_torch.train import loop as loop_lib
+    from repro_torch.train import optim as optim_lib
+    from repro_torch.train import step as step_lib
+
+    t_phase = time.perf_counter()
+    out = {}
+    cfg = get_config(LM_ARCH)
+    opt_cfg = optim_lib.OptConfig(**LM_OPT)
+
+    # (a) full width and depth, the f32 policy
+    t0 = time.perf_counter()
+    a, telemetry = lm_train_run(torch, step_lib.StepConfig(), LM_TRAIN_STEPS,
+                                device)
+    out["f32"] = a
+    losses = a["losses"]
+    if len(losses) != LM_TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"(a): losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"(a): the loss did not fall: {losses}")
+    dev_ms = a["device_ms_one_step"]
+    log(f"  (a) {cfg.name} at full width and depth ({cfg.n_layers} layers, "
+        f"{a['params']} float32 parameters), StepConfig() f32 policy, "
+        f"remat, bfloat16 compute, B = {LM_TRAIN_BATCH}, T = "
+        f"{LM_TRAIN_SEQ}: losses {', '.join(f'{x:.4f}' for x in losses)} "
+        f"(finite, fell)")
+    log(f"  (a) step {a['median_step_ms']:.3f} ms (median of steps 2-"
+        f"{LM_TRAIN_STEPS}; first {a['step_ms'][0]:.3f}): forward+backward "
+        f"{a['median_fwd_bwd_ms']:.3f} ms, optimizer "
+        f"{a['median_optimizer_ms']:.3f} ms; {a['tokens_per_s']:.1f} "
+        f"tokens/s; device busy: a profiled step's device time over the "
+        f"median step {busy_text(dev_ms, a['median_step_ms'])} (over the "
+        f"profiled step's own wall, profiler included: "
+        f"{busy_text(dev_ms, a['profiled_wall_ms_one_step'])}); "
+        f"torch.cuda.max_memory_allocated {a['max_memory_allocated']} "
+        f"({card}); {time.perf_counter() - t0:.2f}s")
+    log("  (a) the profiled step's kernels of most device time: " + "; ".join(
+        f"{name[:60]} {ms:.3f} ms x{n}" for name, ms, n in a["top_kernels"]))
+    torch.cuda.empty_cache()
+
+    # (b) a 2-layer cut at full width: loss and gradients, card against CPU
+    t0 = time.perf_counter()
+    cut = dataclasses.replace(cfg, n_layers=LM_CUT_LAYERS)
+    cut_cpu = model_lib.init_params(cut, torch.Generator().manual_seed(1))
+    cut_card = copy.deepcopy(cut_cpu).to(device)
+    batch = lm_batch(torch, SyntheticTokenStream(
+        DataConfig(cut.vocab_size, 32, 2, seed=2)))
+    with no_tf32(torch):
+        want = loss_and_grads(torch, cut_cpu, cut, batch, optim_lib,
+                              model_lib)
+        got = loss_and_grads(torch, cut_card, cut, batch, optim_lib,
+                             model_lib)
+    ratios = [hold_close(torch, "(b) loss, card against CPU", got[0],
+                         want[0], 1e-3, 1e-3),
+              hold_close(torch, "(b) grad norm, card against CPU", got[1],
+                         want[1], 1e-3, 1e-3)]
+    worst = (0.0, "")
+    for (path, g), (_, w) in zip(got[2], want[2]):
+        w = w.float()
+        scale = w.abs().max().item()
+        diff = (g.float().cpu() - w).abs().max().item()
+        ratio = tol_ratio(torch, g.float().cpu(), w, 1e-3,
+                          1e-3 * scale if scale > 0 else 1e-30)
+        if not ratio <= 1.0:
+            raise AssertionError(f"(b): gradient {path} off by {diff} "
+                                 f"(ratio {ratio})")
+        worst = max(worst, (ratio, path))
+    out["card_vs_cpu"] = {"loss": want[0].item(), "ratios": ratios,
+                          "worst_grad_ratio": worst[0],
+                          "worst_grad_leaf": worst[1]}
+    log(f"  (b) {len(got[2])} gradient leaves within rtol 1e-3 / atol 1e-3 "
+        f"of their largest magnitude, worst ratio {worst[0]:.3f} "
+        f"({worst[1]}); {time.perf_counter() - t0:.2f}s")
+    del cut_cpu, cut_card, want, got
+
+    # (c) the lowmem policy at full width
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    low_cfg = step_lib.StepConfig(policy="lowmem")
+    model = model_lib.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0),
+        low_cfg.param_dtype)
+    opt = optim_lib.init_opt_state(model.param_tree(),
+                                   low_cfg.opt_config(opt_cfg))
+    step = step_lib.make_train_step(cfg, opt_cfg, low_cfg)
+    stream = SyntheticTokenStream(DataConfig(cfg.vocab_size, LM_TRAIN_SEQ,
+                                             LM_TRAIN_BATCH, seed=0))
+    low_s, low_losses = [], []
+    for _ in range(LM_LOWMEM_STEPS):
+        _, opt, m = timed_steps(torch, step, low_s)(model, opt,
+                                                    lm_batch(torch, stream))
+        low_losses.append(m["loss"].item())
+    peak = torch.cuda.max_memory_allocated()
+    if not np.isfinite(low_losses).all():
+        raise AssertionError(f"(c): losses {low_losses}")
+    if opt["m"]["embed"]["q"].dtype != torch.int8 or \
+            model.embed.dtype != torch.bfloat16:
+        raise AssertionError("(c): not bfloat16 params and int8 moments")
+    if not peak < a["max_memory_allocated"]:
+        raise AssertionError(f"(c): peak {peak} not below (a)'s "
+                             f"{a['max_memory_allocated']}")
+    out["lowmem"] = {"losses": low_losses,
+                     "step_ms": [1e3 * x for x in low_s],
+                     "max_memory_allocated": peak}
+    log(f"  (c) lowmem (bfloat16 params, int8 moments): losses "
+        f"{', '.join(f'{x:.4f}' for x in low_losses)}; steps "
+        f"{', '.join(f'{1e3 * x:.3f}' for x in low_s)} ms; "
+        f"torch.cuda.max_memory_allocated {peak}, below (a)'s ({card}); "
+        f"{time.perf_counter() - t0:.2f}s")
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+    # (d) the 2-layer cut through the loop, stopped and resumed
+    t0 = time.perf_counter()
+
+    def cut_run(total: int, ckpt_dir: str, ckpt_every: int):
+        m = model_lib.init_params(
+            cut, torch.Generator(device=device).manual_seed(3))
+        o = optim_lib.init_opt_state(m.param_tree(), opt_cfg)
+        st = step_lib.make_train_step(cut, opt_cfg, step_lib.StepConfig())
+        _, _, tel = loop_lib.train(
+            st, m, o, SyntheticTokenStream(DataConfig(cut.vocab_size, 64, 4,
+                                                      seed=4)),
+            loop_lib.LoopConfig(total_steps=total, ckpt_every=ckpt_every,
+                                log_every=100, ckpt_dir=ckpt_dir))
+        return step_losses(tel)
+    with tempfile.TemporaryDirectory(prefix="lm_resume_") as tmp:
+        straight = cut_run(4, os.path.join(tmp, "a"), 0)
+        t1 = time.perf_counter()
+        first = cut_run(2, os.path.join(tmp, "b"), 2)
+        save_s = time.perf_counter() - t1
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(os.path.join(tmp, "b"))
+                   for f in fs)
+        t1 = time.perf_counter()
+        resumed = cut_run(4, os.path.join(tmp, "b"), 0)
+        resume_s = time.perf_counter() - t1
+    both = np.array(first + resumed)
+    if len(resumed) != 2 or not np.allclose(both, straight, rtol=1e-5,
+                                            atol=0):
+        raise AssertionError(f"(d): stopped and resumed {first} + {resumed}"
+                             f" against straight {straight}")
+    out["resume"] = {"straight": straight, "stopped": first,
+                     "resumed": resumed, "checkpoint_bytes": size,
+                     "max_rel_diff": float(np.max(np.abs(both - straight)
+                                                  / np.abs(straight)))}
+    log(f"  (d) {LM_CUT_LAYERS}-layer cut: 4 straight "
+        f"{', '.join(f'{x:.6f}' for x in straight)}; 2 + checkpoint "
+        f"({size} bytes; run with save {save_s:.2f}s) + 2 resumed "
+        f"({resume_s:.2f}s): max relative difference "
+        f"{out['resume']['max_rel_diff']:.3e} (rtol 1e-5); "
+        f"{time.perf_counter() - t0:.2f}s")
+
+    # (e) the normal entry point
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory(prefix="lm_launch_") as tmp:
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                               *LM_TRAIN_ARGS, "--ckpt-dir", tmp], env=env,
+                              capture_output=True, text=True, timeout=600)
+    line = [x for x in proc.stdout.splitlines() if x.startswith("[train]")]
+    if proc.returncode != 0 or not line:
+        raise AssertionError(f"(e): launch.train exited {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    out["launch_line"] = line[-1]
+    log(f"  (e) python -m repro_torch.launch.train {' '.join(LM_TRAIN_ARGS)}"
+        f": {line[-1]} ({time.perf_counter() - t0:.2f}s with start-up)")
+
+    # (f) (a)'s telemetry through BlinkQL, every fused launch held to plain
+    t0 = time.perf_counter()
+    cols = telemetry.as_columns()
+    cols = {"step": cols["step"].astype(np.int32),
+            "domain": cols["domain"].astype(np.int32),
+            "loss": cols["loss"].astype(np.float32),
+            "grad_norm": cols["grad_norm"].astype(np.float32)}
+    db = BlinkDB(EngineConfig(k1=50.0, m=3, uniform_fraction=0.5),
+                 device=device)
+    db.register_table("telemetry", table_lib.from_columns(
+        "telemetry", cols, categorical=["domain"]))
+    db.build_samples("telemetry", [QueryTemplate(frozenset({"domain"}), 1.0)],
+                     storage_budget_fraction=0.5)
+    worst = {}
+    texts = telemetry_questions(LM_TRAIN_STEPS)
+    reset_launches()
+    with checked_launches(torch, worst), \
+            BlinkQLService(db, config=ServiceConfig(batch_window_s=0.002)) \
+            as svc:
+        answers = [svc.submit(q) for q in texts]
+        stats = svc.stats()
+    launched = launch_counts()
+    if launched["agg_scan_fused"] == 0:
+        raise AssertionError("(f): no fused launch answered the telemetry")
+    if stats["cache"]["hits"] < 1:
+        raise AssertionError(f"(f): the repeated question missed the cache "
+                             f"{stats}")
+    with checked_launches(torch, worst):
+        for text, ans in zip(texts, answers):
+            if answer_bits(db.query(parse_blinkql(text, db))) != \
+                    answer_bits(ans):
+                raise AssertionError(f"(f): {text!r} through the service "
+                                     f"differs from query()")
+    gap = hold_telemetry(np, cols, answers)
+    out["telemetry"] = {"records": int(len(cols["step"])),
+                        "launches": launched, "worst": worst,
+                        "max_avg_gap": gap}
+    log(f"  (f) {len(cols['step'])} telemetry records, "
+        f"{len(telemetry_questions(LM_TRAIN_STEPS))} BlinkQL questions "
+        f"through BlinkQLService: launches {launched}, each fused launch "
+        f"held to its plain version (worst {worst.get('agg_scan_fused')}); "
+        f"answers equal to query()'s bit for bit; AVG(loss) BY domain "
+        f"within each domain's range (worst |gap| to the exact mean "
+        f"{gap:.3e}); cache hits {stats['cache']['hits']}; "
+        f"{time.perf_counter() - t0:.2f}s")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 3j ok: {cfg.name} trained at full width (f32 and lowmem), "
+        f"card held to CPU, stopped and resumed equal to straight, "
+        f"launch.train exit 0, its telemetry answered by BlinkQL through "
+        f"the fused kernel; {out['seconds']:.1f}s")
     return out
 
 
@@ -3637,7 +4086,7 @@ def phase_times_subsampled(torch, sub_db, card: str) -> dict:
 
 
 def kernels_record(worst, record, main, batch, ops_path, times, sample,
-                   l2_times, subj, sub_times, mut, serving, mesh,
+                   l2_times, subj, sub_times, mut, serving, mesh, lm_train,
                    card: str) -> list[dict]:
     """The kernels' JSON record: one entry per kernel, its launches on its
     path, its worst disagreement with its plain version over every phase,
@@ -3667,6 +4116,10 @@ def kernels_record(worst, record, main, batch, ops_path, times, sample,
             if checked:  # phase 3e's and 3f's launches, each against plain
                 errs.append((max(w[0] for w in checked.values()),
                              max(w[1] for w in checked.values())))
+        telemetry = lm_train["telemetry"]["worst"].get(kname, {})
+        if telemetry:  # phase 3j (f)'s launches, each against plain
+            errs.append((max(w[0] for w in telemetry.values()),
+                         max(w[1] for w in telemetry.values())))
         if kname in MESH_KERNELS:  # phase 3h's ranks, each against plain
             errs.append((max(w["worst"][kname]
                              for w in mesh["worlds"].values()), 0.0))
@@ -3760,6 +4213,11 @@ def kernels_record(worst, record, main, batch, ops_path, times, sample,
                            "subsampled CI and an append, each rank's "
                            "launches over its stripe (phase 3h)"))
         if kname == "agg_scan_fused":
+            entry.update(
+                telemetry_launches=lm_train["telemetry"]["launches"][kname],
+                telemetry_path=("BlinkQLService.submit over the trainer's "
+                                "Telemetry of phase 3j (a), each launch held "
+                                "to its plain version (phase 3j (f))"))
             entry["mutation_compaction"] = {
                 str(phi): sides for phi, sides in mut["compaction"].items()}
         if kname == "agg_scan_batched":
@@ -3846,17 +4304,23 @@ def main() -> int:
         "launch.serve")
     lm = phase_lm_serving(torch, np, card)
 
+    log("phase 3j: the LM substrate's training path, qwen2-1.5b at full "
+        "width: loss_fn, make_train_step, AdamW (f32 and int8 moments), "
+        "train.loop, launch.train; its telemetry through BlinkQLService")
+    lm_train = phase_lm_training(torch, np, card)
+
     log(f"phase 4: times at the main path's shapes ({card})")
     times = phase_times(torch, main["db"], card)
     l2_times = phase_times_l2(torch, sample["db"], card)
     sub_times = phase_times_subsampled(torch, subj["sub_db"], card)
     kernels = kernels_record(worst, record, main, batch, ops_path, times,
                              sample, l2_times, subj, sub_times, mut, serving,
-                             mesh, card)
+                             mesh, lm_train, card)
     log(f"smoke total {time.perf_counter() - t_start:.1f}s (phase 3d "
         f"{sample['seconds']:.1f}s, phase 3e {subj['seconds']:.1f}s, phase "
         f"3f {mut['seconds']:.1f}s, phase 3g {serving['seconds']:.1f}s, "
-        f"phase 3h {mesh['seconds']:.1f}s, phase 3i {lm['seconds']:.1f}s)")
+        f"phase 3h {mesh['seconds']:.1f}s, phase 3i {lm['seconds']:.1f}s, "
+        f"phase 3j {lm_train['seconds']:.1f}s)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

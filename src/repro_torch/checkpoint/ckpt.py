@@ -74,9 +74,36 @@ def map_leaves(fn: Callable, tree):
 
 
 def _host(leaf) -> np.ndarray:
+    """A host copy of a leaf (a CPU tensor is copied too: training updates
+    it in place while an asynchronous save writes). bfloat16 is saved as
+    raw 2-byte records ('V2'), as numpy writes the reference's bfloat16."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        t = leaf.detach()
+        t = t.cpu() if t.device.type != "cpu" else t.clone()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.dtype("V2"))
+        return t.numpy()
+    return np.array(leaf)
+
+
+def to_tensor(arr) -> torch.Tensor:
+    """A CPU tensor of a host array; a 2-byte record array (a restored 'V2'
+    leaf, or the reference's bfloat16 handed over as numpy) holds
+    bfloat16 bits."""
+    arr = np.array(arr)
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def load_into(dst: torch.Tensor, arr) -> None:
+    """Copy a restored array into `dst` in place, on dst's device and in
+    its dtype."""
+    src = to_tensor(arr)
+    if tuple(src.shape) != tuple(dst.shape):
+        raise ValueError(f"restored shape {tuple(src.shape)} is not "
+                         f"{tuple(dst.shape)}")
+    dst.copy_(src)
 
 
 def _leaf_file(arrays_dir: str, name: str) -> str:

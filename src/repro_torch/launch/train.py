@@ -1,0 +1,87 @@
+"""Training launcher: a dense LM trained on the synthetic corpus with
+checkpoint/restart, on the card unless --device cpu (counterpart of
+`repro.launch.train`).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
+        --steps 200 --batch 8 --seq 128
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
+        --steps 3 --device cpu
+
+--ckpt-dir holds {"params", "opt", "data"} in the layout of either
+package's CheckpointManager; a run resumes from its latest checkpoint. The
+mesh flags (--production-mesh) come with the LM mesh slice (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import tempfile
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core.engine import resolve_device
+from repro_torch.data.tokens import DataConfig, SyntheticTokenStream
+from repro_torch.models import model as model_lib
+from repro_torch.train import optim as optim_lib
+from repro_torch.train import step as step_lib
+from repro_torch.train.loop import LoopConfig, train
+
+
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-1.5b")
+    ap.add_argument("--reduced", action="store_true",
+                    help="use the smoke-scale config (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
+                                                       "repro_torch_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--policy", default="f32", choices=["f32", "lowmem"])
+    ap.add_argument("--resume", action="store_true", default=True)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    cfg = dataclasses.replace(cfg, q_chunk=min(cfg.q_chunk, args.seq),
+                              k_chunk=min(cfg.k_chunk, args.seq),
+                              mamba_chunk=min(cfg.mamba_chunk, args.seq))
+
+    device = resolve_device(args.device)
+    step_cfg = step_lib.StepConfig(policy=args.policy)
+    opt_cfg = optim_lib.OptConfig(lr=args.lr, warmup_steps=20,
+                                  decay_steps=max(args.steps, 100))
+
+    params = model_lib.init_params(
+        cfg, torch.Generator(device=device).manual_seed(args.seed),
+        step_cfg.param_dtype)
+    opt_state = optim_lib.init_opt_state(params.param_tree(),
+                                         step_cfg.opt_config(opt_cfg))
+    step_fn = step_lib.make_train_step(cfg, opt_cfg, step_cfg)
+
+    data_cfg = DataConfig(cfg.vocab_size, args.seq, args.batch,
+                          seed=args.seed)
+    stream = SyntheticTokenStream(data_cfg)
+    loop_cfg = LoopConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
+                          ckpt_dir=args.ckpt_dir)
+    params, opt_state, telemetry = train(step_fn, params, opt_state, stream,
+                                         loop_cfg, resume=args.resume)
+
+    losses = [r["loss"] for r in telemetry.records]
+    if not losses:
+        print(f"[train] done: the checkpoint in {args.ckpt_dir} is already "
+              f"at step {args.steps}", flush=True)
+        return
+    print(f"[train] done: first loss {losses[0]:.4f} -> last {losses[-1]:.4f}",
+          flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,5 @@
 """Shared model building blocks (counterpart of `repro.models.common`): the
-parameter factory, RMSNorm and rotary embeddings.
+parameter factory, RMSNorm, rotary embeddings and the cross-entropy loss.
 
 Parameters are `nn.Parameter`s of the reference's shapes. A layer's weights
 are stacked over the pattern's repeats (a leading [R] axis), as the
@@ -96,3 +96,16 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     cos = cos.to(x.dtype)
     sin = sin.to(x.dtype)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean CE over all positions (float32 logsumexp), plus z_loss times
+    the mean squared logsumexp (logit drift control at scale)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = (lse - ll).mean()
+    if z_loss:
+        loss = loss + z_loss * (lse ** 2).mean()
+    return loss

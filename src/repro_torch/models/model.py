@@ -6,25 +6,29 @@ reference's tree: `embed`, `final_norm`, `lm_head` (untied heads) and
 `layers.<pattern pos>.<name>`, each layer weight stacked over the repeats
 with a leading [R] axis. Where the reference `lax.scan`s the stack, the
 port loops over R in Python. Modes:
-  * train   — full-sequence forward, logits only (under torch.no_grad)
-  * prefill — full-sequence forward + cache build
-  * decode  — one-token step against the caches
+  * train   — full-sequence forward, CE loss (`loss_fn`), no caches; the
+              weights cast inside the graph (autograd follows whenever grad
+              is enabled), `remat` checkpoints one repeat of the pattern
+  * prefill — full-sequence forward + cache build (under torch.no_grad)
+  * decode  — one-token step against the caches (under torch.no_grad)
 
 Caches are per-pattern-position `KVCache`s with a leading [R] axis, written
 in place. The functional entry points of the reference (`init_params`,
-`init_cache`, `forward`, `prefill`, `decode_step`, ...) are thin functions
-over the module.
+`init_cache`, `forward`, `loss_fn`, `prefill`, `decode_step`, ...) are thin
+functions over the module.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
-from repro_torch.models.common import ParamFactory, einsum, rms_norm
+from repro_torch.models.common import (ParamFactory, cross_entropy, einsum,
+                                       rms_norm)
 
 MODES = ("train", "prefill", "decode")
 
@@ -77,15 +81,25 @@ class Layer(nn.Module):
             self.mlp = mlp_lib.MLP(pf, cfg.d_model, cfg.d_ff, r)
 
 
-def _cast_tree(module: nn.Module, dtype, r: int):
-    """Layer r's weights as the reference's nested dict: norms as stored
-    (rms_norm reads them in float32), the rest in `dtype`."""
-    out = {}
-    for name, child in module.named_children():
-        out[name] = _cast_tree(child, dtype, r)
+def _unbind_tree(module: nn.Module) -> dict:
+    """A pattern position's stacked weights as the reference's nested
+    dict, each leaf unbound over the repeats into one view a layer. Under
+    autograd the layers' gradients are then stacked once; indexing p[r]
+    for each layer would add a zero-filled gradient of the whole stack
+    per layer."""
+    out = {name: _unbind_tree(child)
+           for name, child in module.named_children()}
     for name, p in module.named_parameters(recurse=False):
-        out[name] = p[r] if name.startswith("norm") else p[r].to(dtype)
+        out[name] = p.unbind(0)
     return out
+
+
+def _layer_weights(tree: dict, r: int, dtype) -> dict:
+    """Layer r's weights of an `_unbind_tree`: norms as stored (rms_norm
+    reads them in float32), the rest in `dtype`."""
+    return {name: _layer_weights(v, r, dtype) if isinstance(v, dict)
+            else v[r] if name.startswith("norm") else v[r].to(dtype)
+            for name, v in tree.items()}
 
 
 class DecoderLM(nn.Module):
@@ -133,39 +147,77 @@ class DecoderLM(nn.Module):
         if self._compute is None or self._compute[0] != key:
             self._compute = None   # free the old copy before casting anew
             head = self.embed if self.cfg.tie_embeddings else self.lm_head
+            stacks = [_unbind_tree(layer) for layer in self.layers]
             weights = {
                 "embed": self.embed.to(dtype),
                 "head": head.to(dtype),
-                "layers": [[_cast_tree(layer, dtype, r)
-                            for layer in self.layers]
+                "layers": [[_layer_weights(stack, r, dtype)
+                            for stack in stacks]
                            for r in range(self.cfg.n_repeats)]}
             self._compute = (key, weights)
         return self._compute[1]
 
-    @torch.no_grad()
     def forward(self, tokens: torch.Tensor, mode: str = "train",
                 caches=None, pos: int | None = None,
-                compute_dtype: torch.dtype = torch.bfloat16):
+                compute_dtype: torch.dtype = torch.bfloat16,
+                remat: bool = True):
         """tokens int [B,S]. Returns (logits, caches, aux); the caches are
-        written in place, aux (the MoE slice's loss) is 0."""
+        written in place, aux is the layers' auxiliary loss summed (0 for
+        the dense pattern). Train mode casts the weights inside the graph
+        (`remat` checkpoints each repeat of the pattern); prefill and
+        decode run under torch.no_grad from the cast cache."""
         if mode not in MODES:
             raise ValueError(f"mode {mode!r} not in {MODES}")
         if (caches is None) != (mode == "train"):
             raise ValueError("mode 'train' takes no caches; prefill and "
                              "decode need them")
+        if mode == "train":
+            return self._train_forward(tokens, compute_dtype, remat)
+        with torch.no_grad():
+            return self._serve_forward(tokens, mode, caches, pos,
+                                       compute_dtype)
+
+    def _serve_forward(self, tokens, mode, caches, pos, compute_dtype):
         cfg = self.cfg
         w = self.compute_weights(compute_dtype)
         x = embed_tokens(w, cfg, tokens)
         for r, layer_ws in enumerate(w["layers"]):
             for i, spec in enumerate(cfg.pattern):
-                cache = None
-                if caches is not None:
-                    cache = attn_lib.KVCache(caches[i].k[r], caches[i].v[r])
-                x, _ = apply_layer(spec, layer_ws[i], x, cfg, mode, cache, pos)
+                cache = attn_lib.KVCache(caches[i].k[r], caches[i].v[r])
+                x, _, _ = apply_layer(spec, layer_ws[i], x, cfg, mode, cache,
+                                      pos)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
         logits = output_logits(w, cfg, x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return logits, caches, aux
+
+    def _train_forward(self, tokens, compute_dtype, remat):
+        """The reference's train forward under autograd: the embedding
+        gathered from the stored table, then cast (its gradient then sums
+        in the parameter's dtype); each layer's weights cast inside the
+        graph, as `w.astype(x.dtype)`; one checkpoint per repeat, as
+        `jax.checkpoint` over the scan body."""
+        cfg = self.cfg
+        x = self.embed[tokens].to(compute_dtype)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        stacks = [_unbind_tree(layer) for layer in self.layers]
+
+        def body(x, aux, r):
+            for i, spec in enumerate(cfg.pattern):
+                p = _layer_weights(stacks[i], r, compute_dtype)
+                x, _, a = apply_layer(spec, p, x, cfg, "train")
+                aux = aux + a
+            return x, aux
+
+        for r in range(cfg.n_repeats):
+            if remat:
+                x, aux = checkpoint(body, x, aux, r, use_reentrant=False)
+            else:
+                x, aux = body(x, aux, r)
+        x = rms_norm(x, self.final_norm, cfg.norm_eps)
+        head = self.embed if cfg.tie_embeddings else self.lm_head
+        logits = output_logits({"head": head.to(compute_dtype)}, cfg, x)
+        return logits, None, aux
 
 
 # ------------------------------------------------------------ functional API
@@ -198,7 +250,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def apply_layer(spec: LayerSpec, p, x, cfg: ModelConfig, mode: str,
                 cache=None, pos=None):
     """One layer: pre-norm attention and MLP, each with its residual.
-    Returns (x, cache)."""
+    Returns (x, cache, aux); aux, the MoE slice's loss, is 0.0 for the
+    dense channel."""
+    aux = 0.0
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if mode == "train":
         y = attn_lib.attention_train(p["attn"], h, attn_dims(cfg),
@@ -213,7 +267,7 @@ def apply_layer(spec: LayerSpec, p, x, cfg: ModelConfig, mode: str,
     if spec.channel == "mlp":
         h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
         x = x + mlp_lib.apply_mlp(p["mlp"], h2)
-    return x, cache
+    return x, cache, aux
 
 
 def embed_tokens(weights: dict, cfg: ModelConfig, tokens):
@@ -238,9 +292,22 @@ def _model_for(params: DecoderLM, cfg: ModelConfig) -> DecoderLM:
 
 
 def forward(params: DecoderLM, cfg: ModelConfig, tokens, mode: str = "train",
-            caches=None, pos=None, compute_dtype=torch.bfloat16):
+            caches=None, pos=None, compute_dtype=torch.bfloat16,
+            remat: bool = True):
     """tokens int [B,S]. Returns (logits, caches, aux)."""
-    return _model_for(params, cfg)(tokens, mode, caches, pos, compute_dtype)
+    return _model_for(params, cfg)(tokens, mode, caches, pos, compute_dtype,
+                                   remat)
+
+
+def loss_fn(params: DecoderLM, cfg: ModelConfig, batch,
+            compute_dtype=torch.bfloat16, remat: bool = True,
+            aux_weight: float = 0.01):
+    """(ce + aux_weight·aux/max(n_layers, 1), {"ce", "aux"}) over
+    batch["tokens"] and batch["labels"], int [B,S] on the model's device."""
+    logits, _, aux = forward(params, cfg, batch["tokens"], "train",
+                             compute_dtype=compute_dtype, remat=remat)
+    ce = cross_entropy(logits, batch["labels"])
+    return ce + aux_weight * aux / max(cfg.n_layers, 1), {"ce": ce, "aux": aux}
 
 
 def decode_step(params: DecoderLM, cfg: ModelConfig, tokens, caches, pos,

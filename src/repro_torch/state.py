@@ -7,8 +7,9 @@ hold the port against the reference, the reference's per-row priorities
 (`repro.core.sampling.base_units(n, seed[, uniform=True])`, as numpy) are
 handed to the port's builders as `units=`, and the reference's LM weights
 (`repro.models.model.init_params`, as numpy) become the port model's state
-through `lm_params_from_reference`. This module takes plain numpy arrays
-and never imports the reference.
+through `lm_params_from_reference`, its optimizer state through
+`opt_state_from_reference`. This module takes plain numpy arrays and never
+imports the reference.
 """
 from __future__ import annotations
 
@@ -17,10 +18,13 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.ckpt import SEP, flatten_with_paths
+from repro_torch.checkpoint.ckpt import (SEP, flatten_with_paths, map_leaves,
+                                        to_tensor)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import BlinkDB, resolve_device
 from repro_torch.models import model as model_lib
+from repro_torch.models.common import ParamFactory
+from repro_torch.train import optim as optim_lib
 
 
 def install_families(db: BlinkDB, table_name: str,
@@ -70,6 +74,23 @@ def lm_params_from_reference(cfg: ModelConfig, params_np,
     device = resolve_device(device)
     out = {}
     for path, leaf in flatten_with_paths(params_np):
-        out[path.replace(SEP, ".")] = torch.from_numpy(
-            np.array(leaf)).to(device)
+        out[path.replace(SEP, ".")] = to_tensor(leaf).to(device)
     return out
+
+
+def opt_state_from_reference(cfg: ModelConfig, opt_np, device="cuda") -> dict:
+    """The reference's optimizer state (`init_opt_state(params, opt_cfg)` or
+    a restored checkpoint's "opt", as numpy: {"m", "v", "step"}, float32
+    moments or int8 leaves {"q", "scale"}) as the port's, on `device`, the
+    tree kept. Raises unless its names and shapes are those of
+    `init_opt_state` for `cfg`'s parameters."""
+    device = resolve_device(device)
+    got = [(path, tuple(np.shape(a))) for path, a in flatten_with_paths(opt_np)]
+    int8 = any(path.endswith(SEP + "q") for path, _ in got)
+    meta = model_lib.DecoderLM(cfg, ParamFactory(None, torch.float32, "meta"))
+    like = optim_lib.init_opt_state(meta.param_tree(), optim_lib.OptConfig(
+        moments_dtype="int8" if int8 else "f32"))
+    if got != [(path, tuple(t.shape)) for path, t in flatten_with_paths(like)]:
+        raise ValueError(f"the optimizer state does not hold {cfg.name}'s "
+                         f"parameters")
+    return map_leaves(lambda leaf: to_tensor(leaf).to(device), opt_np)

@@ -1,2 +1,3 @@
-"""Step factories of the LM substrate (counterpart of `repro.train`); this
-slice holds the serving factories of `step.py`."""
+"""Training of the LM substrate (counterpart of `repro.train`): AdamW with
+float32 or int8 moments (`optim.py`), the train and serve step factories
+(`step.py`) and the resumable loop with its telemetry (`loop.py`)."""

@@ -1303,3 +1303,94 @@ def test_lm_f32_logits_on_card_equal_the_cpu(cuda_device):
             model, cfg, torch.from_numpy(toks).to(cuda_device),
             compute_dtype=torch.float32)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def _train_stream(cfg):
+    from repro_torch.data.tokens import DataConfig, SyntheticTokenStream
+    return SyntheticTokenStream(DataConfig(cfg.vocab_size, 32, 4, seed=5))
+
+
+def _train_batch(stream):
+    return {k: torch.from_numpy(v) for k, v in stream.next_batch().items()
+            if k in ("tokens", "labels")}
+
+
+def _train(cfg, model, policy, compute_dtype, n_steps):
+    """n_steps of make_train_step on `model` (in place): the losses and
+    grad norms, and the optimizer state."""
+    from repro_torch.train import optim as optim_lib
+    from repro_torch.train import step as step_lib
+
+    @dataclasses.dataclass(frozen=True)
+    class Step(step_lib.StepConfig):
+        @property
+        def compute_dtype(self):
+            return compute_dtype
+
+    step_cfg = Step(policy=policy)
+    opt_cfg = optim_lib.OptConfig(lr=1e-3, warmup_steps=2, decay_steps=10)
+    opt = optim_lib.init_opt_state(model.param_tree(),
+                                   step_cfg.opt_config(opt_cfg))
+    step = step_lib.make_train_step(cfg, opt_cfg, step_cfg)
+    stream = _train_stream(cfg)
+    out = []
+    for _ in range(n_steps):
+        _, opt, m = step(model, opt, _train_batch(stream))
+        out.append((m["loss"].item(), m["grad_norm"].item(), m["lr"].item()))
+    return out, opt
+
+
+@pytest.mark.cuda
+def test_lm_train_steps_on_card_equal_the_cpu(cuda_device):
+    """Three float32 train steps (loss, gradients, AdamW) on the card and
+    on the CPU from the same weights and batches: the trajectories of loss,
+    grad norm and lr within rtol 1e-4, and every parameter after them
+    within rtol 1e-3, atol 1e-5. Exempt from that bound are the elements
+    whose first-step gradient on the CPU is at most 1e-4 of its leaf's
+    largest: float32 gradients carry about 1e-6 of the leaf's largest in
+    rounding (against float64 on the CPU), and Adam's first update is
+    sign-like (m/√v = ±1), so such an element may step either way on each
+    device. They are held to twice the update clip (3) times the steps'
+    summed lr, and their count is printed by leaf."""
+    from repro_torch.checkpoint.ckpt import flatten_with_paths
+    cfg, cpu, model = _lm_on_card()
+    first = copy.deepcopy(cpu)
+    leaves = flatten_with_paths(first.param_tree())
+    loss, _ = model_lib.loss_fn(first, cfg, _train_batch(_train_stream(cfg)),
+                                compute_dtype=torch.float32)
+    g1 = torch.autograd.grad(loss, [p for _, p in leaves])
+    want, _ = _train(cfg, cpu, "f32", torch.float32, 3)
+    with _no_tf32():
+        got, opt = _train(cfg, model, "f32", torch.float32, 3)
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    assert opt["step"].item() == 3 and opt["step"].is_cuda
+    moved = 2 * 3.0 * sum(lr for _, _, lr in want)
+    card = dict(flatten_with_paths(model.param_tree()))
+    exempt = {}
+    for (name, b), g in zip(flatten_with_paths(cpu.param_tree()), g1):
+        a, b = card[name].detach().cpu(), b.detach()
+        tie = g.abs() <= 1e-4 * g.abs().max()
+        exempt[name] = f"{int(tie.sum())}/{g.numel()}"
+        torch.testing.assert_close(a[~tie], b[~tie], rtol=1e-3, atol=1e-5,
+                                   msg=name)
+        torch.testing.assert_close(a[tie], b[tie], rtol=0, atol=moved,
+                                   msg=name)
+    print("exempt from rtol 1e-3/atol 1e-5 (first-step |g| <= 1e-4 max):",
+          exempt)
+
+
+@pytest.mark.cuda
+def test_lm_lowmem_train_steps_on_card_are_finite(cuda_device):
+    """The lowmem policy on the card: bfloat16 parameters updated in
+    place, int8 moments, bfloat16 compute; the losses finite."""
+    cfg = dataclasses.replace(get_config("qwen2-1.5b").reduced(), n_layers=3)
+    model = model_lib.init_params(
+        cfg, torch.Generator(device=cuda_device).manual_seed(0),
+        torch.bfloat16)
+    ptr = model.embed.data_ptr()
+    got, opt = _train(cfg, model, "lowmem", torch.bfloat16, 3)
+    assert np.isfinite(got).all()
+    assert model.embed.dtype == torch.bfloat16 and \
+        model.embed.data_ptr() == ptr
+    assert opt["m"]["embed"]["q"].dtype == torch.int8
+    assert opt["v"]["embed"]["scale"].is_cuda

@@ -9,6 +9,7 @@ import torch
 
 from repro_torch.launch import query as query_launch
 from repro_torch.launch import serve as serve_launch
+from repro_torch.launch import train as train_launch
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -57,6 +58,29 @@ def test_serve_example_runs_on_the_cpu(capsys):
         assert f"{arch}" in out and "waits for" in out, out
 
 
+def test_train_example_runs_on_the_cpu(capsys, tmp_path):
+    _example("torch_train_lm").main(["--device", "cpu", "--steps", "5",
+                                     "--ckpt-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "[train_lm] qwen2-25m: 12.0M params, 5 steps of batch 8 x seq " \
+        "128 on cpu" in out, out
+    assert "[train_lm] loss " in out.strip().splitlines()[-1], out
+
+
+def test_telemetry_example_queries_the_trainers_own_telemetry(capsys):
+    """--train-steps N: the table is the port trainer's Telemetry (one
+    record per step and domain of the batch), asked the same BlinkQL."""
+    _example("torch_telemetry_queries").main(["--device", "cpu",
+                                              "--train-steps", "12"])
+    out = capsys.readouterr().out
+    assert "[loop] step 0 loss " in out and "[loop] step 6 loss " in out, out
+    n = int(out.split("[telemetry] ")[1].split(" records")[0])
+    assert 12 < n <= 12 * 8, out
+    for m in ["per-domain AVG(loss) within 10%@95%", "EXPLAIN", "'hits': 1",
+              "'healthy': True"]:
+        assert m in out, (m, out)
+
+
 def test_query_driver_runs_on_the_cpu(capsys):
     query_launch.main(["--device", "cpu", "--rows", "40000", "--k1", "600"])
     out = capsys.readouterr().out
@@ -78,6 +102,9 @@ def test_query_driver_time_bound(capsys):
     lambda: query_launch.main(["--rows", "1000"]),
     lambda: _example("torch_serve_lm").main([]),
     lambda: serve_launch.main(["--reduced", "--new-tokens", "2"]),
+    lambda: _example("torch_train_lm").main(["--steps", "1"]),
+    lambda: _example("torch_telemetry_queries").main(["--train-steps", "2"]),
+    lambda: train_launch.main(["--reduced", "--steps", "1"]),
 ])
 def test_entry_points_run_on_the_card_by_default(run):
     """Without --device each entry point asks for the card, and without

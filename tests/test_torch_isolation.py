@@ -10,7 +10,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     sorted((ROOT / "examples").glob("torch_*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "kernel_times.py",
-     ROOT / "compare_answers.py"]
+     ROOT / "compare_answers.py", ROOT / "lm_train_times.py"]
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)\b(?!_))", re.M)
 
@@ -37,6 +37,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import repro_torch.models.attention, repro_torch.models.model\n"
         "import repro_torch.checkpoint.ckpt, repro_torch.train.step\n"
         "import repro_torch.serve.engine, repro_torch.launch.serve\n"
+        "import repro_torch.data.tokens, repro_torch.train.optim\n"
+        "import repro_torch.train.loop, repro_torch.launch.train\n"
         "for arch in repro_torch.configs.all_archs():\n"
         "    repro_torch.configs.get_config(arch)\n"
         "bad = [m for m in sys.modules if m in ('jax', 'repro')\n"
@@ -69,8 +71,19 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "assert not hasattr(repro_torch.launch.roofline, 'HBM_BW')\n"
         "assert hasattr(repro_torch.state, 'lm_params_from_reference')\n"
         "for name in ('DecoderLM', 'init_params', 'init_cache', 'forward',\n"
-        "             'prefill', 'decode_step'):\n"
+        "             'prefill', 'decode_step', 'loss_fn'):\n"
         "    assert hasattr(repro_torch.models.model, name), name\n"
+        "for name in ('OptConfig', 'schedule', 'quantize_i8',\n"
+        "             'dequantize_i8', 'init_opt_state', 'global_norm',\n"
+        "             'adamw_update'):\n"
+        "    assert hasattr(repro_torch.train.optim, name), name\n"
+        "for name in ('StepConfig', 'make_train_step', 'make_decode_step',\n"
+        "             'make_prefill_step'):\n"
+        "    assert hasattr(repro_torch.train.step, name), name\n"
+        "for name in ('LoopConfig', 'Telemetry', 'train'):\n"
+        "    assert hasattr(repro_torch.train.loop, name), name\n"
+        "assert hasattr(repro_torch.state, 'opt_state_from_reference')\n"
+        "assert hasattr(repro_torch.models.common, 'cross_entropy')\n"
         "for name in ('make_host_mesh', 'run_ranks', 'process_group',\n"
         "             'session_rank', 'run_session', 'held_to_plain'):\n"
         "    assert hasattr(repro_torch.launch.mesh, name), name\n"
@@ -98,9 +111,11 @@ def test_no_port_file_imports_jax_or_reference():
                 "configs/qwen2_1_5b.py", "models/common.py", "models/mlp.py",
                 "models/attention.py", "models/model.py",
                 "checkpoint/ckpt.py", "train/step.py", "serve/engine.py",
-                "launch/serve.py"):
+                "launch/serve.py", "data/tokens.py", "train/optim.py",
+                "train/loop.py", "launch/train.py"):
         assert f"src/repro_torch/{sub}" in names, sub
     assert ROOT / "examples" / "torch_serve_lm.py" in PORT_FILES
+    assert ROOT / "examples" / "torch_train_lm.py" in PORT_FILES
     for path in PORT_FILES:
         hits = _FORBIDDEN.findall(path.read_text())
         assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
