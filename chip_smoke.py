@@ -142,6 +142,20 @@ Phases, each reported on its own lines:
      BlinkQL through BlinkQLService, every agg_scan_fused launch held to
      its plain version ("telemetry_launches" in the kernels' record),
      answers equal to query()'s bit for bit;
+  3k. the LM substrate's MoE (between 3j and 4), granite-moe-3b-a800m at
+     full width and depth (32 layers, 40 experts top 8, 3.30B parameters
+     from a seeded generator on the card): ServeEngine.generate in
+     bfloat16 at B = 8, P = 128, 64 new tokens, twice, bit-equal (prefill
+     ms, decode ms a step, tok/s, busy share, top kernels, peak memory); a
+     2-layer cut in float32 with TF32 off: every layer's routing (gate_idx,
+     keep) equal on card and CPU, logits and aux within rtol/atol 1e-3,
+     prefill + decode against its own forward at capacity factor 40; the
+     lowmem policy at full width for 5 steps at B = 8, T = 128 (losses and
+     aux finite, the first batch's loss lower after the five steps; step
+     ms, tokens/s, busy share, peak memory); the cut's f32 gradients, card
+     against CPU; launch.serve and launch.train --policy lowmem as
+     subprocesses; the run's Telemetry through BlinkQLService
+     ("moe_telemetry_launches" in the kernels' record);
   4. times: each kernel at the main path's shapes (agg_scan_fused and
      quantile_scan at G = 1, 6, 200 and 500) against its bound and its
      plain version, quantile_scan beside the yardstick agg_scan_fused +
@@ -3332,15 +3346,16 @@ def lm_batch(torch, stream) -> dict:
 
 
 def loss_and_grads(torch, model, cfg, batch, optim_lib, model_lib):
-    """(loss, grad norm, [(path, grad)]) of one float32 loss_fn."""
+    """(loss, grad norm, [(path, grad)], aux) of one float32 loss_fn."""
     from repro_torch.checkpoint.ckpt import flatten_with_paths
     leaves = flatten_with_paths(model.param_tree())
     batch = {k: v.to(model.device) for k, v in batch.items()}
-    loss, _ = model_lib.loss_fn(model, cfg, batch,
-                                compute_dtype=torch.float32)
+    loss, parts = model_lib.loss_fn(model, cfg, batch,
+                                    compute_dtype=torch.float32)
     grads = torch.autograd.grad(loss, [p for _, p in leaves])
     tree = dict(zip([p for p, _ in leaves], grads))
-    return loss.detach(), optim_lib.global_norm(tree), list(tree.items())
+    return (loss.detach(), optim_lib.global_norm(tree), list(tree.items()),
+            parts["aux"].detach())
 
 
 def hold_telemetry(np, cols, answers) -> float:
@@ -3367,16 +3382,20 @@ def hold_telemetry(np, cols, answers) -> float:
     return worst
 
 
-def lm_train_run(torch, step_cfg, n_steps: int, device="cuda") -> tuple:
-    """Phase 3j (a)'s measured run (lm_train_times.py runs it too):
-    qwen2-1.5b at full width and depth from a seeded generator on
-    `device`, n_steps of make_train_step(step_cfg) through
+def lm_train_run(torch, step_cfg, n_steps: int, device="cuda",
+                 cfg=None) -> tuple:
+    """Phase 3j (a)'s and 3k (c)'s measured run (lm_train_times.py runs it
+    too): `cfg` (default qwen2-1.5b) at full width and depth from a seeded
+    generator on `device`, n_steps of make_train_step(step_cfg) through
     train.loop.train, B = LM_TRAIN_BATCH and T = LM_TRAIN_SEQ from
     SyntheticTokenStream; each step and its adamw_update timed on the host
     clock, device synchronised on both sides; then one more step under
     torch.profiler. Returns (the measurement, the run's Telemetry); the
     device busy share is the profiled step's device time over the median
-    unprofiled step (medians over steps 2 to n_steps)."""
+    unprofiled step (medians over steps 2 to n_steps); "aux" holds each
+    step's MoE aux loss (0 for a dense model), "first_batch_after" the
+    first step's batch evaluated again after the n_steps (loss_fn under
+    no_grad), free of the noise between batches."""
     import tempfile
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import DataConfig, SyntheticTokenStream
@@ -3385,7 +3404,7 @@ def lm_train_run(torch, step_cfg, n_steps: int, device="cuda") -> tuple:
     from repro_torch.train import optim as optim_lib
     from repro_torch.train import step as step_lib
 
-    cfg = get_config(LM_ARCH)
+    cfg = cfg or get_config(LM_ARCH)
     opt_cfg = optim_lib.OptConfig(**LM_OPT)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3396,21 +3415,32 @@ def lm_train_run(torch, step_cfg, n_steps: int, device="cuda") -> tuple:
                                    step_cfg.opt_config(opt_cfg))
     stream = SyntheticTokenStream(DataConfig(cfg.vocab_size, LM_TRAIN_SEQ,
                                              LM_TRAIN_BATCH, seed=0))
-    step_s, opt_s = [], []
+    step_s, opt_s, aux = [], [], []
     step = step_lib.make_train_step(cfg, opt_cfg, step_cfg)
+
+    def step_aux(*args):
+        out = step(*args)
+        aux.append(out[2]["aux"].item())
+        return out
     with timed_optimizer(torch, opt_s), \
             tempfile.TemporaryDirectory(prefix="lm_train_") as tmp:
         _, opt, telemetry = loop_lib.train(
-            timed_steps(torch, step, step_s), model, opt, stream,
+            timed_steps(torch, step_aux, step_s), model, opt, stream,
             loop_lib.LoopConfig(total_steps=n_steps, ckpt_every=0,
                                 log_every=n_steps, ckpt_dir=tmp),
             resume=False)
+    first = lm_batch(torch, SyntheticTokenStream(stream.cfg))
+    with torch.no_grad():
+        again, _ = model_lib.loss_fn(
+            model, cfg, {k: v.to(model.device) for k, v in first.items()},
+            compute_dtype=step_cfg.compute_dtype)
     dev_ms, wall_ms, top = profiled_ms(
         torch, lambda: step(model, opt, lm_batch(torch, stream)))
     med = sorted(step_s[1:])[len(step_s[1:]) // 2]
     med_opt = sorted(opt_s[1:])[len(opt_s[1:]) // 2]
     return {"params": sum(p.numel() for p in model.parameters()),
-            "losses": step_losses(telemetry),
+            "losses": step_losses(telemetry), "aux": aux,
+            "first_batch_after": again.item(),
             "step_ms": [1e3 * x for x in step_s],
             "optimizer_ms": [1e3 * x for x in opt_s],
             "median_step_ms": 1e3 * med,
@@ -3423,6 +3453,81 @@ def lm_train_run(torch, step_cfg, n_steps: int, device="cuda") -> tuple:
             "top_kernels": top,
             "max_memory_allocated": torch.cuda.max_memory_allocated()
             }, telemetry
+
+
+def telemetry_blinkql(torch, np, telemetry, n_steps: int,
+                      device="cuda") -> dict:
+    """Phases 3j (f) and 3k (f): a training run's Telemetry as a BlinkDB
+    table, the reference example's BlinkQL (`telemetry_questions`) through
+    BlinkQLService, every agg_scan_fused launch held to its plain version,
+    each answer equal to query()'s bit for bit and each AVG within its
+    domain's records' range (`hold_telemetry`); the repeated question
+    from the cache. Then the fused kernel is timed at the first question's
+    shape (the telemetry family's block) beside its plain version and its
+    bound, after the launch counts are read."""
+    from repro_torch.core import BlinkDB, EngineConfig, QueryTemplate
+    from repro_torch.core import table as table_lib
+    from repro_torch.service import BlinkQLService, ServiceConfig, \
+        parse_blinkql
+
+    t0 = time.perf_counter()
+    cols = telemetry.as_columns()
+    cols = {"step": cols["step"].astype(np.int32),
+            "domain": cols["domain"].astype(np.int32),
+            "loss": cols["loss"].astype(np.float32),
+            "grad_norm": cols["grad_norm"].astype(np.float32)}
+    db = BlinkDB(EngineConfig(k1=50.0, m=3, uniform_fraction=0.5),
+                 device=device)
+    db.register_table("telemetry", table_lib.from_columns(
+        "telemetry", cols, categorical=["domain"]))
+    db.build_samples("telemetry", [QueryTemplate(frozenset({"domain"}), 1.0)],
+                     storage_budget_fraction=0.5)
+    worst = {}
+    texts = telemetry_questions(n_steps)
+    reset_launches()
+    with checked_launches(torch, worst), \
+            BlinkQLService(db, config=ServiceConfig(batch_window_s=0.002)) \
+            as svc:
+        answers = [svc.submit(q) for q in texts]
+        stats = svc.stats()
+    launched = launch_counts()
+    if launched["agg_scan_fused"] == 0:
+        raise AssertionError("(f): no fused launch answered the telemetry")
+    if stats["cache"]["hits"] < 1:
+        raise AssertionError(f"(f): the repeated question missed the cache "
+                             f"{stats}")
+    with checked_launches(torch, worst):
+        for text, ans in zip(texts, answers):
+            if answer_bits(db.query(parse_blinkql(text, db))) != \
+                    answer_bits(ans):
+                raise AssertionError(f"(f): {text!r} through the service "
+                                     f"differs from query()")
+    gap = hold_telemetry(np, cols, answers)
+    from repro_torch.kernels import agg_scan, ref
+    phi, striped, args, struct, slots, g = scan_inputs(
+        torch, db, parse_blinkql(texts[0], db))
+    fused = agg_scan.agg_scan_fused_cuda
+    out = fused(*args, struct, slots, g)
+    times = {"label": f"AVG(loss) GROUP BY domain, family {phi}, "
+                      f"{striped.n_local} slots", "G": g,
+             "ms": time_cuda(torch, lambda: fused(*args, struct, slots, g),
+                             warmup=3, reps=20),
+             "plain_ms": time_cuda(torch, lambda: ref.agg_scan_fused_ref(
+                 *args, struct, slots, g), warmup=1, reps=5)}
+    times["bound_ms"], times["bound_by"] = bound_for(args, struct, out,
+                                                     4 * out.numel())
+    log(f"  (f) agg_scan_fused at the telemetry's shape ({times['label']}, "
+        f"G = {g}): {times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, "
+        f"bound {times['bound_ms']:.3e} ms ({times['bound_by']})")
+    log(f"  (f) {len(cols['step'])} telemetry records, {len(texts)} "
+        f"BlinkQL questions through BlinkQLService: launches {launched}, "
+        f"each fused launch held to its plain version (worst "
+        f"{worst.get('agg_scan_fused')}); answers equal to query()'s bit "
+        f"for bit; AVG(loss) BY domain within each domain's range (worst "
+        f"|gap| to the exact mean {gap:.3e}); cache hits "
+        f"{stats['cache']['hits']}; {time.perf_counter() - t0:.2f}s")
+    return {"records": int(len(cols["step"])), "launches": launched,
+            "worst": worst, "max_avg_gap": gap, "times": times}
 
 
 def phase_lm_training(torch, np, card: str, device="cuda") -> dict:
@@ -3450,12 +3555,8 @@ def phase_lm_training(torch, np, card: str, device="cuda") -> dict:
     import os
     import tempfile
     from repro_torch.configs import get_config
-    from repro_torch.core import BlinkDB, EngineConfig, QueryTemplate
-    from repro_torch.core import table as table_lib
     from repro_torch.data.tokens import DataConfig, SyntheticTokenStream
     from repro_torch.models import model as model_lib
-    from repro_torch.service import BlinkQLService, ServiceConfig, \
-        parse_blinkql
     from repro_torch.train import loop as loop_lib
     from repro_torch.train import optim as optim_lib
     from repro_torch.train import step as step_lib
@@ -3625,55 +3726,327 @@ def phase_lm_training(torch, np, card: str, device="cuda") -> dict:
         f": {line[-1]} ({time.perf_counter() - t0:.2f}s with start-up)")
 
     # (f) (a)'s telemetry through BlinkQL, every fused launch held to plain
-    t0 = time.perf_counter()
-    cols = telemetry.as_columns()
-    cols = {"step": cols["step"].astype(np.int32),
-            "domain": cols["domain"].astype(np.int32),
-            "loss": cols["loss"].astype(np.float32),
-            "grad_norm": cols["grad_norm"].astype(np.float32)}
-    db = BlinkDB(EngineConfig(k1=50.0, m=3, uniform_fraction=0.5),
-                 device=device)
-    db.register_table("telemetry", table_lib.from_columns(
-        "telemetry", cols, categorical=["domain"]))
-    db.build_samples("telemetry", [QueryTemplate(frozenset({"domain"}), 1.0)],
-                     storage_budget_fraction=0.5)
-    worst = {}
-    texts = telemetry_questions(LM_TRAIN_STEPS)
-    reset_launches()
-    with checked_launches(torch, worst), \
-            BlinkQLService(db, config=ServiceConfig(batch_window_s=0.002)) \
-            as svc:
-        answers = [svc.submit(q) for q in texts]
-        stats = svc.stats()
-    launched = launch_counts()
-    if launched["agg_scan_fused"] == 0:
-        raise AssertionError("(f): no fused launch answered the telemetry")
-    if stats["cache"]["hits"] < 1:
-        raise AssertionError(f"(f): the repeated question missed the cache "
-                             f"{stats}")
-    with checked_launches(torch, worst):
-        for text, ans in zip(texts, answers):
-            if answer_bits(db.query(parse_blinkql(text, db))) != \
-                    answer_bits(ans):
-                raise AssertionError(f"(f): {text!r} through the service "
-                                     f"differs from query()")
-    gap = hold_telemetry(np, cols, answers)
-    out["telemetry"] = {"records": int(len(cols["step"])),
-                        "launches": launched, "worst": worst,
-                        "max_avg_gap": gap}
-    log(f"  (f) {len(cols['step'])} telemetry records, "
-        f"{len(telemetry_questions(LM_TRAIN_STEPS))} BlinkQL questions "
-        f"through BlinkQLService: launches {launched}, each fused launch "
-        f"held to its plain version (worst {worst.get('agg_scan_fused')}); "
-        f"answers equal to query()'s bit for bit; AVG(loss) BY domain "
-        f"within each domain's range (worst |gap| to the exact mean "
-        f"{gap:.3e}); cache hits {stats['cache']['hits']}; "
-        f"{time.perf_counter() - t0:.2f}s")
+    out["telemetry"] = telemetry_blinkql(torch, np, telemetry,
+                                         LM_TRAIN_STEPS, device)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 3j ok: {cfg.name} trained at full width (f32 and lowmem), "
         f"card held to CPU, stopped and resumed equal to straight, "
         f"launch.train exit 0, its telemetry answered by BlinkQL through "
         f"the fused kernel; {out['seconds']:.1f}s")
+    return out
+
+
+# ----------------------------------------------------------------- phase 3k
+
+MOE_ARCH = "granite-moe-3b-a800m"   # 32 layers, 40 experts top 8, 3.30B
+MOE_TRAIN_STEPS = 5
+MOE_SERVE_ARGS = ["--arch", MOE_ARCH]
+MOE_TRAIN_ARGS = ["--arch", MOE_ARCH, "--policy", "lowmem", "--steps", "3",
+                  "--ckpt-every", "0"]
+
+
+@contextlib.contextmanager
+def recorded_moe(torch):
+    """While active, each MoE layer's routing is recorded on the host, one
+    entry a call: the float32 probabilities (recomputed from the router's
+    inputs), gate_idx (`moe._route`) and keep (`moe._dispatch`)."""
+    from repro_torch.models import moe as moe_lib
+    route, dispatch = moe_lib._route, moe_lib._dispatch
+    calls = []
+
+    def recorded_route(p, xt, dims):
+        out = route(p, xt, dims)
+        with torch.no_grad():
+            logits = moe_lib.einsum("td,de->te", xt,
+                                    p["router"].to(xt.dtype))
+            probs = torch.softmax(logits.float(), dim=-1)
+        calls.append({"probs": probs.cpu(), "gate_idx": out[1].cpu()})
+        return out
+
+    def recorded_dispatch(x, gate_idx, capacity, e):
+        out = dispatch(x, gate_idx, capacity, e)
+        calls[-1]["keep"] = out[2].cpu()
+        return out
+    moe_lib._route, moe_lib._dispatch = recorded_route, recorded_dispatch
+    try:
+        yield calls
+    finally:
+        moe_lib._route, moe_lib._dispatch = route, dispatch
+
+
+def hold_routing(torch, want: list, got: list) -> int:
+    """Raise unless each layer sent each token to the same experts and kept
+    the same assignments on both sides; a flip logs the token and the two
+    experts' probabilities. Returns the routed tokens compared."""
+    if len(want) != len(got) or not want:
+        raise AssertionError(f"(b): {len(got)} routed layers, not "
+                             f"{len(want)}")
+    n = 0
+    for layer, (w, g) in enumerate(zip(want, got)):
+        flips = (w["gate_idx"] != g["gate_idx"]).any(-1).nonzero().flatten()
+        for t in flips[:8].tolist():
+            j = int((w["gate_idx"][t] != g["gate_idx"][t]).nonzero()[0])
+            a, b = int(w["gate_idx"][t, j]), int(g["gate_idx"][t, j])
+            log(f"  (b) layer {layer} token {t}, rank {j}: CPU expert {a} "
+                f"(p {w['probs'][t, a].item():.9g} CPU, "
+                f"{g['probs'][t, a].item():.9g} card), card expert {b} "
+                f"(p {w['probs'][t, b].item():.9g} CPU, "
+                f"{g['probs'][t, b].item():.9g} card)")
+        if len(flips) or not torch.equal(w["keep"], g["keep"]):
+            raise AssertionError(f"(b): layer {layer} routes {len(flips)} "
+                                 f"tokens otherwise on the card")
+        n += w["gate_idx"].shape[0]
+    return n
+
+
+def hold_gradients(torch, label, got, want) -> dict:
+    """Each gradient leaf on the card against the CPU: rtol 1e-3 / atol
+    1e-5, except the elements whose CPU gradient is at most 1e-4 of the
+    largest in their leaf (float32 rounding ~1e-6 of it decides their
+    sign), held to atol 1e-3 of that largest. Returns the exempt counts by
+    leaf and the worst ratio."""
+    exempt, worst = {}, (0.0, "")
+    for (path, g), (_, w) in zip(got, want):
+        g, w = g.float().cpu(), w.float()
+        scale = w.abs().max().item()
+        tie = w.abs() <= 1e-4 * scale
+        exempt[path] = f"{int(tie.sum())}/{w.numel()}"
+        ratio = max(tol_ratio(torch, g[~tie], w[~tie], 1e-3, 1e-5)
+                    if (~tie).any() else 0.0,
+                    tol_ratio(torch, g[tie], w[tie], 0.0, 1e-3 * scale)
+                    if tie.any() and scale > 0 else 0.0)
+        if not ratio <= 1.0:
+            raise AssertionError(f"{label}: gradient {path} off (ratio "
+                                 f"{ratio}, max |diff| "
+                                 f"{(g - w).abs().max().item()})")
+        worst = max(worst, (ratio, path))
+    return {"exempt": exempt, "worst_ratio": worst[0], "worst_leaf": worst[1]}
+
+
+def phase_lm_moe(torch, np, card: str, device="cuda") -> dict:
+    """The LM substrate's MoE (repro_torch.models.moe through DecoderLM,
+    ServeEngine, make_train_step, launch.serve, launch.train) on
+    granite-moe-3b-a800m at full width and depth (32 layers, 40 experts
+    top 8, 3.30B parameters; weights from a seeded generator): (a)
+    ServeEngine.generate in bfloat16 at B = 8, P = 128, 64 new tokens,
+    twice, bit-equal (prefill ms, decode ms a step, tok/s, the device's
+    busy share and top kernels, peak memory); (b) a 2-layer cut at full
+    width, float32 compute with TF32 off: the routing (gate_idx, keep) of
+    every layer equal on the card and the CPU, the logits and aux within
+    rtol/atol 1e-3, and prefill 32 + decode 32 against its own forward
+    over 64 at capacity factor 40 (rtol/atol 2e-2); (c) the lowmem policy
+    at full width, 5 steps at B = 8, T = 128 (`lm_train_run`): every loss
+    and aux finite, the first step's batch evaluated again after the five
+    below its loss at the first step (a step's loss moves with its batch
+    by more than five lowmem steps move it; step ms split into
+    forward+backward and optimizer, tokens/s, busy share, top kernels,
+    peak memory); (d) the 2-layer cut under the f32 policy: one step's
+    loss, aux and grad norm (rtol 1e-3) and every gradient leaf
+    (`hold_gradients`), card against CPU; (e) python -m
+    repro_torch.launch.serve and launch.train --policy lowmem as
+    subprocesses, exit 0 and their last lines; (f) (c)'s Telemetry
+    through BlinkQLService (`telemetry_blinkql`)."""
+    import copy
+    import gc
+    import os
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import DataConfig, SyntheticTokenStream
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.train import optim as optim_lib
+    from repro_torch.train import step as step_lib
+
+    t_phase = time.perf_counter()
+    out = {}
+    cfg = get_config(MOE_ARCH)
+
+    # (a) serving at full width and depth
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = model_lib.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    extra = cfg.n_layers * 2 * cfg.d_model + cfg.d_model   # the norms
+    if n_params != cfg.param_count() + extra:
+        raise AssertionError(f"{n_params} parameters, not "
+                             f"{cfg.param_count()} + {extra}")
+    prompts = lm_prompts(np, cfg, LM_BATCH, LM_PROMPT, 3)
+    engine = ServeEngine(cfg, model, ServeConfig(batch=LM_BATCH))
+    _, first_s = timed_generate(torch, engine, prompts, 2)
+    prefill_s = sorted(timed_generate(torch, engine, prompts, 1)[1]
+                       for _ in range(3))[1]
+    run1, s1 = timed_generate(torch, engine, prompts, LM_NEW)
+    run2, s2 = timed_generate(torch, engine, prompts, LM_NEW)
+    if not np.array_equal(run1, run2):
+        raise AssertionError("(a): two bfloat16 runs differ")
+    if run1.shape != (LM_BATCH, LM_PROMPT + LM_NEW) or run1.min() < 0 \
+            or run1.max() >= cfg.vocab_size:
+        raise AssertionError(f"(a): tokens {run1.shape} out of range")
+    gen_s = min(s1, s2)
+    decode_ms = 1e3 * (gen_s - prefill_s) / (LM_NEW - 1)
+    dev_ms, wall_ms, top = profiled_ms(
+        torch, lambda: engine.generate(prompts, 8))
+    out["serve"] = {"params": n_params, "first_call_s": first_s,
+                    "prefill_ms": 1e3 * prefill_s,
+                    "decode_ms_per_step": decode_ms, "generate_s": gen_s,
+                    "tok_per_s": LM_BATCH * LM_NEW / gen_s,
+                    "device_ms_8_new": dev_ms, "wall_ms_8_new": wall_ms,
+                    "top_kernels": top,
+                    "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    a = out["serve"]
+    log(f"  (a) {cfg.name} at full width and depth ({cfg.n_layers} layers, "
+        f"{cfg.n_experts} experts top {cfg.top_k}, {n_params} float32 "
+        f"parameters), ServeEngine.generate, bfloat16 compute, B = "
+        f"{LM_BATCH}, P = {LM_PROMPT}, {LM_NEW} new ({card}): first call "
+        f"(2 new) {first_s:.3f}s; prefill {a['prefill_ms']:.3f} ms "
+        f"(generate of 1 new, median of 3); generate {gen_s:.3f}s "
+        f"({s1:.3f}, {s2:.3f}), decode {decode_ms:.3f} ms a step, "
+        f"{a['tok_per_s']:.1f} tok/s; two runs bit-equal; device busy over "
+        f"an 8-new generate: {busy_text(dev_ms, wall_ms)}; "
+        f"torch.cuda.max_memory_allocated {a['max_memory_allocated']}; "
+        f"{time.perf_counter() - t0:.2f}s")
+    log("  (a) kernels of most device time over the 8-new generate: " +
+        "; ".join(f"{name[:60]} {ms:.3f} ms x{n}" for name, ms, n in top))
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) a 2-layer cut at full width: routing and logits, card against CPU
+    t0 = time.perf_counter()
+    cut = dataclasses.replace(cfg, n_layers=LM_CUT_LAYERS)
+    cut_cpu = model_lib.init_params(cut, torch.Generator().manual_seed(1))
+    cut_card = copy.deepcopy(cut_cpu).to(device)
+    ctoks = torch.from_numpy(lm_prompts(np, cut, 2, 32, 2))
+    with no_tf32(torch), torch.no_grad():
+        with recorded_moe(torch) as want_r:
+            want, _, want_aux = model_lib.forward(
+                cut_cpu, cut, ctoks, compute_dtype=torch.float32)
+        with recorded_moe(torch) as got_r:
+            got, _, got_aux = model_lib.forward(
+                cut_card, cut, ctoks.to(device), compute_dtype=torch.float32)
+    routed = hold_routing(torch, want_r, got_r)
+    out["card_vs_cpu"] = {
+        "routed_tokens": routed,
+        "logits_ratio": hold_close(torch, f"(b) {LM_CUT_LAYERS}-layer cut, "
+                                   f"float32 logits, card against CPU", got,
+                                   want, 1e-3, 1e-3),
+        "aux_ratio": hold_close(torch, "(b) aux, card against CPU", got_aux,
+                                want_aux, 1e-3, 1e-3)}
+    ample = dataclasses.replace(cut, capacity_factor=float(cut.n_experts))
+    amp = model_lib.empty(ample, device)
+    amp.load_state_dict(cut_card.state_dict(), assign=True)
+    ptoks = torch.from_numpy(lm_prompts(np, cut, 2, 64, 4)).to(device)
+    with no_tf32(torch), torch.no_grad():
+        full, _, _ = model_lib.forward(amp, ample, ptoks, "train",
+                                       compute_dtype=torch.float32)
+        caches = model_lib.init_cache(ample, 2, 64, dtype=torch.float32,
+                                      device=device)
+        logits, caches = model_lib.prefill(amp, ample, ptoks[:, :32], caches,
+                                           compute_dtype=torch.float32)
+        steps = [logits]
+        for t in range(32, 64):
+            lg, caches, _ = model_lib.forward(amp, ample, ptoks[:, t:t + 1],
+                                              "decode", caches, t,
+                                              torch.float32)
+            steps.append(lg)
+    out["card_vs_cpu"]["own_forward_ratio"] = hold_close(
+        torch, "(b) capacity factor 40: prefill 32 + decode 32 against the "
+        "forward over 64", torch.cat(steps, dim=1), full, 2e-2, 2e-2)
+    log(f"  (b) {routed} routed tokens over {len(want_r)} layers: the same "
+        f"experts and kept assignments on card and CPU; "
+        f"{time.perf_counter() - t0:.2f}s")
+    del amp, full, steps, caches, want, got
+
+    # (d) the cut under the f32 policy: one step's gradients, card vs CPU
+    t0 = time.perf_counter()
+    batch = lm_batch(torch, SyntheticTokenStream(
+        DataConfig(cut.vocab_size, 32, 2, seed=2)))
+    with no_tf32(torch):
+        want = loss_and_grads(torch, cut_cpu, cut, batch, optim_lib,
+                              model_lib)
+        got = loss_and_grads(torch, cut_card, cut, batch, optim_lib,
+                             model_lib)
+    ratios = [hold_close(torch, f"(d) {name}, card against CPU", g, w, 1e-3,
+                         1e-3)
+              for name, g, w in (("loss", got[0], want[0]),
+                                 ("grad norm", got[1], want[1]),
+                                 ("aux", got[3], want[3]))]
+    held = hold_gradients(torch, "(d)", got[2], want[2])
+    out["gradients"] = {"loss": want[0].item(), "aux": want[3].item(),
+                        "ratios": ratios, **held}
+    log(f"  (d) {len(got[2])} gradient leaves within rtol 1e-3 / atol 1e-5 "
+        f"(exempt, |g| <= 1e-4 of the leaf's largest, within 1e-3 of it: "
+        f"{held['exempt']}), worst ratio {held['worst_ratio']:.3f} "
+        f"({held['worst_leaf']}); {time.perf_counter() - t0:.2f}s")
+    del cut_cpu, cut_card, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the lowmem policy at full width and depth
+    t0 = time.perf_counter()
+    c, telemetry = lm_train_run(torch, step_lib.StepConfig(policy="lowmem"),
+                                MOE_TRAIN_STEPS, device, cfg)
+    out["lowmem"] = c
+    losses, aux = c["losses"], c["aux"]
+    if len(losses) != MOE_TRAIN_STEPS or not np.isfinite(losses).all() \
+            or not np.isfinite(aux).all():
+        raise AssertionError(f"(c): losses {losses}, aux {aux}")
+    if not c["first_batch_after"] < losses[0]:
+        raise AssertionError(f"(c): the first batch's loss did not fall: "
+                             f"{losses[0]} -> {c['first_batch_after']}")
+    log(f"  (c) {cfg.name} at full width and depth, lowmem (bfloat16 "
+        f"parameters, int8 moments), remat, bfloat16 compute, B = "
+        f"{LM_TRAIN_BATCH}, T = {LM_TRAIN_SEQ}: losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)} (finite; each step its "
+        f"own batch); the first batch again after {MOE_TRAIN_STEPS} steps "
+        f"{c['first_batch_after']:.4f}, below its {losses[0]:.4f}; aux "
+        f"{', '.join(f'{x:.4f}' for x in aux)}")
+    log(f"  (c) step {c['median_step_ms']:.3f} ms (median of steps 2-"
+        f"{MOE_TRAIN_STEPS}; first {c['step_ms'][0]:.3f}): forward+backward "
+        f"{c['median_fwd_bwd_ms']:.3f} ms, optimizer "
+        f"{c['median_optimizer_ms']:.3f} ms; {c['tokens_per_s']:.1f} "
+        f"tokens/s; device busy: a profiled step's device time over the "
+        f"median step {busy_text(c['device_ms_one_step'], c['median_step_ms'])}"
+        f"; torch.cuda.max_memory_allocated {c['max_memory_allocated']} "
+        f"({card}); {time.perf_counter() - t0:.2f}s")
+    log("  (c) the profiled step's kernels of most device time: " + "; ".join(
+        f"{name[:60]} {ms:.3f} ms x{n}" for name, ms, n in c["top_kernels"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) (c)'s telemetry through BlinkQL, every fused launch held to plain
+    out["telemetry"] = telemetry_blinkql(torch, np, telemetry,
+                                         MOE_TRAIN_STEPS, device)
+
+    # (e) the entry points as a user runs them
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out["launch_lines"] = []
+    with tempfile.TemporaryDirectory(prefix="moe_launch_") as tmp:
+        for module, args, tag in (
+                ("repro_torch.launch.serve", MOE_SERVE_ARGS, "[serve]"),
+                ("repro_torch.launch.train",
+                 MOE_TRAIN_ARGS + ["--ckpt-dir", tmp], "[train]")):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", module, *args],
+                                  env=env, capture_output=True, text=True,
+                                  timeout=600)
+            line = [x for x in proc.stdout.splitlines() if x.startswith(tag)]
+            if proc.returncode != 0 or not line:
+                raise AssertionError(
+                    f"(e): {module} exited {proc.returncode}\n"
+                    f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+            out["launch_lines"].append(line[-1])
+            log(f"  (e) python -m {module} {' '.join(args)}: {line[-1]} "
+                f"({time.perf_counter() - t0:.2f}s with start-up)")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 3k ok: {cfg.name} at full width served (bit-equal runs) "
+        f"and trained (lowmem), routing and logits and gradients of a cut "
+        f"held to the CPU, launch.serve and launch.train exit 0, the "
+        f"telemetry answered through the fused kernel; "
+        f"{out['seconds']:.1f}s")
     return out
 
 
@@ -4087,7 +4460,7 @@ def phase_times_subsampled(torch, sub_db, card: str) -> dict:
 
 def kernels_record(worst, record, main, batch, ops_path, times, sample,
                    l2_times, subj, sub_times, mut, serving, mesh, lm_train,
-                   card: str) -> list[dict]:
+                   lm_moe, card: str) -> list[dict]:
     """The kernels' JSON record: one entry per kernel, its launches on its
     path, its worst disagreement with its plain version over every phase,
     and its times at the main path's shapes; the fused and quantile
@@ -4116,10 +4489,11 @@ def kernels_record(worst, record, main, batch, ops_path, times, sample,
             if checked:  # phase 3e's and 3f's launches, each against plain
                 errs.append((max(w[0] for w in checked.values()),
                              max(w[1] for w in checked.values())))
-        telemetry = lm_train["telemetry"]["worst"].get(kname, {})
-        if telemetry:  # phase 3j (f)'s launches, each against plain
-            errs.append((max(w[0] for w in telemetry.values()),
-                         max(w[1] for w in telemetry.values())))
+        for run in (lm_train, lm_moe):
+            telemetry = run["telemetry"]["worst"].get(kname, {})
+            if telemetry:  # phase 3j (f)'s, 3k (f)'s, each against plain
+                errs.append((max(w[0] for w in telemetry.values()),
+                             max(w[1] for w in telemetry.values())))
         if kname in MESH_KERNELS:  # phase 3h's ranks, each against plain
             errs.append((max(w["worst"][kname]
                              for w in mesh["worlds"].values()), 0.0))
@@ -4215,9 +4589,16 @@ def kernels_record(worst, record, main, batch, ops_path, times, sample,
         if kname == "agg_scan_fused":
             entry.update(
                 telemetry_launches=lm_train["telemetry"]["launches"][kname],
+                telemetry_times=lm_train["telemetry"]["times"],
+                moe_telemetry_times=lm_moe["telemetry"]["times"],
                 telemetry_path=("BlinkQLService.submit over the trainer's "
                                 "Telemetry of phase 3j (a), each launch held "
-                                "to its plain version (phase 3j (f))"))
+                                "to its plain version (phase 3j (f))"),
+                moe_telemetry_launches=lm_moe["telemetry"]["launches"][kname],
+                moe_telemetry_path=("BlinkQLService.submit over the MoE "
+                                    "trainer's Telemetry of phase 3k (c), "
+                                    "each launch held to its plain version "
+                                    "(phase 3k (f))"))
             entry["mutation_compaction"] = {
                 str(phi): sides for phi, sides in mut["compaction"].items()}
         if kname == "agg_scan_batched":
@@ -4309,18 +4690,25 @@ def main() -> int:
         "train.loop, launch.train; its telemetry through BlinkQLService")
     lm_train = phase_lm_training(torch, np, card)
 
+    log("phase 3k: the LM substrate's MoE, granite-moe-3b-a800m at full "
+        "width: models.moe through DecoderLM, ServeEngine, make_train_step "
+        "(lowmem), launch.serve, launch.train; its telemetry through "
+        "BlinkQLService")
+    lm_moe = phase_lm_moe(torch, np, card)
+
     log(f"phase 4: times at the main path's shapes ({card})")
     times = phase_times(torch, main["db"], card)
     l2_times = phase_times_l2(torch, sample["db"], card)
     sub_times = phase_times_subsampled(torch, subj["sub_db"], card)
     kernels = kernels_record(worst, record, main, batch, ops_path, times,
                              sample, l2_times, subj, sub_times, mut, serving,
-                             mesh, lm_train, card)
+                             mesh, lm_train, lm_moe, card)
     log(f"smoke total {time.perf_counter() - t_start:.1f}s (phase 3d "
         f"{sample['seconds']:.1f}s, phase 3e {subj['seconds']:.1f}s, phase "
         f"3f {mut['seconds']:.1f}s, phase 3g {serving['seconds']:.1f}s, "
         f"phase 3h {mesh['seconds']:.1f}s, phase 3i {lm['seconds']:.1f}s, "
-        f"phase 3j {lm_train['seconds']:.1f}s)")
+        f"phase 3j {lm_train['seconds']:.1f}s, phase 3k "
+        f"{lm_moe['seconds']:.1f}s)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,6 +1,6 @@
 """Architecture registry: `--arch <id>` -> ModelConfig (the reference's
 registry, resolving `repro_torch.configs.<id>`). All ten architectures are
-data here; the LM in `repro_torch.models` builds the dense ones."""
+data here; the LM in `repro_torch.models` builds the dense and MoE ones."""
 from __future__ import annotations
 
 import importlib

@@ -1,14 +1,18 @@
 """The decoder LM over a repeating layer pattern (counterpart of
-`repro.models.model`), dense pattern only.
+`repro.models.model`): attention layers whose channel is the SwiGLU MLP
+(`LayerSpec("attn", "mlp")`) or the routed MoE (`LayerSpec("attn",
+"moe")`, `models/moe.py`). Mamba, xLSTM, cross-attention and the audio
+codebooks raise NotImplementedError (`check_supported`).
 
 `DecoderLM` is an `nn.Module` whose parameters map one to one onto the
 reference's tree: `embed`, `final_norm`, `lm_head` (untied heads) and
 `layers.<pattern pos>.<name>`, each layer weight stacked over the repeats
 with a leading [R] axis. Where the reference `lax.scan`s the stack, the
 port loops over R in Python. Modes:
-  * train   — full-sequence forward, CE loss (`loss_fn`), no caches; the
-              weights cast inside the graph (autograd follows whenever grad
-              is enabled), `remat` checkpoints one repeat of the pattern
+  * train   — full-sequence forward, CE loss (+ MoE aux, `loss_fn`), no
+              caches; the weights cast inside the graph (autograd follows
+              whenever grad is enabled), `remat` checkpoints one repeat of
+              the pattern
   * prefill — full-sequence forward + cache build (under torch.no_grad)
   * decode  — one-token step against the caches (under torch.no_grad)
 
@@ -27,6 +31,7 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (ParamFactory, cross_entropy, einsum,
                                        rms_norm)
 
@@ -40,25 +45,29 @@ def attn_dims(cfg: ModelConfig) -> attn_lib.AttnDims:
                              cfg.head_dim, cfg.qkv_bias, cfg.rope_theta)
 
 
+def moe_dims(cfg: ModelConfig) -> moe_lib.MoEDims:
+    return moe_lib.MoEDims(cfg.d_model, cfg.moe_d_ff or cfg.d_ff,
+                           cfg.n_experts, cfg.top_k, cfg.capacity_factor,
+                           cfg.moe_dispatch)
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for what later slices of the port bring
     (ROADMAP.md queue 1, the LM substrate's items)."""
     later = {"mamba": "the Mamba and xLSTM slice (models/mamba.py)",
              "mlstm": "the Mamba and xLSTM slice (models/xlstm.py)",
              "slstm": "the Mamba and xLSTM slice (models/xlstm.py)",
-             "xattn": "the cross-attention and audio codebooks slice",
-             "moe": "the MoE slice (models/moe.py)"}
+             "xattn": "the cross-attention and audio codebooks slice"}
     for spec in cfg.pattern:
         if spec.mixer != "attn":
             raise NotImplementedError(
                 f"{cfg.name}: mixer {spec.mixer!r} is not ported yet; it "
                 f"comes with {later.get(spec.mixer, 'a later LM slice')}")
-        if spec.channel not in ("mlp", "none"):
+        if spec.channel not in ("mlp", "moe", "none"):
             raise NotImplementedError(
                 f"{cfg.name}: channel {spec.channel!r} is not ported yet; it "
                 f"comes with {later.get(spec.channel, 'a later LM slice')}")
-    for field, item in (("n_experts", later["moe"]),
-                        ("n_codebooks", later["xattn"]),
+    for field, item in (("n_codebooks", later["xattn"]),
                         ("n_vision_tokens", later["xattn"])):
         if getattr(cfg, field):
             raise NotImplementedError(
@@ -79,6 +88,9 @@ class Layer(nn.Module):
         if spec.channel == "mlp":
             self.norm2 = pf.ones((cfg.d_model,), r)
             self.mlp = mlp_lib.MLP(pf, cfg.d_model, cfg.d_ff, r)
+        elif spec.channel == "moe":
+            self.norm2 = pf.ones((cfg.d_model,), r)
+            self.moe = moe_lib.MoE(pf, moe_dims(cfg), r)
 
 
 def _unbind_tree(module: nn.Module) -> dict:
@@ -103,7 +115,7 @@ def _layer_weights(tree: dict, r: int, dtype) -> dict:
 
 
 class DecoderLM(nn.Module):
-    """The dense decoder. Build it with `init_params` (random, from a
+    """The decoder. Build it with `init_params` (random, from a
     generator) or `empty(cfg, device)` followed by `load_state_dict`."""
 
     def __init__(self, cfg: ModelConfig, pf: ParamFactory):
@@ -162,10 +174,11 @@ class DecoderLM(nn.Module):
                 compute_dtype: torch.dtype = torch.bfloat16,
                 remat: bool = True):
         """tokens int [B,S]. Returns (logits, caches, aux); the caches are
-        written in place, aux is the layers' auxiliary loss summed (0 for
-        the dense pattern). Train mode casts the weights inside the graph
-        (`remat` checkpoints each repeat of the pattern); prefill and
-        decode run under torch.no_grad from the cast cache."""
+        written in place, aux is the layers' MoE auxiliary loss summed, a
+        float32 scalar (0 without MoE layers). Train mode casts the
+        weights inside the graph (`remat` checkpoints each repeat of the
+        pattern); prefill and decode run under torch.no_grad from the cast
+        cache."""
         if mode not in MODES:
             raise ValueError(f"mode {mode!r} not in {MODES}")
         if (caches is None) != (mode == "train"):
@@ -181,14 +194,16 @@ class DecoderLM(nn.Module):
         cfg = self.cfg
         w = self.compute_weights(compute_dtype)
         x = embed_tokens(w, cfg, tokens)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for r, layer_ws in enumerate(w["layers"]):
             for i, spec in enumerate(cfg.pattern):
                 cache = attn_lib.KVCache(caches[i].k[r], caches[i].v[r])
-                x, _, _ = apply_layer(spec, layer_ws[i], x, cfg, mode, cache,
+                x, _, a = apply_layer(spec, layer_ws[i], x, cfg, mode, cache,
                                       pos)
+                if spec.channel == "moe":   # the dense channel's is 0.0
+                    aux = aux + a
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
         logits = output_logits(w, cfg, x)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return logits, caches, aux
 
     def _train_forward(self, tokens, compute_dtype, remat):
@@ -249,8 +264,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def apply_layer(spec: LayerSpec, p, x, cfg: ModelConfig, mode: str,
                 cache=None, pos=None):
-    """One layer: pre-norm attention and MLP, each with its residual.
-    Returns (x, cache, aux); aux, the MoE slice's loss, is 0.0 for the
+    """One layer: pre-norm attention, then the pre-norm MLP or MoE
+    channel, each with its residual. Returns (x, cache, aux); aux is the
+    MoE channel's load-balancing loss (a float32 scalar), 0.0 for the
     dense channel."""
     aux = 0.0
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
@@ -267,6 +283,10 @@ def apply_layer(spec: LayerSpec, p, x, cfg: ModelConfig, mode: str,
     if spec.channel == "mlp":
         h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
         x = x + mlp_lib.apply_mlp(p["mlp"], h2)
+    elif spec.channel == "moe":
+        h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+        y2, aux = moe_lib.apply_moe(p["moe"], h2, moe_dims(cfg))
+        x = x + y2
     return x, cache, aux
 
 

@@ -22,6 +22,7 @@ from repro_torch.core import table as table_lib
 from repro_torch.data import synth
 from repro_torch.kernels import agg_scan, ops, ref
 from repro_torch.models import model as model_lib
+from repro_torch.models.common import ParamFactory
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 
 RTOL, ATOL = 2e-5, 1e-3   # the reference's kernel tolerance
@@ -1239,11 +1240,11 @@ def test_two_rank_mesh_on_the_card_holds_every_launch_to_plain(cuda_device):
 
 # ------------------------------------------------------------ the LM substrate
 
-def _lm_on_card(n_layers=3):
-    """A reduced qwen2 (GQA, QKV bias, tied head) drawn on the CPU from a
-    seeded generator, and its copy on the card."""
-    cfg = dataclasses.replace(get_config("qwen2-1.5b").reduced(),
-                              n_layers=n_layers)
+def _lm_on_card(n_layers=3, arch="qwen2-1.5b", **changes):
+    """A reduced arch (by default qwen2: GQA, QKV bias, tied head) drawn on
+    the CPU from a seeded generator, and its copy on the card."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), n_layers=n_layers,
+                              **changes)
     cpu = model_lib.init_params(cfg, torch.Generator().manual_seed(0))
     return cfg, cpu, copy.deepcopy(cpu).to("cuda")
 
@@ -1342,6 +1343,11 @@ def _train(cfg, model, policy, compute_dtype, n_steps):
 
 @pytest.mark.cuda
 def test_lm_train_steps_on_card_equal_the_cpu(cuda_device):
+    cfg, cpu, model = _lm_on_card()
+    _hold_train_steps_to_cpu(cfg, cpu, model)
+
+
+def _hold_train_steps_to_cpu(cfg, cpu, model):
     """Three float32 train steps (loss, gradients, AdamW) on the card and
     on the CPU from the same weights and batches: the trajectories of loss,
     grad norm and lr within rtol 1e-4, and every parameter after them
@@ -1353,7 +1359,6 @@ def test_lm_train_steps_on_card_equal_the_cpu(cuda_device):
     device. They are held to twice the update clip (3) times the steps'
     summed lr, and their count is printed by leaf."""
     from repro_torch.checkpoint.ckpt import flatten_with_paths
-    cfg, cpu, model = _lm_on_card()
     first = copy.deepcopy(cpu)
     leaves = flatten_with_paths(first.param_tree())
     loss, _ = model_lib.loss_fn(first, cfg, _train_batch(_train_stream(cfg)),
@@ -1394,3 +1399,86 @@ def test_lm_lowmem_train_steps_on_card_are_finite(cuda_device):
         model.embed.data_ptr() == ptr
     assert opt["m"]["embed"]["q"].dtype == torch.int8
     assert opt["v"]["embed"]["scale"].is_cuda
+
+
+# ------------------------------------------------------------ the LM's MoE
+
+MOE_ARCH = "granite-moe-3b-a800m"
+
+
+def _recorded_routes(monkeypatch):
+    """Every `moe._route` call's gate_idx, on the host, in call order."""
+    from repro_torch.models import moe as moe_lib
+    seen = []
+    route = moe_lib._route
+
+    def recorded(p, xt, dims):
+        out = route(p, xt, dims)
+        seen.append(out[1].cpu())
+        return out
+    monkeypatch.setattr(moe_lib, "_route", recorded)
+    return seen
+
+
+@pytest.mark.cuda
+def test_moe_f32_logits_and_routing_on_card_equal_the_cpu(cuda_device,
+                                                         monkeypatch):
+    """The reduced granite (8 experts top 2, capacity dropping): the same
+    experts for every token on the card as on the CPU, and the logits
+    within rtol/atol 1e-4 (TF32 off)."""
+    cfg, cpu, model = _lm_on_card(arch=MOE_ARCH)
+    toks = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 32)).astype(np.int32)
+    seen = _recorded_routes(monkeypatch)
+    want, _, want_aux = model_lib.forward(cpu, cfg, torch.from_numpy(toks),
+                                          compute_dtype=torch.float32)
+    n = len(seen)
+    with _no_tf32():
+        got, _, aux = model_lib.forward(
+            model, cfg, torch.from_numpy(toks).to(cuda_device),
+            compute_dtype=torch.float32)
+    assert n == cfg.n_layers and len(seen) == 2 * n
+    for layer, (a, b) in enumerate(zip(seen[:n], seen[n:])):
+        assert torch.equal(a, b), f"layer {layer}: routing differs"
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_moe_grouped_equals_global_with_ample_capacity_on_card(cuda_device):
+    from repro_torch.models import moe as moe_lib
+    dims = moe_lib.MoEDims(64, 32, 8, 2, 16.0, "grouped")
+    moe = moe_lib.MoE(ParamFactory(torch.Generator(
+        device=cuda_device).manual_seed(0)), dims)
+    p = {n: t.detach() for n, t in moe.named_parameters()}
+    x = torch.randn(4, 64, 64, device=cuda_device,
+                    generator=torch.Generator(device=cuda_device
+                                              ).manual_seed(1))
+    with _no_tf32():
+        y1, aux1 = moe_lib.apply_moe(p, x, dims)
+        y2, aux2 = moe_lib.apply_moe(
+            p, x, dataclasses.replace(dims, dispatch="global"))
+    torch.testing.assert_close(y1, y2, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(aux1, aux2, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_moe_bf16_generate_repeats_bitwise_on_card(cuda_device):
+    """No atomics in the dispatch or the combine: two bfloat16 generates
+    give the same tokens, bit for bit."""
+    cfg, _, model = _lm_on_card(arch=MOE_ARCH)
+    eng = ServeEngine(cfg, model, ServeConfig())
+    prompts = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (4, 16)).astype(np.int32)
+    a = eng.generate(prompts, 16)
+    b = eng.generate(prompts, 16)
+    np.testing.assert_array_equal(a, b)
+    assert a.shape == (4, 32) and a.min() >= 0 and a.max() < cfg.vocab_size
+
+
+@pytest.mark.cuda
+def test_moe_train_steps_on_card_equal_the_cpu(cuda_device):
+    """Three float32 steps of the reduced granite on the card and on the
+    CPU, held as the dense model's are (above)."""
+    cfg, cpu, model = _lm_on_card(arch=MOE_ARCH)
+    _hold_train_steps_to_cpu(cfg, cpu, model)

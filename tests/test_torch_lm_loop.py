@@ -4,7 +4,12 @@ equal to the reference's bit for bit over steps, shards and a restore; a
 checkpoint written by the reference's loop (params, opt, data) resumed by
 the port's, whose next step matches the reference's next step (float32
 compute: loss and grad_norm rtol 1e-5, the parameters after it within
-rtol 1e-4 and an atol of 1e-5); a port run stopped after a checkpoint and
+rtol 1e-4 and an atol of 1e-5; for granite-moe-3b-a800m under the lowmem
+policy, bfloat16 parameters and int8 moments, the router's last axis of 8
+padded to a block of 128: the loss rtol 1e-5, grad_norm rtol 1e-4 (the
+gradients of bfloat16 parameters are rounded to bfloat16 in both, after
+float32 sums in another order) and the bfloat16 parameters within rtol
+1e-2 / atol 1e-3, as the train step's test holds them); a port run stopped after a checkpoint and
 resumed equal to an uninterrupted one (bit for bit on the CPU); a
 non-finite loss leaving the state untouched and raising after the
 retries; and launch.train as a user runs it.
@@ -37,12 +42,13 @@ from repro_torch.train import step as port_step
 jax.config.update("jax_default_matmul_precision", "float32")
 
 ARCH = "qwen2-1.5b"
+MOE_ARCH = "granite-moe-3b-a800m"
 OPT = dict(lr=1e-3, warmup_steps=2, decay_steps=10)
 
 
-def cfgs():
-    ref = dataclasses.replace(ref_get_config(ARCH).reduced(), n_layers=3)
-    port = dataclasses.replace(get_config(ARCH).reduced(), n_layers=3)
+def cfgs(arch=ARCH):
+    ref = dataclasses.replace(ref_get_config(arch).reduced(), n_layers=3)
+    port = dataclasses.replace(get_config(arch).reduced(), n_layers=3)
     return ref, port
 
 
@@ -102,26 +108,34 @@ def test_token_stream_restores_its_position_and_checks_its_seed():
 
 # ------------------------------------------------------------ resume
 
-def port_setup(cfg, seed=0):
-    step_cfg = PortF32Step()
+def port_setup(cfg, seed=0, policy="f32"):
+    step_cfg = PortF32Step(policy=policy)
     opt_cfg = port_optim.OptConfig(**OPT)
-    model = port_model.init_params(cfg, torch.Generator().manual_seed(seed))
+    model = port_model.init_params(cfg, torch.Generator().manual_seed(seed),
+                                   step_cfg.param_dtype)
     opt = port_optim.init_opt_state(model.param_tree(),
                                     step_cfg.opt_config(opt_cfg))
     return model, opt, port_step.make_train_step(cfg, opt_cfg, step_cfg)
 
 
 @functools.lru_cache(maxsize=None)
-def reference_run(tmp_root):
+def reference_run(tmp_root, arch=ARCH, policy="f32"):
     """The reference's loop: 2 steps with a checkpoint after them, then a
     resumed run of 1 more step from a copy of that checkpoint. Returns the
-    copy's directory, the resumed step's record and its parameters."""
-    ref_cfg, _ = cfgs()
+    copy's directory, the resumed step's record and its parameters. Under
+    the lowmem policy the reference's restore hands its bfloat16 leaves
+    back as numpy void records ('V2'), which its jitted step does not
+    take: the third step then comes from an uninterrupted 3-step run (a
+    checkpoint holds the state exactly, so the two are the same step)."""
+    ref_cfg, _ = cfgs(arch)
     opt_cfg = ref_optim.OptConfig(**OPT)
-    step_cfg = RefF32Step()
-    params = jax.jit(lambda k: ref_model.init_params(ref_cfg, k)[0])(
-        jax.random.PRNGKey(3))
-    opt = ref_optim.init_opt_state(params, opt_cfg)
+    step_cfg = RefF32Step(policy=policy)
+    # Drawn in float32, then cast: the reference's init_params(dtype=
+    # bfloat16) leaves the leaves of a numpy-scalar scale in float32.
+    params = jax.jit(lambda k: jax.tree.map(
+        lambda x: x.astype(step_cfg.param_dtype),
+        ref_model.init_params(ref_cfg, k)[0]))(jax.random.PRNGKey(3))
+    opt = ref_optim.init_opt_state(params, step_cfg.opt_config(opt_cfg))
     step_fn = jax.jit(ref_step.make_train_step(ref_cfg, opt_cfg, step_cfg))
     first = f"{tmp_root}/ref"
     ref_loop.train(step_fn, params, opt, ref_tokens.SyntheticTokenStream(
@@ -130,11 +144,15 @@ def reference_run(tmp_root):
         resume=False)
     copy = f"{tmp_root}/for_port"
     shutil.copytree(first, copy)
+    straight = policy == "lowmem"
     p3, _, tel = ref_loop.train(
         step_fn, params, opt, ref_tokens.SyntheticTokenStream(
             data_cfg(ref_cfg, ref_tokens)), ref_loop.LoopConfig(
-            total_steps=3, ckpt_every=0, log_every=100, ckpt_dir=first))
-    return copy, tel.records, jax.tree.map(np.asarray, p3)
+            total_steps=3, ckpt_every=0, log_every=100,
+            ckpt_dir=f"{tmp_root}/straight" if straight else first),
+        resume=not straight)
+    return (copy, [r for r in tel.records if r["step"] == 2],
+            jax.tree.map(np.asarray, p3))
 
 
 def test_a_reference_checkpoint_resumes_in_the_port(tmp_path_factory,
@@ -158,6 +176,33 @@ def test_a_reference_checkpoint_resumes_in_the_port(tmp_path_factory,
                                  flatten_with_paths(want_params)):
         np.testing.assert_allclose(p.detach().numpy(), w, rtol=1e-4,
                                    atol=1e-5, err_msg=path)
+
+
+def test_a_reference_moe_checkpoint_with_int8_moments_resumes(
+        tmp_path_factory, capsys):
+    copy, want, want_params = reference_run(
+        str(tmp_path_factory.mktemp("r")), MOE_ARCH, "lowmem")
+    _, cfg = cfgs(MOE_ARCH)
+    model, opt, step = port_setup(cfg, seed=1, policy="lowmem")
+    assert opt["m"]["layers"][0]["moe"]["router"]["q"].shape[-1] == 8
+    _, opt, tel = port_loop.train(
+        step, model, opt, port_tokens.SyntheticTokenStream(
+            data_cfg(cfg, port_tokens)), port_loop.LoopConfig(
+            total_steps=3, ckpt_every=0, log_every=100, ckpt_dir=copy))
+    assert "[loop] resumed from step 2" in capsys.readouterr().out
+    assert [r["step"] for r in tel.records] == [r["step"] for r in want]
+    np.testing.assert_allclose([r["loss"] for r in tel.records],
+                               [r["loss"] for r in want], rtol=1e-5)
+    np.testing.assert_allclose([r["grad_norm"] for r in tel.records],
+                               [r["grad_norm"] for r in want], rtol=1e-4)
+    assert opt["step"].item() == 3
+    assert opt["v"]["layers"][0]["moe"]["wi"]["q"].dtype == torch.int8
+    for (path, p), (_, w) in zip(flatten_with_paths(model.param_tree()),
+                                 flatten_with_paths(want_params)):
+        assert p.dtype == torch.bfloat16, path
+        np.testing.assert_allclose(p.detach().float().numpy(),
+                                   np.asarray(w, np.float32), rtol=1e-2,
+                                   atol=1e-3, err_msg=path)
 
 
 @pytest.mark.parametrize("policy", ["f32", "lowmem"])

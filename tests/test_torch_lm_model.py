@@ -4,8 +4,10 @@
 the same tokens (numpy, fixed seed) through RMSNorm, RoPE, chunked causal
 attention, the teacher-forced forward, prefill and ten decode steps.
 
-The four dense archs, reduced, with 3 layers, cover GQA and MHA, QKV bias or
-none, and tied or untied heads. Tolerances: float32 compute rtol/atol 1e-4
+The four dense archs and the two MoE archs, reduced, with 3 layers, cover
+GQA and MHA, QKV bias or none, tied or untied heads, and the routed MoE
+channel (granite: 8 experts top 2 reduced, tied; qwen3-moe: untied), its
+capacity dropping at the configs' capacity factor. Tolerances: float32 compute rtol/atol 1e-4
 (logits and caches; greedy tokens exactly), bfloat16 compute 2e-2 (the
 reference's own cache tolerance, tests/test_models_smoke.py).
 
@@ -38,7 +40,9 @@ from repro_torch.state import lm_params_from_reference
 jax.config.update("jax_default_matmul_precision", "float32")
 
 DENSE = ["qwen2-1.5b", "codeqwen1.5-7b", "mistral-large-123b", "llama3-405b"]
-NOT_DENSE = [a for a in all_archs() if a not in DENSE]
+MOE = ["granite-moe-3b-a800m", "qwen3-moe-235b-a22b"]
+ARCHS = DENSE + MOE
+NOT_DENSE = [a for a in all_archs() if a not in ARCHS]
 B, S, PREFILL, DECODES = 2, 32, 16, 10
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-4),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -56,16 +60,22 @@ def host(x) -> np.ndarray:
     return np.asarray(jnp.asarray(x).astype(jnp.float32))
 
 
-def cfgs(arch):
+def cfgs(arch, ample=False):
+    """Both configs, reduced to 3 layers; `ample` sets an MoE arch's
+    capacity factor to its expert count, so that nothing drops."""
     ref = dataclasses.replace(ref_get_config(arch).reduced(), n_layers=3)
     port = dataclasses.replace(get_config(arch).reduced(), n_layers=3)
+    if ample:
+        ref = dataclasses.replace(ref, capacity_factor=float(ref.n_experts))
+        port = dataclasses.replace(port,
+                                   capacity_factor=float(port.n_experts))
     return ref, port
 
 
 @functools.lru_cache(maxsize=None)
-def weights(arch):
+def weights(arch, ample=False):
     """The reference's parameters and the port model carrying them."""
-    ref_cfg, port_cfg = cfgs(arch)
+    ref_cfg, port_cfg = cfgs(arch, ample)
     params, _ = ref_model.init_params(ref_cfg, jax.random.PRNGKey(7))
     model = port_model.empty(port_cfg, "cpu")
     model.load_state_dict(lm_params_from_reference(
@@ -79,13 +89,13 @@ def tokens(cfg):
 
 
 @functools.lru_cache(maxsize=None)
-def runs(arch, dtype_name):
+def runs(arch, dtype_name, ample=False):
     """Both packages' logits and caches: the teacher-forced forward over S,
     prefill of the first PREFILL tokens, DECODES decode steps, and
     decode_step's tokens at the last of them."""
-    ref_cfg, port_cfg = cfgs(arch)
+    ref_cfg, port_cfg = cfgs(arch, ample)
     jdt, tdt, _ = DTYPES[dtype_name]
-    params, model = weights(arch)
+    params, model = weights(arch, ample)
     toks = tokens(ref_cfg)
     jt = jnp.asarray(toks)
     out = {"ref": {}, "port": {}}
@@ -186,7 +196,7 @@ def test_chunked_causal_attention_keeps_the_multiple_check():
 
 # ------------------------------------------------------------ the model
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_parameter_tree_maps_one_to_one(arch):
     """The port's parameters carry the reference's names and shapes."""
     params, model = weights(arch)
@@ -199,7 +209,7 @@ def test_parameter_tree_maps_one_to_one(arch):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_forward_matches_reference(arch, dtype):
     r = runs(arch, dtype)
     tol = DTYPES[dtype][2]
@@ -209,7 +219,7 @@ def test_forward_matches_reference(arch, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_and_decode_logits_match_reference(arch, dtype):
     r = runs(arch, dtype)
     tol = DTYPES[dtype][2]
@@ -219,7 +229,7 @@ def test_prefill_and_decode_logits_match_reference(arch, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_caches_match_reference(arch, dtype):
     r = runs(arch, dtype)
     tol = DTYPES[dtype][2]
@@ -230,7 +240,7 @@ def test_caches_match_reference(arch, dtype):
         assert not pk[:, :, :, PREFILL + DECODES:].any()
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_decode_step_tokens_equal_reference(arch):
     r = runs(arch, "float32")
     assert r["port"]["next"].dtype == np.int32
@@ -238,15 +248,17 @@ def test_decode_step_tokens_equal_reference(arch):
     np.testing.assert_array_equal(r["port"]["next"], r["ref"]["next"])
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_plus_decode_reproduces_own_forward(arch):
     """Cache correctness within the port, as the reference's own test
     holds it (tests/test_models_smoke.py: float32 compute, rtol/atol 2e-2).
     In bfloat16 the reference's own prefill + decode misses its forward at
     that tolerance (29-52 of these 6,656 logits: decode attends in float32,
     the forward in bfloat16), so there the port is held to the reference's
-    logits instead (above)."""
-    r = runs(arch, "float32")
+    logits instead (above). An MoE arch runs with its capacity factor at
+    its expert count, as the reference's test does: the forward's
+    per-sequence capacity drops, a one-token decode step never does."""
+    r = runs(arch, "float32", ample=arch in MOE)
     n = PREFILL + DECODES
     np.testing.assert_allclose(r["port"]["steps"], r["port"]["train"][:, :n],
                                rtol=2e-2, atol=2e-2)

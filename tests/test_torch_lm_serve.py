@@ -3,7 +3,8 @@
 (either package's checkpoints restore into the other) and
 `python -m repro_torch.launch.serve`.
 
-Weights are the reference's `init_params`, carried by
+The dense archs and the two MoE archs (their capacity dropping in
+prefill), reduced. Weights are the reference's `init_params`, carried by
 `repro_torch.state.lm_params_from_reference`. Under float32 compute both
 engines' tokens are equal exactly; each engine gets a `StepConfig`
 subclass, defined here, whose compute dtype is float32. The bfloat16
@@ -41,6 +42,7 @@ jax.config.update("jax_default_matmul_precision", "float32")
 
 ROOT = Path(__file__).resolve().parents[1]
 DENSE = ["qwen2-1.5b", "codeqwen1.5-7b", "mistral-large-123b", "llama3-405b"]
+ARCHS = DENSE + ["granite-moe-3b-a800m", "qwen3-moe-235b-a22b"]
 B, P, NEW = 3, 16, 12
 AS_WRITTEN = {"xla_allow_excess_precision": False}
 
@@ -93,7 +95,7 @@ def ref_tokens_f32(arch):
     return eng.generate(prompts(ref_cfg), NEW)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_generate_equals_reference_token_for_token(arch):
     ref_cfg, port_cfg = cfgs(arch)
     _, model = weights(arch)
@@ -106,7 +108,7 @@ def test_generate_equals_reference_token_for_token(arch):
     np.testing.assert_array_equal(got[:, :P], prompts(port_cfg))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_bf16_default_logits_match_reference(arch):
     """The default StepConfig (bfloat16 compute) through both packages'
     serve step factories: prefill logits and the decode logits of a

@@ -5,10 +5,13 @@ CPU: the same weights (the reference's `init_params`, carried by
 from a seed) through the cross-entropy, the loss and every gradient leaf,
 and three optimizer steps under both dtype policies.
 
-qwen2-1.5b (tied head, QKV bias, GQA) and llama3-405b (untied, no bias),
-reduced, with 3 layers. The reference is compiled with bfloat16 rounded as
+qwen2-1.5b (tied head, QKV bias, GQA), llama3-405b (untied, no bias) and
+granite-moe-3b-a800m (the routed MoE channel: a non-zero aux loss whose
+gradient flows through the router, and capacity drops), reduced, with 3
+layers. The reference is compiled with bfloat16 rounded as
 written (`xla_allow_excess_precision` off) and float32 products in float32.
-Tolerances: float32 compute, loss rtol 1e-5 and every gradient leaf max
+Tolerances: float32 compute, loss rtol 1e-5 (the MoE aux rtol 1e-5 too)
+and every gradient leaf max
 |diff| <= 1e-4·max|leaf|; bfloat16 compute, the loss within 2e-2 (the
 reference's own bfloat16 tolerance, tests/test_models_smoke.py) and the
 gradient norm within 5e-2; the 3-step trajectories of loss and grad_norm
@@ -39,7 +42,7 @@ from repro_torch.state import lm_params_from_reference
 
 jax.config.update("jax_default_matmul_precision", "float32")
 
-ARCHS = ["qwen2-1.5b", "llama3-405b"]
+ARCHS = ["qwen2-1.5b", "llama3-405b", "granite-moe-3b-a800m"]
 B, S = 2, 32
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -160,7 +163,12 @@ def test_loss_and_every_gradient_leaf_match_reference_float32(arch):
     np.testing.assert_allclose(loss.item(), want_loss, rtol=1e-5)
     np.testing.assert_allclose(parts["ce"].item(), want_parts["ce"],
                                rtol=1e-5)
-    assert parts["aux"].item() == want_parts["aux"] == 0.0
+    if "moe" in arch:
+        assert want_parts["aux"] > 0
+        np.testing.assert_allclose(parts["aux"].item(), want_parts["aux"],
+                                   rtol=1e-5)
+    else:
+        assert parts["aux"].item() == want_parts["aux"] == 0.0
     assert [p for p, _ in grads] == [p for p, _ in want_grads]
     for (path, g), (_, w) in zip(grads, want_grads):
         assert g.dtype == torch.float32 and g.shape == w.shape, path
