@@ -156,6 +156,22 @@ Phases, each reported on its own lines:
      against CPU; launch.serve and launch.train --policy lowmem as
      subprocesses; the run's Telemetry through BlinkQLService
      ("moe_telemetry_launches" in the kernels' record);
+  3l. the LM substrate's recurrent mixers (between 3k and 4): xlstm-125m
+     at full width and depth (12 layers, 6 x [mLSTM, sLSTM], 0.162B
+     parameters from a seeded generator): ServeEngine.generate in bfloat16
+     at B = 8, P = 128, 64 new, twice, bit-equal (prefill ms, decode ms a
+     step, tok/s, busy share, top kernels, peak memory); a 2-layer cut in
+     float32 with TF32 off: logits card against CPU (rtol/atol 1e-3) and
+     prefill 64 + decode 32 against its own forward over 96; the f32
+     policy at full width for 3 steps at B = 8, T = 128 (losses finite,
+     the first batch's loss lower after the three); the cut's gradients,
+     card against CPU; jamba-v0.1-52b cut to one period (8 layers: 7
+     Mamba, 1 attention, 4 MoE channels) at full width in bfloat16
+     parameters, generate at B = 2, P = 512, 16 new, twice, bit-equal, and
+     one Mamba mixer at full width in float32, card against CPU and decode
+     against its forward; launch.serve and launch.train for xlstm-125m as
+     subprocesses; the run's Telemetry through BlinkQLService
+     ("xlstm_telemetry_launches" in the kernels' record);
   4. times: each kernel at the main path's shapes (agg_scan_fused and
      quantile_scan at G = 1, 6, 200 and 500) against its bound and its
      plain version, quantile_scan beside the yardstick agg_scan_fused +
@@ -3050,14 +3066,39 @@ def timed_generate(torch, engine, prompts, n_new: int):
     return out, time.perf_counter() - t0
 
 
-def profiled_ms(torch, fn) -> tuple:
+def serve_twice(torch, np, engine, prompts, n_new: int, vocab: int,
+                label: str) -> dict:
+    """(tokens, stats) of the LM phases' serving measurement: a first call
+    (2 new), prefill as the median of three 1-new generates, then two
+    n_new generates that must be bit-equal and in range; decode ms a step
+    from the faster of them."""
+    _, first_s = timed_generate(torch, engine, prompts, 2)
+    prefill_s = sorted(timed_generate(torch, engine, prompts, 1)[1]
+                       for _ in range(3))[1]
+    run1, s1 = timed_generate(torch, engine, prompts, n_new)
+    run2, s2 = timed_generate(torch, engine, prompts, n_new)
+    if not np.array_equal(run1, run2):
+        raise AssertionError(f"{label}: two bfloat16 runs differ")
+    b, p = prompts.shape
+    if run1.shape != (b, p + n_new) or run1.min() < 0 or run1.max() >= vocab:
+        raise AssertionError(f"{label}: tokens {run1.shape} out of range")
+    gen_s = min(s1, s2)
+    return run1, {"first_call_s": first_s, "prefill_ms": 1e3 * prefill_s,
+            "decode_ms_per_step": 1e3 * (gen_s - prefill_s) / (n_new - 1),
+            "generate_s": gen_s, "generate_runs_s": [s1, s2],
+            "tok_per_s": b * n_new / gen_s}
+
+
+def profiled_ms(torch, fn, cpu: bool = True) -> tuple:
     """(device ms, wall ms, top kernels) of fn() under torch.profiler: the
     sum of the kernels' device time, the host clock around the call,
     device synchronised on both sides, and the eight kernels of most
-    device time as (name, ms, launches)."""
+    device time as (name, ms, launches). `cpu=False` traces the device
+    only: a step of ~10^5 launches then costs the profiler seconds, not
+    minutes, of the host's event bookkeeping."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 if cpu else [ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -3194,36 +3235,24 @@ def phase_lm_serving(torch, np, card: str, device="cuda") -> dict:
     t0 = time.perf_counter()
     prompts = lm_prompts(np, cfg, LM_BATCH, LM_PROMPT, 3)
     engine = ServeEngine(cfg, model, ServeConfig(batch=LM_BATCH))
-    _, first_s = timed_generate(torch, engine, prompts, 2)
-    prefill_s = sorted(timed_generate(torch, engine, prompts, 1)[1]
-                       for _ in range(3))[1]
-    run1, s1 = timed_generate(torch, engine, prompts, LM_NEW)
-    run2, s2 = timed_generate(torch, engine, prompts, LM_NEW)
-    if not np.array_equal(run1, run2):
-        raise AssertionError("(d): two bfloat16 runs differ")
-    if run1.shape != (LM_BATCH, LM_PROMPT + LM_NEW) or run1.min() < 0 \
-            or run1.max() >= cfg.vocab_size:
-        raise AssertionError(f"(d): tokens {run1.shape} out of range "
-                             f"[{run1.min()}, {run1.max()}]")
-    gen_s = min(s1, s2)
-    decode_ms = 1e3 * (gen_s - prefill_s) / (LM_NEW - 1)
-    tok_s = LM_BATCH * LM_NEW / gen_s
+    run1, d = serve_twice(torch, np, engine, prompts, LM_NEW,
+                          cfg.vocab_size, "(d)")
     dev_ms, wall_ms = device_busy_share(torch, engine, prompts, 8)
-    busy = busy_text(dev_ms, wall_ms)
     f32_tokens = ServeEngine(cfg, model, ServeConfig(batch=LM_BATCH),
                              F32Step()).generate(prompts, LM_NEW)
     share = float((f32_tokens[:, LM_PROMPT:] == run1[:, LM_PROMPT:]).mean())
-    out["serve"] = {"first_call_s": first_s, "prefill_ms": 1e3 * prefill_s,
-                    "decode_ms_per_step": decode_ms, "generate_s": gen_s,
-                    "tok_per_s": tok_s, "device_ms_8_new": dev_ms,
-                    "wall_ms_8_new": wall_ms, "bf16_equals_f32": share,
-                    "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    d.update(device_ms_8_new=dev_ms, wall_ms_8_new=wall_ms,
+             bf16_equals_f32=share,
+             max_memory_allocated=torch.cuda.max_memory_allocated())
+    out["serve"] = d
     log(f"  (d) ServeEngine.generate, bfloat16 compute, B = {LM_BATCH}, "
         f"P = {LM_PROMPT}, {LM_NEW} new ({card}): first call (2 new) "
-        f"{first_s:.3f}s; prefill {1e3 * prefill_s:.3f} ms (generate of 1 "
-        f"new, median of 3); generate {gen_s:.3f}s ({s1:.3f}, {s2:.3f}), "
-        f"decode {decode_ms:.3f} ms a step, {tok_s:.1f} tok/s; two runs "
-        f"bit-equal; device busy over an 8-new generate: {busy}")
+        f"{d['first_call_s']:.3f}s; prefill {d['prefill_ms']:.3f} ms "
+        f"(generate of 1 new, median of 3); generate {d['generate_s']:.3f}s "
+        f"({', '.join(f'{s:.3f}' for s in d['generate_runs_s'])}), decode "
+        f"{d['decode_ms_per_step']:.3f} ms a step, {d['tok_per_s']:.1f} "
+        f"tok/s; two runs bit-equal; device busy over an 8-new generate: "
+        f"{busy_text(dev_ms, wall_ms)}")
     log(f"  (d) bfloat16 greedy tokens equal to float32 compute's at "
         f"{100 * share:.1f}% of the {LM_BATCH * LM_NEW} new positions "
         f"(not gated); torch.cuda.max_memory_allocated "
@@ -3383,7 +3412,7 @@ def hold_telemetry(np, cols, answers) -> float:
 
 
 def lm_train_run(torch, step_cfg, n_steps: int, device="cuda",
-                 cfg=None) -> tuple:
+                 cfg=None, profile_seq: int | None = None) -> tuple:
     """Phase 3j (a)'s and 3k (c)'s measured run (lm_train_times.py runs it
     too): `cfg` (default qwen2-1.5b) at full width and depth from a seeded
     generator on `device`, n_steps of make_train_step(step_cfg) through
@@ -3392,7 +3421,10 @@ def lm_train_run(torch, step_cfg, n_steps: int, device="cuda",
     clock, device synchronised on both sides; then one more step under
     torch.profiler. Returns (the measurement, the run's Telemetry); the
     device busy share is the profiled step's device time over the median
-    unprofiled step (medians over steps 2 to n_steps); "aux" holds each
+    unprofiled step (medians over steps 2 to n_steps), or with
+    `profile_seq` that of one more step over its first profile_seq tokens
+    (device trace only) over such a step timed unprofiled: a profile of
+    ~10^5 launches costs the host minutes of bookkeeping; "aux" holds each
     step's MoE aux loss (0 for a dense model), "first_batch_after" the
     first step's batch evaluated again after the n_steps (loss_fn under
     no_grad), free of the noise between batches."""
@@ -3434,9 +3466,20 @@ def lm_train_run(torch, step_cfg, n_steps: int, device="cuda",
         again, _ = model_lib.loss_fn(
             model, cfg, {k: v.to(model.device) for k, v in first.items()},
             compute_dtype=step_cfg.compute_dtype)
-    dev_ms, wall_ms, top = profiled_ms(
-        torch, lambda: step(model, opt, lm_batch(torch, stream)))
     med = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    if profile_seq is None:
+        dev_ms, wall_ms, top = profiled_ms(
+            torch, lambda: step(model, opt, lm_batch(torch, stream)))
+        busy_of_ms = 1e3 * med
+    else:   # a shorter step, its device trace over its unprofiled time
+        def short():
+            batch = lm_batch(torch, stream)
+            return step(model, opt, {k: v[:, :profile_seq]
+                                     for k, v in batch.items()})
+        seconds = []
+        timed_steps(torch, short, seconds)()
+        busy_of_ms = 1e3 * seconds[0]
+        dev_ms, wall_ms, top = profiled_ms(torch, short, cpu=False)
     med_opt = sorted(opt_s[1:])[len(opt_s[1:]) // 2]
     return {"params": sum(p.numel() for p in model.parameters()),
             "losses": step_losses(telemetry), "aux": aux,
@@ -3449,14 +3492,15 @@ def lm_train_run(torch, step_cfg, n_steps: int, device="cuda",
             "tokens_per_s": LM_TRAIN_BATCH * LM_TRAIN_SEQ / med,
             "device_ms_one_step": dev_ms,
             "profiled_wall_ms_one_step": wall_ms,
-            "device_busy_share": dev_ms / (1e3 * med),
+            "device_busy_share": dev_ms / busy_of_ms,
+            "busy_of_ms": busy_of_ms, "profiled_seq": profile_seq,
             "top_kernels": top,
             "max_memory_allocated": torch.cuda.max_memory_allocated()
             }, telemetry
 
 
 def telemetry_blinkql(torch, np, telemetry, n_steps: int,
-                      device="cuda") -> dict:
+                      device="cuda", tag="(f)") -> dict:
     """Phases 3j (f) and 3k (f): a training run's Telemetry as a BlinkDB
     table, the reference example's BlinkQL (`telemetry_questions`) through
     BlinkQLService, every agg_scan_fused launch held to its plain version,
@@ -3492,15 +3536,15 @@ def telemetry_blinkql(torch, np, telemetry, n_steps: int,
         stats = svc.stats()
     launched = launch_counts()
     if launched["agg_scan_fused"] == 0:
-        raise AssertionError("(f): no fused launch answered the telemetry")
+        raise AssertionError(f"{tag}: no fused launch answered the telemetry")
     if stats["cache"]["hits"] < 1:
-        raise AssertionError(f"(f): the repeated question missed the cache "
+        raise AssertionError(f"{tag}: the repeated question missed the cache "
                              f"{stats}")
     with checked_launches(torch, worst):
         for text, ans in zip(texts, answers):
             if answer_bits(db.query(parse_blinkql(text, db))) != \
                     answer_bits(ans):
-                raise AssertionError(f"(f): {text!r} through the service "
+                raise AssertionError(f"{tag}: {text!r} through the service "
                                      f"differs from query()")
     gap = hold_telemetry(np, cols, answers)
     from repro_torch.kernels import agg_scan, ref
@@ -3516,10 +3560,10 @@ def telemetry_blinkql(torch, np, telemetry, n_steps: int,
                  *args, struct, slots, g), warmup=1, reps=5)}
     times["bound_ms"], times["bound_by"] = bound_for(args, struct, out,
                                                      4 * out.numel())
-    log(f"  (f) agg_scan_fused at the telemetry's shape ({times['label']}, "
+    log(f"  {tag} agg_scan_fused at the telemetry's shape ({times['label']}, "
         f"G = {g}): {times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, "
         f"bound {times['bound_ms']:.3e} ms ({times['bound_by']})")
-    log(f"  (f) {len(cols['step'])} telemetry records, {len(texts)} "
+    log(f"  {tag} {len(cols['step'])} telemetry records, {len(texts)} "
         f"BlinkQL questions through BlinkQLService: launches {launched}, "
         f"each fused launch held to its plain version (worst "
         f"{worst.get('agg_scan_fused')}); answers equal to query()'s bit "
@@ -3799,15 +3843,25 @@ def hold_routing(torch, want: list, got: list) -> int:
     return n
 
 
-def hold_gradients(torch, label, got, want) -> dict:
+def hold_gradients(torch, label, got, want, zero_gradient=()) -> dict:
     """Each gradient leaf on the card against the CPU: rtol 1e-3 / atol
     1e-5, except the elements whose CPU gradient is at most 1e-4 of the
     largest in their leaf (float32 rounding ~1e-6 of it decides their
-    sign), held to atol 1e-3 of that largest. Returns the exempt counts by
-    leaf and the worst ratio."""
+    sign), held to atol 1e-3 of that largest. A leaf whose gradient is zero
+    (`zero_gradient`, path suffixes) is all rounding: held as at most 1e-6
+    of the largest gradient of any leaf, on both devices. Returns the
+    exempt counts by leaf and the worst ratio."""
     exempt, worst = {}, (0.0, "")
+    top = max(w.float().abs().max().item() for _, w in want)
     for (path, g), (_, w) in zip(got, want):
         g, w = g.float().cpu(), w.float()
+        if path.endswith(tuple(zero_gradient)):
+            size = max(g.abs().max().item(), w.abs().max().item())
+            exempt[path] = f"zero gradient: |g| <= {size:.3e}"
+            if not size <= 1e-6 * top:
+                raise AssertionError(f"{label}: gradient {path} is not zero "
+                                     f"({size} of the largest {top})")
+            continue
         scale = w.abs().max().item()
         tie = w.abs() <= 1e-4 * scale
         exempt[path] = f"{int(tie.sum())}/{w.numel()}"
@@ -3875,35 +3929,22 @@ def phase_lm_moe(torch, np, card: str, device="cuda") -> dict:
                              f"{cfg.param_count()} + {extra}")
     prompts = lm_prompts(np, cfg, LM_BATCH, LM_PROMPT, 3)
     engine = ServeEngine(cfg, model, ServeConfig(batch=LM_BATCH))
-    _, first_s = timed_generate(torch, engine, prompts, 2)
-    prefill_s = sorted(timed_generate(torch, engine, prompts, 1)[1]
-                       for _ in range(3))[1]
-    run1, s1 = timed_generate(torch, engine, prompts, LM_NEW)
-    run2, s2 = timed_generate(torch, engine, prompts, LM_NEW)
-    if not np.array_equal(run1, run2):
-        raise AssertionError("(a): two bfloat16 runs differ")
-    if run1.shape != (LM_BATCH, LM_PROMPT + LM_NEW) or run1.min() < 0 \
-            or run1.max() >= cfg.vocab_size:
-        raise AssertionError(f"(a): tokens {run1.shape} out of range")
-    gen_s = min(s1, s2)
-    decode_ms = 1e3 * (gen_s - prefill_s) / (LM_NEW - 1)
+    _, a = serve_twice(torch, np, engine, prompts, LM_NEW, cfg.vocab_size,
+                       "(a)")
     dev_ms, wall_ms, top = profiled_ms(
         torch, lambda: engine.generate(prompts, 8))
-    out["serve"] = {"params": n_params, "first_call_s": first_s,
-                    "prefill_ms": 1e3 * prefill_s,
-                    "decode_ms_per_step": decode_ms, "generate_s": gen_s,
-                    "tok_per_s": LM_BATCH * LM_NEW / gen_s,
-                    "device_ms_8_new": dev_ms, "wall_ms_8_new": wall_ms,
-                    "top_kernels": top,
-                    "max_memory_allocated": torch.cuda.max_memory_allocated()}
-    a = out["serve"]
+    a.update(params=n_params, device_ms_8_new=dev_ms, wall_ms_8_new=wall_ms,
+             top_kernels=top,
+             max_memory_allocated=torch.cuda.max_memory_allocated())
+    out["serve"] = a
     log(f"  (a) {cfg.name} at full width and depth ({cfg.n_layers} layers, "
         f"{cfg.n_experts} experts top {cfg.top_k}, {n_params} float32 "
         f"parameters), ServeEngine.generate, bfloat16 compute, B = "
         f"{LM_BATCH}, P = {LM_PROMPT}, {LM_NEW} new ({card}): first call "
-        f"(2 new) {first_s:.3f}s; prefill {a['prefill_ms']:.3f} ms "
-        f"(generate of 1 new, median of 3); generate {gen_s:.3f}s "
-        f"({s1:.3f}, {s2:.3f}), decode {decode_ms:.3f} ms a step, "
+        f"(2 new) {a['first_call_s']:.3f}s; prefill {a['prefill_ms']:.3f} ms "
+        f"(generate of 1 new, median of 3); generate {a['generate_s']:.3f}s "
+        f"({', '.join(f'{s:.3f}' for s in a['generate_runs_s'])}), decode "
+        f"{a['decode_ms_per_step']:.3f} ms a step, "
         f"{a['tok_per_s']:.1f} tok/s; two runs bit-equal; device busy over "
         f"an 8-new generate: {busy_text(dev_ms, wall_ms)}; "
         f"torch.cuda.max_memory_allocated {a['max_memory_allocated']}; "
@@ -4044,6 +4085,301 @@ def phase_lm_moe(torch, np, card: str, device="cuda") -> dict:
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 3k ok: {cfg.name} at full width served (bit-equal runs) "
         f"and trained (lowmem), routing and logits and gradients of a cut "
+        f"held to the CPU, launch.serve and launch.train exit 0, the "
+        f"telemetry answered through the fused kernel; "
+        f"{out['seconds']:.1f}s")
+    return out
+
+
+XLSTM_ARCH = "xlstm-125m"          # 12 layers, 6 x [mLSTM, sLSTM], 0.162B
+# A training step of xlstm-125m takes ~11 s of host launches (PERF.md §6,
+# PR 32): (c) takes 3 steps and profiles a step of 32 tokens, launch.train
+# takes 3 at B = 4, T = 32, so that the smoke keeps to its time.
+XLSTM_TRAIN_STEPS = 3
+XLSTM_PROFILED_SEQ = 32
+XLSTM_SERVE_ARGS = ["--arch", XLSTM_ARCH]
+XLSTM_TRAIN_ARGS = ["--arch", XLSTM_ARCH, "--steps", "3", "--batch", "4",
+                    "--seq", "32", "--ckpt-every", "0"]
+XLSTM_PROFILED_PROMPT = 16         # (a)'s busy share: a 16-token prompt
+JAMBA_ARCH = "jamba-v0.1-52b"      # cut to one period: 8 layers, 13.30B
+# sLSTM's input-gate bias has no gradient: a constant added to i_t at every
+# step scales c and n alike, and h = o·c/n keeps it out.
+ZERO_GRADIENT = ("slstm/b_i",)
+JAMBA_BATCH, JAMBA_PROMPT, JAMBA_NEW = 2, 512, 16
+
+
+def phase_lm_recurrent(torch, np, card: str, device="cuda") -> dict:
+    """The LM substrate's recurrent mixers (repro_torch.models.mamba and
+    .xlstm through DecoderLM, ServeEngine, make_train_step, launch.serve,
+    launch.train): (a) xlstm-125m at full width and depth (12 layers as 6
+    x [mLSTM, sLSTM], 0.162B parameters from a seeded generator),
+    ServeEngine.generate in bfloat16 at B = 8, P = 128, 64 new, twice,
+    bit-equal (prefill ms, decode ms a step, tok/s, peak memory; the busy
+    share and top kernels over 8 new from a 16-token prompt); (b) its
+    2-layer cut [mLSTM, sLSTM] at full
+    width, float32 with TF32 off: logits on the card against the CPU
+    (rtol/atol 1e-3), prefill 64 + decode 32 against its own forward over
+    96 (1e-3); (c) the f32 policy (remat, bfloat16 compute) at full width,
+    3 steps at B = 8, T = 128 (`lm_train_run`): every loss finite, the
+    first step's batch evaluated again after the three below its first
+    loss (step ms split, tokens/s, peak memory; the busy share and top
+    kernels of a step over 32 tokens); (d)
+    the cut's float32 loss, grad norm (rtol 1e-3) and every gradient leaf
+    (`hold_gradients`), card against CPU; (e) jamba-v0.1-52b cut to one
+    period of its pattern (8 layers: 7 Mamba, 1 attention, 4 MoE channels
+    of 16 experts top 2) at full width with bfloat16 parameters, generate
+    at B = 2, P = 512 (two Mamba chunks), 16 new, twice, bit-equal
+    (prefill ms, decode ms a step, peak memory); then one of its Mamba
+    mixers alone at full width in float32, TF32 off: mamba_forward over
+    512, output and state, card against CPU (rtol/atol 1e-3), and prefill
+    256 + 16 mamba_decode steps against that forward's positions 256-271
+    (1e-3); (f) python -m repro_torch.launch.serve and launch.train (3
+    steps at B = 4, T = 32) for xlstm-125m as subprocesses, exit 0 and
+    their last lines; (g) (c)'s
+    Telemetry through BlinkQLService (`telemetry_blinkql`)."""
+    import copy
+    import gc
+    import os
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import DataConfig, SyntheticTokenStream
+    from repro_torch.models import mamba as mamba_lib
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.common import ParamFactory
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.train import optim as optim_lib
+    from repro_torch.train import step as step_lib
+
+    t_phase = time.perf_counter()
+    out = {}
+    cfg = get_config(XLSTM_ARCH)
+
+    # (a) serving at full width and depth
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = model_lib.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    prompts = lm_prompts(np, cfg, LM_BATCH, LM_PROMPT, 3)
+    engine = ServeEngine(cfg, model, ServeConfig(batch=LM_BATCH))
+    _, a = serve_twice(torch, np, engine, prompts, LM_NEW, cfg.vocab_size,
+                       "(a)")
+    dev_ms, wall_ms, top = profiled_ms(
+        torch, lambda: engine.generate(prompts[:, :XLSTM_PROFILED_PROMPT], 8))
+    a.update(params=n_params, device_ms_8_new=dev_ms, wall_ms_8_new=wall_ms,
+             top_kernels=top,
+             max_memory_allocated=torch.cuda.max_memory_allocated())
+    out["serve"] = a
+    log(f"  (a) {cfg.name} at full width and depth ({cfg.n_layers} layers, "
+        f"{n_params} float32 parameters), ServeEngine.generate, bfloat16 "
+        f"compute, float32 states, B = {LM_BATCH}, P = {LM_PROMPT}, "
+        f"{LM_NEW} new ({card}): first call (2 new) "
+        f"{a['first_call_s']:.3f}s; prefill {a['prefill_ms']:.3f} ms "
+        f"(generate of 1 new, median of 3); generate {a['generate_s']:.3f}s "
+        f"({', '.join(f'{s:.3f}' for s in a['generate_runs_s'])}), decode "
+        f"{a['decode_ms_per_step']:.3f} ms a step, {a['tok_per_s']:.1f} "
+        f"tok/s; two runs bit-equal; device busy over an 8-new generate "
+        f"from a {XLSTM_PROFILED_PROMPT}-token prompt: "
+        f"{busy_text(dev_ms, wall_ms)}; torch.cuda.max_memory_allocated "
+        f"{a['max_memory_allocated']}; {time.perf_counter() - t0:.2f}s")
+    log("  (a) kernels of most device time over that generate: " +
+        "; ".join(f"{name[:60]} {ms:.3f} ms x{n}" for name, ms, n in top))
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) a 2-layer cut at full width: logits, card against CPU
+    t0 = time.perf_counter()
+    cut = dataclasses.replace(cfg, n_layers=LM_CUT_LAYERS)
+    cut_cpu = model_lib.init_params(cut, torch.Generator().manual_seed(1))
+    cut_card = copy.deepcopy(cut_cpu).to(device)
+    ctoks = torch.from_numpy(lm_prompts(np, cut, 2, 32, 2))
+    with no_tf32(torch), torch.no_grad():
+        want, _, _ = model_lib.forward(cut_cpu, cut, ctoks,
+                                       compute_dtype=torch.float32)
+        got, _, _ = model_lib.forward(cut_card, cut, ctoks.to(device),
+                                      compute_dtype=torch.float32)
+    out["card_vs_cpu"] = {"logits_ratio": hold_close(
+        torch, f"(b) {LM_CUT_LAYERS}-layer cut [mLSTM, sLSTM], float32 "
+        f"logits, card against CPU", got, want, 1e-3, 1e-3)}
+    ptoks = torch.from_numpy(lm_prompts(np, cut, 2, 96, 4)).to(device)
+    with no_tf32(torch), torch.no_grad():
+        full, _, _ = model_lib.forward(cut_card, cut, ptoks, "train",
+                                       compute_dtype=torch.float32)
+        caches = model_lib.init_cache(cut, 2, 96, dtype=torch.float32,
+                                      device=device)
+        logits, caches = model_lib.prefill(cut_card, cut, ptoks[:, :64],
+                                           caches,
+                                           compute_dtype=torch.float32)
+        steps = [logits]
+        for t in range(64, 96):
+            lg, caches, _ = model_lib.forward(cut_card, cut,
+                                              ptoks[:, t:t + 1], "decode",
+                                              caches, t, torch.float32)
+            steps.append(lg)
+    out["card_vs_cpu"]["own_forward_ratio"] = hold_close(
+        torch, "(b) prefill 64 + decode 32 against the forward over 96",
+        torch.cat(steps, dim=1), full, 1e-3, 1e-3)
+    log(f"  (b) {time.perf_counter() - t0:.2f}s")
+    del full, steps, caches, want, got
+
+    # (d) the cut under the f32 policy: one step's gradients, card vs CPU
+    t0 = time.perf_counter()
+    batch = lm_batch(torch, SyntheticTokenStream(
+        DataConfig(cut.vocab_size, 32, 2, seed=2)))
+    with no_tf32(torch):
+        want = loss_and_grads(torch, cut_cpu, cut, batch, optim_lib,
+                              model_lib)
+        got = loss_and_grads(torch, cut_card, cut, batch, optim_lib,
+                             model_lib)
+    ratios = [hold_close(torch, f"(d) {name}, card against CPU", g, w, 1e-3,
+                         1e-3)
+              for name, g, w in (("loss", got[0], want[0]),
+                                 ("grad norm", got[1], want[1]))]
+    held = hold_gradients(torch, "(d)", got[2], want[2], ZERO_GRADIENT)
+    out["gradients"] = {"loss": want[0].item(), "ratios": ratios, **held}
+    log(f"  (d) {len(got[2])} gradient leaves within rtol 1e-3 / atol 1e-5 "
+        f"(exempt, |g| <= 1e-4 of the leaf's largest, within 1e-3 of it: "
+        f"{held['exempt']}), worst ratio {held['worst_ratio']:.3f} "
+        f"({held['worst_leaf']}); {time.perf_counter() - t0:.2f}s")
+    del cut_cpu, cut_card, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the f32 policy at full width and depth
+    t0 = time.perf_counter()
+    c, telemetry = lm_train_run(torch, step_lib.StepConfig(),
+                                XLSTM_TRAIN_STEPS, device, cfg,
+                                profile_seq=XLSTM_PROFILED_SEQ)
+    out["train"] = c
+    losses = c["losses"]
+    if len(losses) != XLSTM_TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"(c): losses {losses}")
+    if not c["first_batch_after"] < losses[0]:
+        raise AssertionError(f"(c): the first batch's loss did not fall: "
+                             f"{losses[0]} -> {c['first_batch_after']}")
+    log(f"  (c) {cfg.name} at full width and depth, f32 policy, remat, "
+        f"bfloat16 compute, B = {LM_TRAIN_BATCH}, T = {LM_TRAIN_SEQ}: losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)} (finite; each step its "
+        f"own batch); the first batch again after {XLSTM_TRAIN_STEPS} steps "
+        f"{c['first_batch_after']:.4f}, below its {losses[0]:.4f}")
+    log(f"  (c) step {c['median_step_ms']:.3f} ms (median of steps 2-"
+        f"{XLSTM_TRAIN_STEPS}; first {c['step_ms'][0]:.3f}): forward+backward "
+        f"{c['median_fwd_bwd_ms']:.3f} ms, optimizer "
+        f"{c['median_optimizer_ms']:.3f} ms; {c['tokens_per_s']:.1f} "
+        f"tokens/s; device busy: a step over the batch's first "
+        f"{XLSTM_PROFILED_SEQ} tokens, its device time (device trace only) "
+        f"over its unprofiled time "
+        f"{busy_text(c['device_ms_one_step'], c['busy_of_ms'])}"
+        f"; torch.cuda.max_memory_allocated {c['max_memory_allocated']} "
+        f"({card}); {time.perf_counter() - t0:.2f}s")
+    log("  (c) the profiled step's kernels of most device time: " + "; ".join(
+        f"{name[:60]} {ms:.3f} ms x{n}" for name, ms, n in c["top_kernels"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) jamba's one period at full width, bfloat16 parameters
+    t0 = time.perf_counter()
+    jcfg = dataclasses.replace(get_config(JAMBA_ARCH),
+                               n_layers=len(get_config(JAMBA_ARCH).pattern))
+    torch.cuda.reset_peak_memory_stats()
+    jamba = model_lib.init_params(
+        jcfg, torch.Generator(device=device).manual_seed(0), torch.bfloat16)
+    n_jamba = sum(p.numel() for p in jamba.parameters())
+    prompts = lm_prompts(np, jcfg, JAMBA_BATCH, JAMBA_PROMPT, 5)
+    engine = ServeEngine(jcfg, jamba, ServeConfig(batch=JAMBA_BATCH))
+    _, e = serve_twice(torch, np, engine, prompts, JAMBA_NEW,
+                       jcfg.vocab_size, "(e)")
+    e.update(params=n_jamba,
+             max_memory_allocated=torch.cuda.max_memory_allocated())
+    out["jamba"] = e
+    log(f"  (e) {jcfg.name} cut to {jcfg.n_layers} layers (one period: "
+        f"{sum(s.mixer == 'mamba' for s in jcfg.pattern)} Mamba, "
+        f"{sum(s.mixer == 'attn' for s in jcfg.pattern)} attention, "
+        f"{sum(s.channel == 'moe' for s in jcfg.pattern)} MoE channels of "
+        f"{jcfg.n_experts} experts top {jcfg.top_k}) at full width, "
+        f"{n_jamba} bfloat16 parameters, ServeEngine.generate, B = "
+        f"{JAMBA_BATCH}, P = {JAMBA_PROMPT} (Mamba chunk {jcfg.mamba_chunk})"
+        f", {JAMBA_NEW} new ({card}): first call {e['first_call_s']:.3f}s; "
+        f"prefill {e['prefill_ms']:.3f} ms; decode "
+        f"{e['decode_ms_per_step']:.3f} ms a step, {e['tok_per_s']:.1f} "
+        f"tok/s; two runs bit-equal; torch.cuda.max_memory_allocated "
+        f"{e['max_memory_allocated']} (3k's models freed, phase 3's tables "
+        f"held); {time.perf_counter() - t0:.2f}s")
+    del engine, jamba
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    dims = model_lib.mamba_dims(jcfg)
+    mixer = mamba_lib.Mamba(ParamFactory(torch.Generator().manual_seed(5)),
+                            dims)
+    p_cpu = {k: v.detach() for k, v in mixer.named_parameters()}
+    p_card = {k: v.to(device) for k, v in p_cpu.items()}
+    xs = torch.from_numpy(np.random.default_rng(6).normal(
+        0, 1, (1, JAMBA_PROMPT, jcfg.d_model)).astype(np.float32))
+    chunk = jcfg.mamba_chunk
+    with no_tf32(torch), torch.no_grad():
+        want, want_st = mamba_lib.mamba_forward(p_cpu, xs, dims, chunk)
+        got, got_st = mamba_lib.mamba_forward(p_card, xs.to(device), dims,
+                                              chunk)
+        half = JAMBA_PROMPT // 2
+        _, st = mamba_lib.mamba_forward(p_card, xs[:, :half].to(device),
+                                        dims, chunk)
+        steps = []
+        for t in range(half, half + JAMBA_NEW):
+            y, st = mamba_lib.mamba_decode(p_card, xs[:, t:t + 1].to(device),
+                                           dims, st)
+            steps.append(y)
+    out["jamba_mixer"] = {
+        "output_ratio": hold_close(
+            torch, f"(e) Mamba mixer at full width (d_inner {dims.d_inner}, "
+            f"d_state {dims.d_state}), mamba_forward over {JAMBA_PROMPT} in "
+            f"chunks of {chunk}, float32, card against CPU", got, want,
+            1e-3, 1e-3),
+        "h_last_ratio": hold_close(torch, "(e) its h_last, card against CPU",
+                                   got_st.ssm, want_st.ssm, 1e-3, 1e-3),
+        "conv_ratio": hold_close(torch, "(e) its conv state, card against "
+                                 "CPU", got_st.conv, want_st.conv, 1e-3,
+                                 1e-3),
+        "decode_ratio": hold_close(
+            torch, f"(e) prefill {half} + {JAMBA_NEW} mamba_decode steps "
+            f"against the forward's positions {half}-"
+            f"{half + JAMBA_NEW - 1}", torch.cat(steps, dim=1),
+            got[:, half:half + JAMBA_NEW], 1e-3, 1e-3)}
+    log(f"  (e) the Mamba mixer held; {time.perf_counter() - t0:.2f}s")
+    del mixer, p_cpu, p_card, want, got, steps
+
+    # (g) (c)'s telemetry through BlinkQL, every fused launch held to plain
+    out["telemetry"] = telemetry_blinkql(torch, np, telemetry,
+                                         XLSTM_TRAIN_STEPS, device, "(g)")
+
+    # (f) the entry points as a user runs them
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out["launch_lines"] = []
+    with tempfile.TemporaryDirectory(prefix="xlstm_launch_") as tmp:
+        for module, args, tag in (
+                ("repro_torch.launch.serve", XLSTM_SERVE_ARGS, "[serve]"),
+                ("repro_torch.launch.train",
+                 XLSTM_TRAIN_ARGS + ["--ckpt-dir", tmp], "[train]")):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", module, *args],
+                                  env=env, capture_output=True, text=True,
+                                  timeout=600)
+            line = [x for x in proc.stdout.splitlines() if x.startswith(tag)]
+            if proc.returncode != 0 or not line:
+                raise AssertionError(
+                    f"(f): {module} exited {proc.returncode}\n"
+                    f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+            out["launch_lines"].append(line[-1])
+            log(f"  (f) python -m {module} {' '.join(args)}: {line[-1]} "
+                f"({time.perf_counter() - t0:.2f}s with start-up)")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 3l ok: {cfg.name} at full width served (bit-equal runs) "
+        f"and trained, a cut's logits and gradients held to the CPU, "
+        f"{jcfg.name}'s period served at full width and its Mamba mixer "
         f"held to the CPU, launch.serve and launch.train exit 0, the "
         f"telemetry answered through the fused kernel; "
         f"{out['seconds']:.1f}s")
@@ -4460,7 +4796,7 @@ def phase_times_subsampled(torch, sub_db, card: str) -> dict:
 
 def kernels_record(worst, record, main, batch, ops_path, times, sample,
                    l2_times, subj, sub_times, mut, serving, mesh, lm_train,
-                   lm_moe, card: str) -> list[dict]:
+                   lm_moe, lm_rec, card: str) -> list[dict]:
     """The kernels' JSON record: one entry per kernel, its launches on its
     path, its worst disagreement with its plain version over every phase,
     and its times at the main path's shapes; the fused and quantile
@@ -4489,9 +4825,9 @@ def kernels_record(worst, record, main, batch, ops_path, times, sample,
             if checked:  # phase 3e's and 3f's launches, each against plain
                 errs.append((max(w[0] for w in checked.values()),
                              max(w[1] for w in checked.values())))
-        for run in (lm_train, lm_moe):
+        for run in (lm_train, lm_moe, lm_rec):
             telemetry = run["telemetry"]["worst"].get(kname, {})
-            if telemetry:  # phase 3j (f)'s, 3k (f)'s, each against plain
+            if telemetry:  # phases 3j (f), 3k (f), 3l (g), against plain
                 errs.append((max(w[0] for w in telemetry.values()),
                              max(w[1] for w in telemetry.values())))
         if kname in MESH_KERNELS:  # phase 3h's ranks, each against plain
@@ -4598,7 +4934,14 @@ def kernels_record(worst, record, main, batch, ops_path, times, sample,
                 moe_telemetry_path=("BlinkQLService.submit over the MoE "
                                     "trainer's Telemetry of phase 3k (c), "
                                     "each launch held to its plain version "
-                                    "(phase 3k (f))"))
+                                    "(phase 3k (f))"),
+                xlstm_telemetry_launches=lm_rec["telemetry"]["launches"][
+                    kname],
+                xlstm_telemetry_times=lm_rec["telemetry"]["times"],
+                xlstm_telemetry_path=("BlinkQLService.submit over the xLSTM "
+                                      "trainer's Telemetry of phase 3l (c), "
+                                      "each launch held to its plain version "
+                                      "(phase 3l (g))"))
             entry["mutation_compaction"] = {
                 str(phi): sides for phi, sides in mut["compaction"].items()}
         if kname == "agg_scan_batched":
@@ -4696,19 +5039,26 @@ def main() -> int:
         "BlinkQLService")
     lm_moe = phase_lm_moe(torch, np, card)
 
+    log("phase 3l: the LM substrate's recurrent mixers, xlstm-125m at full "
+        "width (mLSTM and sLSTM) and jamba-v0.1-52b's period at full width "
+        "(Mamba): models.mamba and models.xlstm through DecoderLM, "
+        "ServeEngine, make_train_step, launch.serve, launch.train; its "
+        "telemetry through BlinkQLService")
+    lm_rec = phase_lm_recurrent(torch, np, card)
+
     log(f"phase 4: times at the main path's shapes ({card})")
     times = phase_times(torch, main["db"], card)
     l2_times = phase_times_l2(torch, sample["db"], card)
     sub_times = phase_times_subsampled(torch, subj["sub_db"], card)
     kernels = kernels_record(worst, record, main, batch, ops_path, times,
                              sample, l2_times, subj, sub_times, mut, serving,
-                             mesh, lm_train, lm_moe, card)
+                             mesh, lm_train, lm_moe, lm_rec, card)
     log(f"smoke total {time.perf_counter() - t_start:.1f}s (phase 3d "
         f"{sample['seconds']:.1f}s, phase 3e {subj['seconds']:.1f}s, phase "
         f"3f {mut['seconds']:.1f}s, phase 3g {serving['seconds']:.1f}s, "
         f"phase 3h {mesh['seconds']:.1f}s, phase 3i {lm['seconds']:.1f}s, "
         f"phase 3j {lm_train['seconds']:.1f}s, phase 3k "
-        f"{lm_moe['seconds']:.1f}s)")
+        f"{lm_moe['seconds']:.1f}s, phase 3l {lm_rec['seconds']:.1f}s)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

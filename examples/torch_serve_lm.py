@@ -1,11 +1,9 @@
 """Batched serving example on the port: prefill + greedy decode with KV
-caches for the dense archs the port has (counterpart of
-examples/serve_lm.py). Runs on the card unless --device cpu.
+and recurrent-state caches across three architecture families (attention,
+SSM, hybrid), each reduced (counterpart of examples/serve_lm.py). Runs on
+the card unless --device cpu.
 
     PYTHONPATH=src python examples/torch_serve_lm.py [--device cpu]
-
-The reference's example also serves xlstm-125m (SSM) and jamba-v0.1-52b
-(hybrid); those wait for the port's Mamba and xLSTM slice (ROADMAP.md).
 """
 import argparse
 import dataclasses
@@ -18,8 +16,7 @@ from repro_torch.core.engine import resolve_device
 from repro_torch.models import model as model_lib
 from repro_torch.serve.engine import ServeConfig, ServeEngine, throughput_probe
 
-ARCHS = ("qwen2-1.5b", "codeqwen1.5-7b")
-LATER = ("xlstm-125m", "jamba-v0.1-52b")
+ARCHS = ("qwen2-1.5b", "codeqwen1.5-7b", "xlstm-125m", "jamba-v0.1-52b")
 
 
 def main(argv=None) -> None:
@@ -38,9 +35,6 @@ def main(argv=None) -> None:
         stats = throughput_probe(engine, prompts, n_new=24)
         print(f"{arch:18s} ({cfg.family:6s}): {stats['tok_per_s']:8.1f} tok/s"
               f"  out={stats['output_shape']}  on {device.type}")
-    for arch in LATER:
-        print(f"{arch:18s} ({get_config(arch).family:6s}): waits for the "
-              f"port's Mamba and xLSTM slice")
 
 
 if __name__ == "__main__":

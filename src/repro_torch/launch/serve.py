@@ -1,12 +1,13 @@
 """Serving launcher: batched greedy decoding against a (random-init or
-checkpointed) decoder LM, dense or MoE, on the card unless --device cpu
-(counterpart of `repro.launch.serve`).
+checkpointed) decoder LM (dense, MoE, recurrent or hybrid), on the card
+unless --device cpu (counterpart of `repro.launch.serve`).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
         --reduced --batch 4 --prompt-len 16 --new-tokens 32 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch granite-moe-3b-a800m
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m
 
 --ckpt-dir restores {"params": ...} from a checkpoint of either package's
 CheckpointManager (the same layout).

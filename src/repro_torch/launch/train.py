@@ -1,11 +1,13 @@
-"""Training launcher: a decoder LM (dense or MoE) trained on the synthetic
-corpus with checkpoint/restart, on the card unless --device cpu
-(counterpart of `repro.launch.train`).
+"""Training launcher: a decoder LM (dense, MoE, recurrent or hybrid)
+trained on the synthetic corpus with checkpoint/restart, on the card
+unless --device cpu (counterpart of `repro.launch.train`).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
         --steps 200 --batch 8 --seq 128
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch granite-moe-3b-a800m --policy lowmem --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
+        --steps 3
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
         --steps 3 --device cpu
 

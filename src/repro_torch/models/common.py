@@ -1,5 +1,7 @@
 """Shared model building blocks (counterpart of `repro.models.common`): the
-parameter factory, RMSNorm, rotary embeddings and the cross-entropy loss.
+parameter factory, RMSNorm, rotary embeddings, the cross-entropy loss, and
+what the recurrent mixers share (softplus as the reference lowers it, the
+depthwise causal convolution).
 
 Parameters are `nn.Parameter`s of the reference's shapes. A layer's weights
 are stacked over the pattern's repeats (a leading [R] axis), as the
@@ -56,6 +58,18 @@ class ParamFactory:
     def embedding(self, vocab: int, d: int) -> nn.Parameter:
         return self.dense((vocab, d), scale=0.02)
 
+    def constant(self, shape, value, repeats: int | None = None
+                 ) -> nn.Parameter:
+        """One layer's weight of `shape` holding `value` (a float, or a
+        tensor broadcast to `shape`), computed in float32 and rounded to
+        the factory's dtype, as the reference's `jnp.full`, `log(tile(..))`
+        and `zeros + log(expm1(0.01))` initialisers are."""
+        w = self._new(shape, repeats)
+        if self.generator is not None:
+            w.copy_(torch.as_tensor(value, dtype=torch.float32).expand(
+                w.shape))
+        return nn.Parameter(w)
+
 
 def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """torch.einsum of two operands in one dtype. On the CPU a 16-bit
@@ -66,6 +80,43 @@ def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cpu" and a.dtype in (torch.bfloat16, torch.float16):
         return torch.einsum(eq, a.float(), b.float()).to(a.dtype)
     return torch.einsum(eq, a, b)
+
+
+class _Softplus(torch.autograd.Function):
+    """log(1 + exp(x)) as `jax.nn.softplus` lowers it, `logaddexp(x, 0)`:
+    max(x, 0) + log1p(exp(-|x|)); its gradient exp(x - softplus(x)), as
+    logaddexp's custom JVP forms it. (`F.softplus` computes log1p(exp(x))
+    below a threshold of 20, another rounding.)"""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.clamp_min(x, 0) + torch.log1p(torch.exp(-torch.abs(x)))
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return g * torch.exp(x - out)
+
+
+softplus = _Softplus.apply
+
+
+def causal_conv(xs: torch.Tensor, w: torch.Tensor,
+                state: torch.Tensor | None = None):
+    """Depthwise causal convolution over time, as the reference writes it:
+    xs [B,S,C] left-padded with k-1 zeros (or with `state`, the k-1 inputs
+    before it, cast to xs's dtype), the k shifted products by w [k, C] (in
+    xs's dtype) added left to right. Returns (the sum [B,S,C], the padded
+    input's last k-1 rows: the next call's `state`)."""
+    k, s = w.shape[0], xs.shape[1]
+    if state is None:
+        xp = torch.nn.functional.pad(xs, (0, 0, k - 1, 0))
+    else:
+        xp = torch.cat([state.to(xs.dtype), xs], dim=1)
+    out = sum(xp[:, i:i + s, :] * w[i][None, None] for i in range(k))
+    return out, xp[:, xp.shape[1] - (k - 1):, :]
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,

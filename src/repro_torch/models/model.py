@@ -1,8 +1,8 @@
 """The decoder LM over a repeating layer pattern (counterpart of
-`repro.models.model`): attention layers whose channel is the SwiGLU MLP
-(`LayerSpec("attn", "mlp")`) or the routed MoE (`LayerSpec("attn",
-"moe")`, `models/moe.py`). Mamba, xLSTM, cross-attention and the audio
-codebooks raise NotImplementedError (`check_supported`).
+`repro.models.model`). A layer's mixer is GQA self-attention, Mamba
+(`models/mamba.py`), mLSTM or sLSTM (`models/xlstm.py`); its channel the
+SwiGLU MLP, the routed MoE (`models/moe.py`) or none. Cross-attention and
+the audio codebooks raise NotImplementedError (`check_supported`).
 
 `DecoderLM` is an `nn.Module` whose parameters map one to one onto the
 reference's tree: `embed`, `final_norm`, `lm_head` (untied heads) and
@@ -16,10 +16,14 @@ port loops over R in Python. Modes:
   * prefill — full-sequence forward + cache build (under torch.no_grad)
   * decode  — one-token step against the caches (under torch.no_grad)
 
-Caches are per-pattern-position `KVCache`s with a leading [R] axis, written
-in place. The functional entry points of the reference (`init_params`,
-`init_cache`, `forward`, `loss_fn`, `prefill`, `decode_step`, ...) are thin
-functions over the module.
+Caches are per-pattern-position NamedTuples with a leading [R] axis: a
+`KVCache` for attention (in the cache dtype), a `MambaState`,
+`MLSTMState` or `SLSTMState` for the recurrent mixers (float32 whatever the
+cache dtype). They are written in place: attention writes its positions,
+a recurrent mixer's new state is copied over its row. The functional
+entry points of the reference (`init_params`, `init_cache`, `forward`,
+`loss_fn`, `prefill`, `decode_step`, ...) are thin functions over the
+module.
 """
 from __future__ import annotations
 
@@ -30,12 +34,21 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.common import (ParamFactory, cross_entropy, einsum,
                                        rms_norm)
 
 MODES = ("train", "prefill", "decode")
+MIXERS = ("attn", "mamba", "mlstm", "slstm")
+# Each mixer's leaves that it reads at their stored dtype (the reference
+# casts them to float32 from its master, or adds them uncast), not cast to
+# the compute dtype; norms are read so everywhere.
+AS_STORED = {"mamba": mamba_lib.AS_STORED,
+             "mlstm": xlstm_lib.MLSTM_AS_STORED,
+             "slstm": xlstm_lib.SLSTM_AS_STORED}
 
 
 # ------------------------------------------------------------ dims helpers
@@ -51,28 +64,32 @@ def moe_dims(cfg: ModelConfig) -> moe_lib.MoEDims:
                            cfg.moe_dispatch)
 
 
+def mamba_dims(cfg: ModelConfig) -> mamba_lib.MambaDims:
+    return mamba_lib.MambaDims(cfg.d_model, cfg.mamba_expand,
+                               cfg.mamba_d_state, cfg.mamba_d_conv)
+
+
+def xlstm_dims(cfg: ModelConfig) -> xlstm_lib.XLSTMDims:
+    return xlstm_lib.XLSTMDims(cfg.d_model, cfg.n_heads,
+                               cfg.xlstm_proj_factor)
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for what later slices of the port bring
-    (ROADMAP.md queue 1, the LM substrate's items)."""
-    later = {"mamba": "the Mamba and xLSTM slice (models/mamba.py)",
-             "mlstm": "the Mamba and xLSTM slice (models/xlstm.py)",
-             "slstm": "the Mamba and xLSTM slice (models/xlstm.py)",
-             "xattn": "the cross-attention and audio codebooks slice"}
-    for spec in cfg.pattern:
-        if spec.mixer != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: mixer {spec.mixer!r} is not ported yet; it "
-                f"comes with {later.get(spec.mixer, 'a later LM slice')}")
-        if spec.channel not in ("mlp", "moe", "none"):
-            raise NotImplementedError(
-                f"{cfg.name}: channel {spec.channel!r} is not ported yet; it "
-                f"comes with {later.get(spec.channel, 'a later LM slice')}")
-    for field, item in (("n_codebooks", later["xattn"]),
-                        ("n_vision_tokens", later["xattn"])):
-        if getattr(cfg, field):
-            raise NotImplementedError(
-                f"{cfg.name}: {field}={getattr(cfg, field)} is not ported "
-                f"yet; it comes with {item}")
+    """Raise NotImplementedError for what the cross-attention and audio
+    codebooks slice brings (ROADMAP.md queue 1, the LM substrate's item
+    2.3): the `xattn` mixer, `n_codebooks` and `n_vision_tokens`."""
+    refused = [f"mixer {spec.mixer!r}" for spec in cfg.pattern
+               if spec.mixer not in MIXERS]
+    refused += [f"channel {spec.channel!r}" for spec in cfg.pattern
+                if spec.channel not in ("mlp", "moe", "none")]
+    refused += [f"{field}={getattr(cfg, field)}"
+                for field in ("n_codebooks", "n_vision_tokens")
+                if getattr(cfg, field)]
+    if refused:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(dict.fromkeys(refused))} not ported "
+            f"yet; it comes with the cross-attention and audio codebooks "
+            f"slice")
 
 
 # ------------------------------------------------------------ the module
@@ -84,7 +101,14 @@ class Layer(nn.Module):
         super().__init__()
         r = cfg.n_repeats
         self.norm1 = pf.ones((cfg.d_model,), r)
-        self.attn = attn_lib.Attention(pf, attn_dims(cfg), r)
+        if spec.mixer == "attn":
+            self.attn = attn_lib.Attention(pf, attn_dims(cfg), r)
+        elif spec.mixer == "mamba":
+            self.mamba = mamba_lib.Mamba(pf, mamba_dims(cfg), r)
+        elif spec.mixer == "mlstm":
+            self.mlstm = xlstm_lib.MLSTM(pf, xlstm_dims(cfg), r)
+        else:
+            self.slstm = xlstm_lib.SLSTM(pf, xlstm_dims(cfg), r)
         if spec.channel == "mlp":
             self.norm2 = pf.ones((cfg.d_model,), r)
             self.mlp = mlp_lib.MLP(pf, cfg.d_model, cfg.d_ff, r)
@@ -106,11 +130,14 @@ def _unbind_tree(module: nn.Module) -> dict:
     return out
 
 
-def _layer_weights(tree: dict, r: int, dtype) -> dict:
-    """Layer r's weights of an `_unbind_tree`: norms as stored (rms_norm
-    reads them in float32), the rest in `dtype`."""
-    return {name: _layer_weights(v, r, dtype) if isinstance(v, dict)
-            else v[r] if name.startswith("norm") else v[r].to(dtype)
+def _layer_weights(tree: dict, r: int, dtype, stored=frozenset()) -> dict:
+    """Layer r's weights of an `_unbind_tree`: norms (rms_norm reads them
+    in float32) and each mixer's `AS_STORED` leaves as stored, the rest in
+    `dtype`."""
+    return {name: _layer_weights(v, r, dtype, AS_STORED.get(name, ()))
+            if isinstance(v, dict)
+            else v[r] if name.startswith("norm") or name in stored
+            else v[r].to(dtype)
             for name, v in tree.items()}
 
 
@@ -174,8 +201,12 @@ class DecoderLM(nn.Module):
                 compute_dtype: torch.dtype = torch.bfloat16,
                 remat: bool = True):
         """tokens int [B,S]. Returns (logits, caches, aux); the caches are
-        written in place, aux is the layers' MoE auxiliary loss summed, a
-        float32 scalar (0 without MoE layers). Train mode casts the
+        written in place. aux is the MoE auxiliary loss of each repeat's
+        last pattern position, summed over the repeats (a float32 scalar; 0
+        where that position has no MoE channel): the reference's scan body
+        adds the aux of its last layer only, so a pattern with MoE layers
+        elsewhere (jamba's) counts one of them a repeat, and the port does
+        the same. Train mode casts the
         weights inside the graph (`remat` checkpoints each repeat of the
         pattern); prefill and decode run under torch.no_grad from the cast
         cache."""
@@ -197,11 +228,13 @@ class DecoderLM(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for r, layer_ws in enumerate(w["layers"]):
             for i, spec in enumerate(cfg.pattern):
-                cache = attn_lib.KVCache(caches[i].k[r], caches[i].v[r])
-                x, _, a = apply_layer(spec, layer_ws[i], x, cfg, mode, cache,
-                                      pos)
-                if spec.channel == "moe":   # the dense channel's is 0.0
-                    aux = aux + a
+                cache = type(caches[i])(*(leaf[r] for leaf in caches[i]))
+                x, new, a = apply_layer(spec, layer_ws[i], x, cfg, mode,
+                                        cache, pos)
+                for row, leaf in zip(cache, new):
+                    if leaf is not row:   # a recurrent mixer's new state
+                        row.copy_(leaf)
+            aux = aux + a   # the last pattern position's (see forward)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
         logits = output_logits(w, cfg, x)
         return logits, caches, aux
@@ -221,8 +254,7 @@ class DecoderLM(nn.Module):
             for i, spec in enumerate(cfg.pattern):
                 p = _layer_weights(stacks[i], r, compute_dtype)
                 x, _, a = apply_layer(spec, p, x, cfg, "train")
-                aux = aux + a
-            return x, aux
+            return x, aux + a
 
         for r in range(cfg.n_repeats):
             if remat:
@@ -252,33 +284,74 @@ def empty(cfg: ModelConfig, device="cuda",
     return DecoderLM(cfg, ParamFactory(None, dtype, resolve_device(device)))
 
 
+def init_layer_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
+                     max_len: int, dtype, device, repeats: int | None = None):
+    """One pattern position's cache: a KVCache in `dtype`, or a recurrent
+    mixer's state in float32 whatever `dtype`."""
+    if spec.mixer == "attn":
+        return attn_lib.init_kv_cache(batch, attn_dims(cfg), max_len, dtype,
+                                      device, repeats)
+    if spec.mixer == "mamba":
+        return mamba_lib.init_mamba_state(batch, mamba_dims(cfg), device,
+                                          repeats)
+    if spec.mixer == "mlstm":
+        return xlstm_lib.init_mlstm_state(batch, xlstm_dims(cfg), device,
+                                          repeats)
+    return xlstm_lib.init_slstm_state(batch, xlstm_dims(cfg), device, repeats)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda"):
     """Tuple over pattern positions; leaves stacked [R, ...]."""
     check_supported(cfg)
     device = resolve_device(device)
-    return tuple(attn_lib.init_kv_cache(batch, attn_dims(cfg), max_len, dtype,
-                                        device, cfg.n_repeats)
-                 for _ in cfg.pattern)
+    return tuple(init_layer_cache(spec, cfg, batch, max_len, dtype, device,
+                                  cfg.n_repeats)
+                 for spec in cfg.pattern)
 
 
 def apply_layer(spec: LayerSpec, p, x, cfg: ModelConfig, mode: str,
                 cache=None, pos=None):
-    """One layer: pre-norm attention, then the pre-norm MLP or MoE
-    channel, each with its residual. Returns (x, cache, aux); aux is the
-    MoE channel's load-balancing loss (a float32 scalar), 0.0 for the
-    dense channel."""
+    """One layer: the pre-norm mixer, then the pre-norm MLP or MoE channel
+    (or none), each with its residual. Returns (x, cache, aux): attention
+    writes its KV cache in place and returns it; a recurrent mixer returns
+    its new state (prefill starts from zeros, decode from `cache`; train
+    mode returns `cache` as given). aux is the MoE channel's
+    load-balancing loss (a float32 scalar), 0.0 for the others."""
     aux = 0.0
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    if mode == "train":
-        y = attn_lib.attention_train(p["attn"], h, attn_dims(cfg),
-                                     cfg.q_chunk, cfg.k_chunk)
-    elif mode == "prefill":
-        y, cache = attn_lib.attention_prefill(p["attn"], h, attn_dims(cfg),
-                                              cache, cfg.q_chunk, cfg.k_chunk)
+    if spec.mixer == "attn":
+        if mode == "train":
+            y = attn_lib.attention_train(p["attn"], h, attn_dims(cfg),
+                                         cfg.q_chunk, cfg.k_chunk)
+        elif mode == "prefill":
+            y, cache = attn_lib.attention_prefill(
+                p["attn"], h, attn_dims(cfg), cache, cfg.q_chunk, cfg.k_chunk)
+        else:
+            y, cache = attn_lib.attention_decode(p["attn"], h, attn_dims(cfg),
+                                                 cache, int(pos))
+    elif spec.mixer == "mamba":
+        if mode == "decode":
+            y, cache = mamba_lib.mamba_decode(p["mamba"], h, mamba_dims(cfg),
+                                              cache)
+        else:
+            y, st = mamba_lib.mamba_forward(p["mamba"], h, mamba_dims(cfg),
+                                            cfg.mamba_chunk)
+            cache = st if mode == "prefill" else cache
+    elif spec.mixer == "mlstm":
+        if mode == "decode":
+            y, cache = xlstm_lib.mlstm_decode(p["mlstm"], h, xlstm_dims(cfg),
+                                              cache)
+        else:
+            y, st = xlstm_lib.mlstm_forward(p["mlstm"], h, xlstm_dims(cfg))
+            cache = st if mode == "prefill" else cache
     else:
-        y, cache = attn_lib.attention_decode(p["attn"], h, attn_dims(cfg),
-                                             cache, int(pos))
+        if mode == "decode":
+            y, cache = xlstm_lib.slstm_decode(p["slstm"], h, xlstm_dims(cfg),
+                                              cache)
+        else:
+            y, st = xlstm_lib.slstm_forward(p["slstm"], h, xlstm_dims(cfg))
+            cache = st if mode == "prefill" else cache
     x = x + y
     if spec.channel == "mlp":
         h2 = rms_norm(x, p["norm2"], cfg.norm_eps)

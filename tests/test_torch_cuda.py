@@ -1347,7 +1347,7 @@ def test_lm_train_steps_on_card_equal_the_cpu(cuda_device):
     _hold_train_steps_to_cpu(cfg, cpu, model)
 
 
-def _hold_train_steps_to_cpu(cfg, cpu, model):
+def _hold_train_steps_to_cpu(cfg, cpu, model, zero_gradient=()):
     """Three float32 train steps (loss, gradients, AdamW) on the card and
     on the CPU from the same weights and batches: the trajectories of loss,
     grad norm and lr within rtol 1e-4, and every parameter after them
@@ -1357,7 +1357,9 @@ def _hold_train_steps_to_cpu(cfg, cpu, model):
     rounding (against float64 on the CPU), and Adam's first update is
     sign-like (m/√v = ±1), so such an element may step either way on each
     device. They are held to twice the update clip (3) times the steps'
-    summed lr, and their count is printed by leaf."""
+    summed lr, and their count is printed by leaf. So are all elements of
+    a leaf whose gradient is zero (`zero_gradient`, path suffixes: its
+    float32 rounding is all Adam sees)."""
     from repro_torch.checkpoint.ckpt import flatten_with_paths
     first = copy.deepcopy(cpu)
     leaves = flatten_with_paths(first.param_tree())
@@ -1375,6 +1377,8 @@ def _hold_train_steps_to_cpu(cfg, cpu, model):
     for (name, b), g in zip(flatten_with_paths(cpu.param_tree()), g1):
         a, b = card[name].detach().cpu(), b.detach()
         tie = g.abs() <= 1e-4 * g.abs().max()
+        if name.endswith(tuple(zero_gradient)):
+            tie = torch.ones_like(tie)
         exempt[name] = f"{int(tie.sum())}/{g.numel()}"
         torch.testing.assert_close(a[~tie], b[~tie], rtol=1e-3, atol=1e-5,
                                    msg=name)
@@ -1482,3 +1486,83 @@ def test_moe_train_steps_on_card_equal_the_cpu(cuda_device):
     CPU, held as the dense model's are (above)."""
     cfg, cpu, model = _lm_on_card(arch=MOE_ARCH)
     _hold_train_steps_to_cpu(cfg, cpu, model)
+
+
+# ------------------------------------------------------------ the recurrent mixers
+
+RECURRENT = ["xlstm-125m", "jamba-v0.1-52b"]
+
+
+def _recurrent_on_card(arch, **changes):
+    """xlstm-125m reduced to two repeats of [mLSTM, sLSTM]; jamba-v0.1-52b
+    to one period of 8 layers (Mamba chunk 16)."""
+    n = 4 if arch == "xlstm-125m" else 8
+    return _lm_on_card(n_layers=n, arch=arch, **changes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_f32_logits_on_card_equal_the_cpu(cuda_device, arch):
+    cfg, cpu, model = _recurrent_on_card(arch)
+    toks = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 32)).astype(np.int32)
+    want, _, want_aux = model_lib.forward(cpu, cfg, torch.from_numpy(toks),
+                                          compute_dtype=torch.float32)
+    with _no_tf32():
+        got, _, aux = model_lib.forward(
+            model, cfg, torch.from_numpy(toks).to(cuda_device),
+            compute_dtype=torch.float32)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux.cpu(), torch.as_tensor(want_aux),
+                               rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_prefill_plus_decode_reproduces_forward_on_card(
+        cuda_device, arch):
+    """The float32 states on the card: prefill 16 + decode 16 against the
+    forward over 32 (jamba at capacity factor 8: nothing drops)."""
+    cfg, _, model = _recurrent_on_card(arch, capacity_factor=8.0)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 32)).astype(np.int32)).to(cuda_device)
+    with _no_tf32():
+        full, _, _ = model_lib.forward(model, cfg, toks, "train",
+                                       compute_dtype=torch.float32)
+        caches = model_lib.init_cache(cfg, 2, 32, dtype=torch.bfloat16,
+                                      device=cuda_device)
+        logits, caches = model_lib.prefill(model, cfg, toks[:, :16], caches,
+                                           compute_dtype=torch.float32)
+        got = [logits]
+        for t in range(16, 32):
+            lg, caches, _ = model_lib.forward(model, cfg, toks[:, t:t + 1],
+                                              "decode", caches, t,
+                                              torch.float32)
+            got.append(lg)
+    for spec, cache in zip(cfg.pattern, caches):
+        want = torch.bfloat16 if spec.mixer == "attn" else torch.float32
+        assert all(leaf.dtype == want and leaf.is_cuda for leaf in cache)
+    torch.testing.assert_close(torch.cat(got, 1), full, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_bf16_generate_repeats_bitwise_on_card(cuda_device, arch):
+    cfg, _, model = _recurrent_on_card(arch)
+    eng = ServeEngine(cfg, model, ServeConfig())
+    prompts = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (4, 16)).astype(np.int32)
+    a = eng.generate(prompts, 16)
+    b = eng.generate(prompts, 16)
+    np.testing.assert_array_equal(a, b)
+    assert a.shape == (4, 32) and a.min() >= 0 and a.max() < cfg.vocab_size
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_train_steps_on_card_equal_the_cpu(cuda_device, arch):
+    """Three float32 steps on the card and on the CPU, held as the dense
+    model's are (above); sLSTM's input-gate bias has no gradient (a
+    constant added to i_t scales c and n alike) and is held as exempt."""
+    cfg, cpu, model = _recurrent_on_card(arch)
+    _hold_train_steps_to_cpu(cfg, cpu, model, zero_gradient=("slstm/b_i",))

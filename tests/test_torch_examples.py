@@ -52,10 +52,11 @@ def test_example_runs_on_the_cpu(capsys, name, markers):
 def test_serve_example_runs_on_the_cpu(capsys):
     _example("torch_serve_lm").main(["--device", "cpu"])
     out = capsys.readouterr().out
-    for arch in ("qwen2-1.5b", "codeqwen1.5-7b"):
-        assert f"{arch}" in out and "out=(4, 40)  on cpu" in out, out
-    for arch in ("xlstm-125m", "jamba-v0.1-52b"):
-        assert f"{arch}" in out and "waits for" in out, out
+    lines = out.splitlines()
+    for arch in ("qwen2-1.5b", "codeqwen1.5-7b", "xlstm-125m",
+                 "jamba-v0.1-52b"):
+        assert any(line.startswith(arch) and "out=(4, 40)  on cpu" in line
+                   for line in lines), out
 
 
 def test_train_example_runs_on_the_cpu(capsys, tmp_path):

@@ -35,6 +35,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import repro_torch.configs, repro_torch.configs.base\n"
         "import repro_torch.models.common, repro_torch.models.mlp\n"
         "import repro_torch.models.attention, repro_torch.models.model\n"
+        "import repro_torch.models.mamba, repro_torch.models.xlstm\n"
         "import repro_torch.checkpoint.ckpt, repro_torch.train.step\n"
         "import repro_torch.serve.engine, repro_torch.launch.serve\n"
         "import repro_torch.data.tokens, repro_torch.train.optim\n"
