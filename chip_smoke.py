@@ -163,8 +163,8 @@ Phases, each reported on its own lines:
      step, tok/s, busy share, top kernels, peak memory); a 2-layer cut in
      float32 with TF32 off: logits card against CPU (rtol/atol 1e-3) and
      prefill 64 + decode 32 against its own forward over 96; the f32
-     policy at full width for 3 steps at B = 8, T = 128 (losses finite,
-     the first batch's loss lower after the three); the cut's gradients,
+     policy at full width for 2 steps at B = 8, T = 128 (losses finite,
+     the first batch's loss lower after the two); the cut's gradients,
      card against CPU; jamba-v0.1-52b cut to one period (8 layers: 7
      Mamba, 1 attention, 4 MoE channels) at full width in bfloat16
      parameters, generate at B = 2, P = 512, 16 new, twice, bit-equal, and
@@ -172,6 +172,28 @@ Phases, each reported on its own lines:
      against its forward; launch.serve and launch.train for xlstm-125m as
      subprocesses; the run's Telemetry through BlinkQLService
      ("xlstm_telemetry_launches" in the kernels' record);
+  3m. the LM substrate's audio codebooks and cross-attention (between 3l
+     and 4): musicgen-large at full width and depth (48 layers, 4
+     codebooks of 2048, 3.255B parameters from a seeded generator):
+     ServeEngine.generate in bfloat16 at B = 8, prompts [8, 4, 128], 64
+     new, twice, bit-equal, output (8, 4, 192) (prefill ms, decode ms a
+     step, tok/s, busy share, top kernels, peak memory); a 2-layer cut in
+     float32 with TF32 off: logits [B, K, S, V] card against CPU
+     (rtol/atol 1e-3), greedy tokens equal, prefill 64 + decode 32 against
+     its own forward over 96; the lowmem policy at full width for 5 steps
+     at B = 8, T = 128 of [8, 4, 129] codebook streams (losses finite, the
+     first batch's loss lower after the five; step ms, tokens/s, busy
+     share, peak memory); the cut's gradients, card against CPU;
+     llama-3.2-vision-90b cut to one period (5 layers: 4 attention, 1
+     cross-attention) at full width in bfloat16 parameters, generate at B
+     = 2, P = 128, 16 new with a [2, 1601, 1280] vision source, twice,
+     bit-equal, and one cross_attention at full width in float32 (gate
+     0.5), output and gradients card against CPU, a reduced period's
+     prefill + decode against its forward; launch.serve --arch
+     musicgen-large as a subprocess (exit 0, output (4, 4, 48)) and
+     --arch llama-3.2-vision-90b (its ValueError); the run's Telemetry
+     through BlinkQLService ("musicgen_telemetry_launches" in the
+     kernels' record);
   4. times: each kernel at the main path's shapes (agg_scan_fused and
      quantile_scan at G = 1, 6, 200 and 500) against its bound and its
      plain version, quantile_scan beside the yardstick agg_scan_fused +
@@ -3052,35 +3074,40 @@ def no_tf32(torch):
 
 
 def lm_prompts(np, cfg, batch: int, length: int, seed: int):
+    """Prompts [batch, length], or [batch, K, length] for K codebooks."""
     rng = np.random.default_rng(seed)
-    return rng.integers(0, cfg.vocab_size, (batch, length)).astype(np.int32)
+    shape = ((batch, cfg.n_codebooks, length) if cfg.n_codebooks
+             else (batch, length))
+    return rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
 
 
-def timed_generate(torch, engine, prompts, n_new: int):
+def timed_generate(torch, engine, prompts, n_new: int, vision=None):
     """(tokens, host seconds) of one ServeEngine.generate, device
     synchronised on both sides (generate ends in a device-to-host copy)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = engine.generate(prompts, n_new)
+    out = engine.generate(prompts, n_new, vision)
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
 
 
 def serve_twice(torch, np, engine, prompts, n_new: int, vocab: int,
-                label: str) -> dict:
+                label: str, vision=None) -> dict:
     """(tokens, stats) of the LM phases' serving measurement: a first call
     (2 new), prefill as the median of three 1-new generates, then two
     n_new generates that must be bit-equal and in range; decode ms a step
-    from the faster of them."""
-    _, first_s = timed_generate(torch, engine, prompts, 2)
-    prefill_s = sorted(timed_generate(torch, engine, prompts, 1)[1]
+    from the faster of them. tok/s counts B·n_new positions (with K
+    codebooks, a position's K tokens as one)."""
+    _, first_s = timed_generate(torch, engine, prompts, 2, vision)
+    prefill_s = sorted(timed_generate(torch, engine, prompts, 1, vision)[1]
                        for _ in range(3))[1]
-    run1, s1 = timed_generate(torch, engine, prompts, n_new)
-    run2, s2 = timed_generate(torch, engine, prompts, n_new)
+    run1, s1 = timed_generate(torch, engine, prompts, n_new, vision)
+    run2, s2 = timed_generate(torch, engine, prompts, n_new, vision)
     if not np.array_equal(run1, run2):
         raise AssertionError(f"{label}: two bfloat16 runs differ")
-    b, p = prompts.shape
-    if run1.shape != (b, p + n_new) or run1.min() < 0 or run1.max() >= vocab:
+    b, p = prompts.shape[0], prompts.shape[-1]
+    if run1.shape != prompts.shape[:-1] + (p + n_new,) or run1.min() < 0 \
+            or run1.max() >= vocab:
         raise AssertionError(f"{label}: tokens {run1.shape} out of range")
     gen_s = min(s1, s2)
     return run1, {"first_call_s": first_s, "prefill_ms": 1e3 * prefill_s,
@@ -3089,16 +3116,15 @@ def serve_twice(torch, np, engine, prompts, n_new: int, vocab: int,
             "tok_per_s": b * n_new / gen_s}
 
 
-def profiled_ms(torch, fn, cpu: bool = True) -> tuple:
+def profiled_ms(torch, fn) -> tuple:
     """(device ms, wall ms, top kernels) of fn() under torch.profiler: the
     sum of the kernels' device time, the host clock around the call,
     device synchronised on both sides, and the eight kernels of most
-    device time as (name, ms, launches). `cpu=False` traces the device
-    only: a step of ~10^5 launches then costs the profiler seconds, not
-    minutes, of the host's event bookkeeping."""
+    device time as (name, ms, launches). It traces the device only: the
+    host's event bookkeeping of a CPU trace cost 12-25 s a call in the
+    LM phases (PR 33), and ~10^5 launches minutes."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-                 if cpu else [ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -3412,7 +3438,8 @@ def hold_telemetry(np, cols, answers) -> float:
 
 
 def lm_train_run(torch, step_cfg, n_steps: int, device="cuda",
-                 cfg=None, profile_seq: int | None = None) -> tuple:
+                 cfg=None, profile_seq: int | None = None,
+                 make_stream=None) -> tuple:
     """Phase 3j (a)'s and 3k (c)'s measured run (lm_train_times.py runs it
     too): `cfg` (default qwen2-1.5b) at full width and depth from a seeded
     generator on `device`, n_steps of make_train_step(step_cfg) through
@@ -3427,7 +3454,9 @@ def lm_train_run(torch, step_cfg, n_steps: int, device="cuda",
     ~10^5 launches costs the host minutes of bookkeeping; "aux" holds each
     step's MoE aux loss (0 for a dense model), "first_batch_after" the
     first step's batch evaluated again after the n_steps (loss_fn under
-    no_grad), free of the noise between batches."""
+    no_grad), free of the noise between batches. `make_stream(cfg)` gives
+    the batches (default: SyntheticTokenStream at B = LM_TRAIN_BATCH, T =
+    LM_TRAIN_SEQ, seed 0); tokens/s counts B·T a step."""
     import tempfile
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import DataConfig, SyntheticTokenStream
@@ -3445,8 +3474,9 @@ def lm_train_run(torch, step_cfg, n_steps: int, device="cuda",
         step_cfg.param_dtype)
     opt = optim_lib.init_opt_state(model.param_tree(),
                                    step_cfg.opt_config(opt_cfg))
-    stream = SyntheticTokenStream(DataConfig(cfg.vocab_size, LM_TRAIN_SEQ,
-                                             LM_TRAIN_BATCH, seed=0))
+    make_stream = make_stream or (lambda cfg: SyntheticTokenStream(
+        DataConfig(cfg.vocab_size, LM_TRAIN_SEQ, LM_TRAIN_BATCH, seed=0)))
+    stream = make_stream(cfg)
     step_s, opt_s, aux = [], [], []
     step = step_lib.make_train_step(cfg, opt_cfg, step_cfg)
 
@@ -3461,7 +3491,7 @@ def lm_train_run(torch, step_cfg, n_steps: int, device="cuda",
             loop_lib.LoopConfig(total_steps=n_steps, ckpt_every=0,
                                 log_every=n_steps, ckpt_dir=tmp),
             resume=False)
-    first = lm_batch(torch, SyntheticTokenStream(stream.cfg))
+    first = lm_batch(torch, make_stream(cfg))
     with torch.no_grad():
         again, _ = model_lib.loss_fn(
             model, cfg, {k: v.to(model.device) for k, v in first.items()},
@@ -3479,7 +3509,7 @@ def lm_train_run(torch, step_cfg, n_steps: int, device="cuda",
         seconds = []
         timed_steps(torch, short, seconds)()
         busy_of_ms = 1e3 * seconds[0]
-        dev_ms, wall_ms, top = profiled_ms(torch, short, cpu=False)
+        dev_ms, wall_ms, top = profiled_ms(torch, short)
     med_opt = sorted(opt_s[1:])[len(opt_s[1:]) // 2]
     return {"params": sum(p.numel() for p in model.parameters()),
             "losses": step_losses(telemetry), "aux": aux,
@@ -4093,12 +4123,13 @@ def phase_lm_moe(torch, np, card: str, device="cuda") -> dict:
 
 XLSTM_ARCH = "xlstm-125m"          # 12 layers, 6 x [mLSTM, sLSTM], 0.162B
 # A training step of xlstm-125m takes ~11 s of host launches (PERF.md §6,
-# PR 32): (c) takes 3 steps and profiles a step of 32 tokens, launch.train
-# takes 3 at B = 4, T = 32, so that the smoke keeps to its time.
-XLSTM_TRAIN_STEPS = 3
+# PR 32): (c) takes 2 steps and profiles a step of 32 tokens, launch.train
+# takes 1 at B = 4, T = 32, so that the smoke keeps to its time with
+# phase 3m after it (PR 33).
+XLSTM_TRAIN_STEPS = 2
 XLSTM_PROFILED_SEQ = 32
 XLSTM_SERVE_ARGS = ["--arch", XLSTM_ARCH]
-XLSTM_TRAIN_ARGS = ["--arch", XLSTM_ARCH, "--steps", "3", "--batch", "4",
+XLSTM_TRAIN_ARGS = ["--arch", XLSTM_ARCH, "--steps", "1", "--batch", "4",
                     "--seq", "32", "--ckpt-every", "0"]
 XLSTM_PROFILED_PROMPT = 16         # (a)'s busy share: a 16-token prompt
 JAMBA_ARCH = "jamba-v0.1-52b"      # cut to one period: 8 layers, 13.30B
@@ -4120,8 +4151,8 @@ def phase_lm_recurrent(torch, np, card: str, device="cuda") -> dict:
     width, float32 with TF32 off: logits on the card against the CPU
     (rtol/atol 1e-3), prefill 64 + decode 32 against its own forward over
     96 (1e-3); (c) the f32 policy (remat, bfloat16 compute) at full width,
-    3 steps at B = 8, T = 128 (`lm_train_run`): every loss finite, the
-    first step's batch evaluated again after the three below its first
+    2 steps at B = 8, T = 128 (`lm_train_run`): every loss finite, the
+    first step's batch evaluated again after the two below its first
     loss (step ms split, tokens/s, peak memory; the busy share and top
     kernels of a step over 32 tokens); (d)
     the cut's float32 loss, grad norm (rtol 1e-3) and every gradient leaf
@@ -4133,8 +4164,8 @@ def phase_lm_recurrent(torch, np, card: str, device="cuda") -> dict:
     mixers alone at full width in float32, TF32 off: mamba_forward over
     512, output and state, card against CPU (rtol/atol 1e-3), and prefill
     256 + 16 mamba_decode steps against that forward's positions 256-271
-    (1e-3); (f) python -m repro_torch.launch.serve and launch.train (3
-    steps at B = 4, T = 32) for xlstm-125m as subprocesses, exit 0 and
+    (1e-3); (f) python -m repro_torch.launch.serve and launch.train (1
+    step at B = 4, T = 32) for xlstm-125m as subprocesses, exit 0 and
     their last lines; (g) (c)'s
     Telemetry through BlinkQLService (`telemetry_blinkql`)."""
     import copy
@@ -4383,6 +4414,398 @@ def phase_lm_recurrent(torch, np, card: str, device="cuda") -> dict:
         f"held to the CPU, launch.serve and launch.train exit 0, the "
         f"telemetry answered through the fused kernel; "
         f"{out['seconds']:.1f}s")
+    return out
+
+
+# ----------------------------------------------------------------- phase 3m
+
+MUSICGEN_ARCH = "musicgen-large"   # 48 layers, 4 codebooks x 2048, 3.255B
+MUSICGEN_TRAIN_STEPS = 5
+MUSICGEN_SERVE_ARGS = ["--arch", MUSICGEN_ARCH]   # B 4, P 16, 32 new
+VISION_ARCH = "llama-3.2-vision-90b"   # cut to one period: 5 of 100 layers
+VISION_BATCH, VISION_PROMPT, VISION_NEW = 2, 128, 16
+VISION_SERVE_ARGS = ["--arch", VISION_ARCH]
+XATTN_GATE = 0.5   # a nonzero gate: at the init's 0 the layer adds nothing
+
+
+class CodebookStream:
+    """Phase 3m (c)'s batches: K codebook streams of the synthetic corpus,
+    tokens and labels [B, K, T], one SyntheticTokenStream row (numpy from
+    its seed) per (example, codebook), each example's domain that of its
+    first codebook; the loop reads `next_batch` as SyntheticTokenStream's."""
+
+    def __init__(self, data_cfg, k: int):
+        from repro_torch.data.tokens import SyntheticTokenStream
+        self.cfg, self.k = data_cfg, k
+        self.rows = SyntheticTokenStream(dataclasses.replace(
+            data_cfg, global_batch=data_cfg.global_batch * k))
+
+    def next_batch(self) -> dict:
+        b = self.rows.next_batch()
+        shape = (self.cfg.global_batch, self.k, self.cfg.seq_len)
+        return {"tokens": b["tokens"].reshape(shape),
+                "labels": b["labels"].reshape(shape),
+                "domain": b["domain"][::self.k]}
+
+
+def set_gates(torch, model, value: float) -> int:
+    """Every xattn layer's gate set to `value`; returns their count."""
+    n = 0
+    with torch.no_grad():
+        for layer in model.layers:
+            if hasattr(layer, "xattn"):
+                layer.xattn.gate.fill_(value)
+                n += layer.xattn.gate.numel()
+    return n
+
+
+def vision_source(np, cfg, batch: int, seed: int):
+    """The stub vision tower's output: [batch, n_vision_tokens, d_vision]
+    normal draws (float32) from a seed."""
+    return np.random.default_rng(seed).normal(
+        0, 1, (batch, cfg.n_vision_tokens, cfg.d_vision)).astype(np.float32)
+
+
+def phase_lm_xattn_codebooks(torch, np, card: str, device="cuda") -> dict:
+    """The LM substrate's audio codebooks and cross-attention
+    (DecoderLM's [K, V, D] embedding and [K, D, V] head, the xattn layers
+    and vision_proj, through ServeEngine, make_train_step, launch.serve):
+    (a) musicgen-large at full width and depth (48 layers, 4 codebooks of
+    2048, 3.255B parameters from a seeded generator), ServeEngine.generate
+    in bfloat16 at B = 8, P = 128, 64 new, prompts [8, 4, 128], twice,
+    bit-equal, output (8, 4, 192) (prefill ms, decode ms a step, tok/s
+    counting a position's 4 codebook tokens as one, busy share, top
+    kernels, peak memory); (b) its 2-layer cut in float32, TF32 off:
+    logits [B, K, S, V] card against CPU (rtol/atol 1e-3), greedy tokens
+    equal, prefill 64 + decode 32 against its own forward over 96 (1e-3);
+    (c) the lowmem policy at full width, 5 steps at B = 8, T = 128 of
+    [8, 4, 129] codebook streams (`CodebookStream`) through lm_train_run:
+    the losses finite, the first batch's loss lower after the five (step
+    ms, tokens/s counting B·T, busy share, peak memory), and the cut's
+    float32 gradients, card against CPU (`hold_gradients`); (d)
+    llama-3.2-vision-90b cut to one period (5 layers: 4 attention, 1
+    cross-attention, each with its MLP) at full width in bfloat16
+    parameters, its gate at 0.5, generate at B = 2, P = 128, 16 new with
+    a [2, 1601, 1280] vision source, twice, bit-equal (prefill ms, decode
+    ms a step, peak memory); one cross_attention at full width in float32
+    (x [2, 128, 8192], a projected source [2, 1601, 8192], gate 0.5): its
+    output and the gradients of wq, wk, wv, wo and the gate, card against
+    CPU; the period reduced in width, prefill 16 + decode 16 against its
+    forward (1e-3); (e) python -m repro_torch.launch.serve --arch
+    musicgen-large as a subprocess, exit 0 and output (4, 4, 48), and
+    --arch llama-3.2-vision-90b, a non-zero exit with the xattn layers'
+    ValueError (the launcher passes no source, as the reference's); (f)
+    (c)'s Telemetry through BlinkQLService (`telemetry_blinkql`)."""
+    import copy
+    import gc
+    import os
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import DataConfig
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.common import ParamFactory
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.train import optim as optim_lib
+    from repro_torch.train import step as step_lib
+
+    @dataclasses.dataclass(frozen=True)
+    class F32Step(step_lib.StepConfig):
+        @property
+        def compute_dtype(self):
+            return torch.float32
+
+    t_phase = time.perf_counter()
+    out = {}
+    cfg = get_config(MUSICGEN_ARCH)
+
+    # (a) musicgen served at full width and depth
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = model_lib.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    extra = cfg.n_layers * 2 * cfg.d_model + cfg.d_model   # the norms
+    if n_params != cfg.param_count() + extra:
+        raise AssertionError(f"{n_params} parameters, not "
+                             f"{cfg.param_count()} + {extra}")
+    prompts = lm_prompts(np, cfg, LM_BATCH, LM_PROMPT, 3)
+    engine = ServeEngine(cfg, model, ServeConfig(batch=LM_BATCH))
+    run1, a = serve_twice(torch, np, engine, prompts, LM_NEW, cfg.vocab_size,
+                          "(a)")
+    if run1.shape != (LM_BATCH, cfg.n_codebooks, LM_PROMPT + LM_NEW) or \
+            not np.array_equal(run1[..., :LM_PROMPT], prompts):
+        raise AssertionError(f"(a): output {run1.shape}, prompts not kept")
+    dev_ms, wall_ms, top = profiled_ms(
+        torch, lambda: engine.generate(prompts, 8))
+    a.update(params=n_params, output_shape=list(run1.shape),
+             device_ms_8_new=dev_ms, wall_ms_8_new=wall_ms,
+             device_busy_share=dev_ms / wall_ms, top_kernels=top,
+             max_memory_allocated=torch.cuda.max_memory_allocated())
+    out["serve"] = a
+    log(f"  (a) {cfg.name} at full width and depth ({cfg.n_layers} layers, "
+        f"{cfg.n_codebooks} codebooks of {cfg.vocab_size}, {n_params} "
+        f"float32 parameters), ServeEngine.generate, bfloat16 compute, B = "
+        f"{LM_BATCH}, prompts {prompts.shape}, {LM_NEW} new ({card}): first "
+        f"call (2 new) {a['first_call_s']:.3f}s; prefill "
+        f"{a['prefill_ms']:.3f} ms (generate of 1 new, median of 3); "
+        f"generate {a['generate_s']:.3f}s "
+        f"({', '.join(f'{s:.3f}' for s in a['generate_runs_s'])}), decode "
+        f"{a['decode_ms_per_step']:.3f} ms a step, {a['tok_per_s']:.1f} "
+        f"tok/s (a position's {cfg.n_codebooks} codebook tokens counted as "
+        f"one); output {run1.shape}, two runs bit-equal; device busy over "
+        f"an 8-new generate: {busy_text(dev_ms, wall_ms)}; "
+        f"torch.cuda.max_memory_allocated {a['max_memory_allocated']}; "
+        f"{time.perf_counter() - t0:.2f}s")
+    log("  (a) kernels of most device time over the 8-new generate: " +
+        "; ".join(f"{name[:60]} {ms:.3f} ms x{n}" for name, ms, n in top))
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) a 2-layer cut at full width: logits and tokens, card against CPU
+    t0 = time.perf_counter()
+    cut = dataclasses.replace(cfg, n_layers=LM_CUT_LAYERS)
+    cut_cpu = model_lib.init_params(cut, torch.Generator().manual_seed(1))
+    cut_card = copy.deepcopy(cut_cpu).to(device)
+    ctoks = torch.from_numpy(lm_prompts(np, cut, 2, 32, 2))
+    with no_tf32(torch), torch.no_grad():
+        want, _, _ = model_lib.forward(cut_cpu, cut, ctoks,
+                                       compute_dtype=torch.float32)
+        got, _, _ = model_lib.forward(cut_card, cut, ctoks.to(device),
+                                      compute_dtype=torch.float32)
+        if got.shape != (2, cut.n_codebooks, 32, cut.vocab_size):
+            raise AssertionError(f"(b): logits {tuple(got.shape)}")
+        out["card_vs_cpu"] = {"logits_ratio": hold_close(
+            torch, f"(b) {LM_CUT_LAYERS}-layer cut, float32 logits [B, K, S, "
+            f"V], card against CPU", got, want, 1e-3, 1e-3)}
+        cut_prompts = ctoks[..., :16].numpy()
+        tok_cpu = ServeEngine(cut, cut_cpu, ServeConfig(), F32Step()
+                              ).generate(cut_prompts, 8)
+        tok_card = ServeEngine(cut, cut_card, ServeConfig(), F32Step()
+                               ).generate(cut_prompts, 8)
+    if not np.array_equal(tok_card, tok_cpu):
+        raise AssertionError(f"(b): greedy tokens differ\n{tok_card}\n"
+                             f"{tok_cpu}")
+    ptoks = torch.from_numpy(lm_prompts(np, cut, 2, 96, 4)).to(device)
+    with no_tf32(torch), torch.no_grad():
+        full, _, _ = model_lib.forward(cut_card, cut, ptoks, "train",
+                                       compute_dtype=torch.float32)
+        caches = model_lib.init_cache(cut, 2, 96, dtype=torch.float32,
+                                      device=device)
+        logits, caches = model_lib.prefill(cut_card, cut, ptoks[..., :64],
+                                           caches,
+                                           compute_dtype=torch.float32)
+        steps = [logits]
+        for t in range(64, 96):
+            lg, caches, _ = model_lib.forward(cut_card, cut,
+                                              ptoks[..., t:t + 1], "decode",
+                                              caches, t, torch.float32)
+            steps.append(lg)
+    out["card_vs_cpu"]["own_forward_ratio"] = hold_close(
+        torch, "(b) prefill 64 + decode 32 against the forward over 96",
+        torch.cat(steps, dim=2), full, 1e-3, 1e-3)
+    log(f"  (b) greedy tokens {tok_card.shape} equal on card and CPU; "
+        f"{time.perf_counter() - t0:.2f}s")
+    del full, steps, caches, want, got
+
+    # (c) the cut under the f32 policy: one step's gradients, card vs CPU
+    t0 = time.perf_counter()
+    batch = lm_batch(torch, CodebookStream(
+        DataConfig(cut.vocab_size, 32, 2, seed=2), cut.n_codebooks))
+    with no_tf32(torch):
+        want = loss_and_grads(torch, cut_cpu, cut, batch, optim_lib,
+                              model_lib)
+        got = loss_and_grads(torch, cut_card, cut, batch, optim_lib,
+                             model_lib)
+    ratios = [hold_close(torch, f"(c) {name}, card against CPU", g, w, 1e-3,
+                         1e-3)
+              for name, g, w in (("loss", got[0], want[0]),
+                                 ("grad norm", got[1], want[1]))]
+    held = hold_gradients(torch, "(c)", got[2], want[2])
+    out["gradients"] = {"loss": want[0].item(), "ratios": ratios, **held}
+    log(f"  (c) {len(got[2])} gradient leaves (the [K, V, D] embed and "
+        f"[K, D, V] head among them) within rtol 1e-3 / atol 1e-5 (exempt, "
+        f"|g| <= 1e-4 of the leaf's largest, within 1e-3 of it: "
+        f"{held['exempt']}), worst ratio {held['worst_ratio']:.3f} "
+        f"({held['worst_leaf']}); {time.perf_counter() - t0:.2f}s")
+    del cut_cpu, cut_card, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the lowmem policy at full width and depth, codebook batches
+    t0 = time.perf_counter()
+    c, telemetry = lm_train_run(
+        torch, step_lib.StepConfig(policy="lowmem"), MUSICGEN_TRAIN_STEPS,
+        device, cfg, make_stream=lambda cfg: CodebookStream(
+            DataConfig(cfg.vocab_size, LM_TRAIN_SEQ, LM_TRAIN_BATCH, seed=0),
+            cfg.n_codebooks))
+    out["lowmem"] = c
+    losses = c["losses"]
+    if len(losses) != MUSICGEN_TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"(c): losses {losses}")
+    if not c["first_batch_after"] < losses[0]:
+        raise AssertionError(f"(c): the first batch's loss did not fall: "
+                             f"{losses[0]} -> {c['first_batch_after']}")
+    log(f"  (c) {cfg.name} at full width and depth, lowmem (bfloat16 "
+        f"parameters, int8 moments), remat, bfloat16 compute, B = "
+        f"{LM_TRAIN_BATCH}, T = {LM_TRAIN_SEQ}, tokens [{LM_TRAIN_BATCH}, "
+        f"{cfg.n_codebooks}, {LM_TRAIN_SEQ + 1}] a step: losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)} (finite; each step its "
+        f"own batch); the first batch again after {MUSICGEN_TRAIN_STEPS} "
+        f"steps {c['first_batch_after']:.4f}, below its {losses[0]:.4f}")
+    log(f"  (c) step {c['median_step_ms']:.3f} ms (median of steps 2-"
+        f"{MUSICGEN_TRAIN_STEPS}; first {c['step_ms'][0]:.3f}): "
+        f"forward+backward {c['median_fwd_bwd_ms']:.3f} ms, optimizer "
+        f"{c['median_optimizer_ms']:.3f} ms; {c['tokens_per_s']:.1f} "
+        f"tokens/s (B·T a step; the {cfg.n_codebooks} codebook tokens of a "
+        f"position counted as one); device busy: a profiled step's device "
+        f"time over the median step "
+        f"{busy_text(c['device_ms_one_step'], c['median_step_ms'])}; "
+        f"torch.cuda.max_memory_allocated {c['max_memory_allocated']} "
+        f"({card}); {time.perf_counter() - t0:.2f}s")
+    log("  (c) the profiled step's kernels of most device time: " + "; ".join(
+        f"{name[:60]} {ms:.3f} ms x{n}" for name, ms, n in c["top_kernels"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the vision period at full width, bfloat16 parameters
+    t0 = time.perf_counter()
+    vcfg = dataclasses.replace(get_config(VISION_ARCH),
+                               n_layers=len(get_config(VISION_ARCH).pattern))
+    torch.cuda.reset_peak_memory_stats()
+    vlm = model_lib.init_params(
+        vcfg, torch.Generator(device=device).manual_seed(0), torch.bfloat16)
+    gates = set_gates(torch, vlm, XATTN_GATE)
+    n_vlm = sum(p.numel() for p in vlm.parameters())
+    vprompts = lm_prompts(np, vcfg, VISION_BATCH, VISION_PROMPT, 5)
+    vision = vision_source(np, vcfg, VISION_BATCH, 6)
+    engine = ServeEngine(vcfg, vlm, ServeConfig(batch=VISION_BATCH))
+    _, e = serve_twice(torch, np, engine, vprompts, VISION_NEW,
+                       vcfg.vocab_size, "(d)", vision)
+    e.update(params=n_vlm, param_count=vcfg.param_count(),
+             max_memory_allocated=torch.cuda.max_memory_allocated())
+    out["vision"] = e
+    log(f"  (d) {vcfg.name} cut to {vcfg.n_layers} layers (one period: "
+        f"{sum(s.mixer == 'attn' for s in vcfg.pattern)} attention, "
+        f"{sum(s.mixer == 'xattn' for s in vcfg.pattern)} cross-attention, "
+        f"each with its MLP) at full width, {n_vlm} bfloat16 parameters "
+        f"(param_count {vcfg.param_count()}: it counts xattn's wk/wv at "
+        f"d_vision), {gates} gate(s) at {XATTN_GATE}, "
+        f"ServeEngine.generate, B = {VISION_BATCH}, P = {VISION_PROMPT}, "
+        f"vision {vision.shape}, {VISION_NEW} new ({card}): first call "
+        f"{e['first_call_s']:.3f}s; prefill {e['prefill_ms']:.3f} ms; "
+        f"decode {e['decode_ms_per_step']:.3f} ms a step, "
+        f"{e['tok_per_s']:.1f} tok/s; two runs bit-equal; "
+        f"torch.cuda.max_memory_allocated {e['max_memory_allocated']}; "
+        f"{time.perf_counter() - t0:.2f}s")
+    del engine, vlm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    dims = model_lib.attn_dims(vcfg)
+    layer = attn_lib.CrossAttention(
+        ParamFactory(torch.Generator().manual_seed(5)), dims, vcfg.d_model)
+    with torch.no_grad():
+        layer.gate.fill_(XATTN_GATE)
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(0, 1, (VISION_BATCH, VISION_PROMPT,
+                                           vcfg.d_model)).astype(np.float32))
+    src = torch.from_numpy(rng.normal(0, 1, (
+        VISION_BATCH, vcfg.n_vision_tokens, vcfg.d_model)).astype(np.float32))
+    cot = torch.from_numpy(rng.normal(0, 1, tuple(x.shape)).astype(
+        np.float32))
+
+    def xattn_grads(dev):
+        p = {k: v.detach().to(dev).requires_grad_()
+             for k, v in layer.named_parameters()}
+        y = attn_lib.cross_attention(p, x.to(dev), src.to(dev), dims)
+        grads = torch.autograd.grad((y * cot.to(dev)).sum(), list(p.values()))
+        return y.detach(), list(zip(p, grads))
+    want_y, want_g = xattn_grads("cpu")
+    with no_tf32(torch):
+        got_y, got_g = xattn_grads(device)
+    held = hold_gradients(torch, "(d) full-width cross_attention", got_g,
+                          want_g)
+    out["xattn"] = {
+        "output_ratio": hold_close(
+            torch, f"(d) cross_attention at full width (d {vcfg.d_model}, "
+            f"{vcfg.n_heads} heads, {vcfg.n_kv_heads} KV heads, dh "
+            f"{vcfg.head_dim}), x {tuple(x.shape)}, source "
+            f"{tuple(src.shape)}, gate {XATTN_GATE}, float32, card against "
+            f"CPU", got_y, want_y, 1e-3, 1e-3), **held}
+    log(f"  (d) its gradients ({', '.join(n for n, _ in got_g)}) within "
+        f"rtol 1e-3 / atol 1e-5 (exempt: {held['exempt']}), worst ratio "
+        f"{held['worst_ratio']:.3f} ({held['worst_leaf']}); "
+        f"{time.perf_counter() - t0:.2f}s")
+    del layer, want_g, got_g
+    small = dataclasses.replace(get_config(VISION_ARCH).reduced(),
+                                n_layers=len(vcfg.pattern))
+    sm = model_lib.init_params(small, torch.Generator().manual_seed(8)
+                               ).to(device)
+    set_gates(torch, sm, XATTN_GATE)
+    stoks = torch.from_numpy(lm_prompts(np, small, 2, 32, 9)).to(device)
+    svis = torch.from_numpy(vision_source(np, small, 2, 10)).to(device)
+    with no_tf32(torch), torch.no_grad():
+        full, _, _ = model_lib.forward(sm, small, stoks, "train",
+                                       compute_dtype=torch.float32,
+                                       vision=svis)
+        caches = model_lib.init_cache(small, 2, 32, dtype=torch.float32,
+                                      device=device)
+        logits, caches = model_lib.prefill(sm, small, stoks[:, :16], caches,
+                                           compute_dtype=torch.float32,
+                                           vision=svis)
+        steps = [logits]
+        for t in range(16, 32):
+            lg, caches, _ = model_lib.forward(sm, small, stoks[:, t:t + 1],
+                                              "decode", caches, t,
+                                              torch.float32, vision=svis)
+            steps.append(lg)
+    out["xattn"]["own_forward_ratio"] = hold_close(
+        torch, f"(d) {small.name} ({small.n_layers} layers, d "
+        f"{small.d_model}), prefill 16 + decode 16 against its forward over "
+        f"32", torch.cat(steps, dim=1), full, 1e-3, 1e-3)
+    del sm, full, steps, caches
+
+    # (f) (c)'s telemetry through BlinkQL, every fused launch held to plain
+    out["telemetry"] = telemetry_blinkql(torch, np, telemetry,
+                                         MUSICGEN_TRAIN_STEPS, device,
+                                         "(f) musicgen")
+
+    # (e) the entry point as a user runs it, for both archs
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out["launch_lines"] = []
+    for args, ok in ((MUSICGEN_SERVE_ARGS, True), (VISION_SERVE_ARGS, False)):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m",
+                               "repro_torch.launch.serve", *args], env=env,
+                              capture_output=True, text=True, timeout=600)
+        line = [x for x in proc.stdout.splitlines() if x.startswith("[serve]")]
+        if ok and (proc.returncode != 0 or not line
+                   or "output (4, 4, 48)" not in line[-1]):
+            raise AssertionError(f"(e): launch.serve {' '.join(args)} exited "
+                                 f"{proc.returncode}\n{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-4000:]}")
+        if not ok and (proc.returncode == 0 or line or
+                       "ValueError" not in proc.stderr
+                       or "vision source" not in proc.stderr):
+            raise AssertionError(f"(e): launch.serve {' '.join(args)} did not "
+                                 f"refuse with the ValueError (exit "
+                                 f"{proc.returncode})\n{proc.stderr[-4000:]}")
+        said = line[-1] if ok else proc.stderr.strip().splitlines()[-1]
+        out["launch_lines"].append(said)
+        log(f"  (e) python -m repro_torch.launch.serve {' '.join(args)}: "
+            f"exit {proc.returncode}, {said} ({time.perf_counter() - t0:.2f}s "
+            f"with start-up)")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 3m ok: {cfg.name} at full width served (bit-equal runs) and "
+        f"trained (lowmem), a cut's logits, tokens and gradients held to the "
+        f"CPU, {vcfg.name}'s period served at full width and its "
+        f"cross-attention held to the CPU, launch.serve exit 0 and the "
+        f"vision arch's refusal, the telemetry answered through the fused "
+        f"kernel; {out['seconds']:.1f}s")
     return out
 
 
@@ -4796,7 +5219,7 @@ def phase_times_subsampled(torch, sub_db, card: str) -> dict:
 
 def kernels_record(worst, record, main, batch, ops_path, times, sample,
                    l2_times, subj, sub_times, mut, serving, mesh, lm_train,
-                   lm_moe, lm_rec, card: str) -> list[dict]:
+                   lm_moe, lm_rec, lm_xc, card: str) -> list[dict]:
     """The kernels' JSON record: one entry per kernel, its launches on its
     path, its worst disagreement with its plain version over every phase,
     and its times at the main path's shapes; the fused and quantile
@@ -4825,9 +5248,9 @@ def kernels_record(worst, record, main, batch, ops_path, times, sample,
             if checked:  # phase 3e's and 3f's launches, each against plain
                 errs.append((max(w[0] for w in checked.values()),
                              max(w[1] for w in checked.values())))
-        for run in (lm_train, lm_moe, lm_rec):
+        for run in (lm_train, lm_moe, lm_rec, lm_xc):
             telemetry = run["telemetry"]["worst"].get(kname, {})
-            if telemetry:  # phases 3j (f), 3k (f), 3l (g), against plain
+            if telemetry:  # phases 3j (f), 3k (f), 3l (g), 3m (f): plain
                 errs.append((max(w[0] for w in telemetry.values()),
                              max(w[1] for w in telemetry.values())))
         if kname in MESH_KERNELS:  # phase 3h's ranks, each against plain
@@ -4941,7 +5364,14 @@ def kernels_record(worst, record, main, batch, ops_path, times, sample,
                 xlstm_telemetry_path=("BlinkQLService.submit over the xLSTM "
                                       "trainer's Telemetry of phase 3l (c), "
                                       "each launch held to its plain version "
-                                      "(phase 3l (g))"))
+                                      "(phase 3l (g))"),
+                musicgen_telemetry_launches=lm_xc["telemetry"]["launches"][
+                    kname],
+                musicgen_telemetry_times=lm_xc["telemetry"]["times"],
+                musicgen_telemetry_path=("BlinkQLService.submit over the "
+                                         "musicgen trainer's Telemetry of "
+                                         "phase 3m (c), each launch held to "
+                                         "its plain version (phase 3m (f))"))
             entry["mutation_compaction"] = {
                 str(phi): sides for phi, sides in mut["compaction"].items()}
         if kname == "agg_scan_batched":
@@ -5046,19 +5476,27 @@ def main() -> int:
         "telemetry through BlinkQLService")
     lm_rec = phase_lm_recurrent(torch, np, card)
 
+    log("phase 3m: the LM substrate's audio codebooks and cross-attention, "
+        "musicgen-large at full width and llama-3.2-vision-90b's period at "
+        "full width: the codebook embedding and heads, the xattn layers and "
+        "vision_proj through DecoderLM, ServeEngine, make_train_step "
+        "(lowmem), launch.serve; its telemetry through BlinkQLService")
+    lm_xc = phase_lm_xattn_codebooks(torch, np, card)
+
     log(f"phase 4: times at the main path's shapes ({card})")
     times = phase_times(torch, main["db"], card)
     l2_times = phase_times_l2(torch, sample["db"], card)
     sub_times = phase_times_subsampled(torch, subj["sub_db"], card)
     kernels = kernels_record(worst, record, main, batch, ops_path, times,
                              sample, l2_times, subj, sub_times, mut, serving,
-                             mesh, lm_train, lm_moe, lm_rec, card)
+                             mesh, lm_train, lm_moe, lm_rec, lm_xc, card)
     log(f"smoke total {time.perf_counter() - t_start:.1f}s (phase 3d "
         f"{sample['seconds']:.1f}s, phase 3e {subj['seconds']:.1f}s, phase "
         f"3f {mut['seconds']:.1f}s, phase 3g {serving['seconds']:.1f}s, "
         f"phase 3h {mesh['seconds']:.1f}s, phase 3i {lm['seconds']:.1f}s, "
         f"phase 3j {lm_train['seconds']:.1f}s, phase 3k "
-        f"{lm_moe['seconds']:.1f}s, phase 3l {lm_rec['seconds']:.1f}s)")
+        f"{lm_moe['seconds']:.1f}s, phase 3l {lm_rec['seconds']:.1f}s, "
+        f"phase 3m {lm_xc['seconds']:.1f}s)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

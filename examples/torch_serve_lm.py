@@ -1,7 +1,8 @@
 """Batched serving example on the port: prefill + greedy decode with KV
-and recurrent-state caches across three architecture families (attention,
-SSM, hybrid), each reduced (counterpart of examples/serve_lm.py). Runs on
-the card unless --device cpu.
+and recurrent-state caches across four architecture families (attention,
+SSM, hybrid, audio: musicgen-large is prompted with [B, K, P] codebook
+tokens, as examples/serve_lm.py shapes them), each reduced (counterpart of
+examples/serve_lm.py). Runs on the card unless --device cpu.
 
     PYTHONPATH=src python examples/torch_serve_lm.py [--device cpu]
 """
@@ -16,7 +17,8 @@ from repro_torch.core.engine import resolve_device
 from repro_torch.models import model as model_lib
 from repro_torch.serve.engine import ServeConfig, ServeEngine, throughput_probe
 
-ARCHS = ("qwen2-1.5b", "codeqwen1.5-7b", "xlstm-125m", "jamba-v0.1-52b")
+ARCHS = ("qwen2-1.5b", "codeqwen1.5-7b", "xlstm-125m", "jamba-v0.1-52b",
+         "musicgen-large")
 
 
 def main(argv=None) -> None:
@@ -31,7 +33,8 @@ def main(argv=None) -> None:
         params = model_lib.init_params(
             cfg, torch.Generator(device=device).manual_seed(1))
         engine = ServeEngine(cfg, params, ServeConfig(batch=4))
-        prompts = rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int32)
+        shape = (4, cfg.n_codebooks, 16) if cfg.n_codebooks else (4, 16)
+        prompts = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
         stats = throughput_probe(engine, prompts, n_new=24)
         print(f"{arch:18s} ({cfg.family:6s}): {stats['tok_per_s']:8.1f} tok/s"
               f"  out={stats['output_shape']}  on {device.type}")

@@ -8,6 +8,12 @@ unless --device cpu (counterpart of `repro.launch.serve`).
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch granite-moe-3b-a800m
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-large
+
+An audio arch (musicgen-large) is prompted with [B, K, P] codebook tokens.
+A vision arch (llama-3.2-vision-90b) exits with the ValueError of its
+cross-attention layers: the launcher, like the reference's, passes no
+vision source (it raises before building the weights).
 
 --ckpt-dir restores {"params": ...} from a checkpoint of either package's
 CheckpointManager (the same layout).
@@ -48,6 +54,7 @@ def main(argv: list[str] | None = None) -> None:
                               k_chunk=min(cfg.k_chunk, args.prompt_len),
                               mamba_chunk=min(cfg.mamba_chunk, args.prompt_len))
 
+    model_lib.require_source(cfg, None)
     device = resolve_device(args.device)
     params = model_lib.init_params(
         cfg, torch.Generator(device=device).manual_seed(args.seed))
@@ -60,8 +67,9 @@ def main(argv: list[str] | None = None) -> None:
 
     engine = ServeEngine(cfg, params, ServeConfig(batch=args.batch))
     rng = np.random.default_rng(args.seed)
-    prompts = rng.integers(0, cfg.vocab_size,
-                           (args.batch, args.prompt_len)).astype(np.int32)
+    shape = ((args.batch, cfg.n_codebooks, args.prompt_len)
+             if cfg.n_codebooks else (args.batch, args.prompt_len))
+    prompts = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
     stats = throughput_probe(engine, prompts, args.new_tokens)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")

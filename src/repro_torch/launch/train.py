@@ -11,6 +11,10 @@ unless --device cpu (counterpart of `repro.launch.train`).
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
         --steps 3 --device cpu
 
+The synthetic corpus holds [B, S] token streams, as the reference's
+launcher trains on, so an audio (codebook) or vision arch is refused: its
+batches would need codebook streams or a vision source.
+
 --ckpt-dir holds {"params", "opt", "data"} in the layout of either
 package's CheckpointManager; a run resumes from its latest checkpoint. The
 mesh flags (--production-mesh) come with the LM mesh slice (ROADMAP.md).
@@ -52,6 +56,11 @@ def main(argv: list[str] | None = None) -> None:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
+    if cfg.n_codebooks or cfg.n_vision_tokens:
+        needs = ("codebook streams [B, K, S]" if cfg.n_codebooks
+                 else "a vision source")
+        ap.error(f"--arch {args.arch}: its batches need {needs}; the "
+                 f"synthetic corpus has [B, S] token streams only")
     if args.reduced:
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, q_chunk=min(cfg.q_chunk, args.seq),

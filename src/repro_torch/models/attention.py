@@ -1,7 +1,8 @@
 """GQA self-attention (counterpart of `repro.models.attention`): chunked
 causal attention with an online softmax for train and prefill, and the
-cache-based one-token path for decode. Cross-attention waits for the VLM
-slice (ROADMAP.md).
+cache-based one-token path for decode; and the tanh-gated cross-attention
+to a vision source (no cache: K and V are recomputed from the source in
+every mode, as the reference does).
 
 The dtype flow follows the reference step by step: scores in the compute
 dtype, scaled there and masked with NEG_INF; the running max and sum in
@@ -184,3 +185,43 @@ def attention_decode(p, x, dims: AttnDims, cache: KVCache, pos: int):
     out = einsum("bkgs,bksd->bkgd", w, vv)
     out = out.reshape(b, 1, dims.n_heads, dims.d_head).to(x.dtype)
     return einsum("bshk,hkd->bsd", out, p["wo"]), cache
+
+
+# --------------------------------------------------------------- cross-attn
+
+class CrossAttention(nn.Module):
+    """wq [d, h, dh], wk/wv [d_source, kv, dh], wo [h, dh, d] (scale
+    1/√(h·dh)) and the tanh gate, a zero scalar; each stacked over
+    `repeats` layers."""
+
+    def __init__(self, pf: ParamFactory, dims: AttnDims, d_source: int,
+                 repeats: int | None = None):
+        super().__init__()
+        d, h, kv, dh = dims.d_model, dims.n_heads, dims.n_kv, dims.d_head
+        self.wq = pf.dense((d, h, dh), repeats)
+        self.wk = pf.dense((d_source, kv, dh), repeats)
+        self.wv = pf.dense((d_source, kv, dh), repeats)
+        self.wo = pf.dense((h, dh, d), repeats, scale=1.0 / (h * dh) ** 0.5)
+        self.gate = pf.zeros((), repeats)
+
+
+def cross_attention(p, x, source, dims: AttnDims):
+    """x [B,S,D] attends to source [B,T,Ds] (no causal mask, no RoPE): q
+    from x, k and v from the source in x's dtype, scores and softmax in
+    float32, the output back in x's dtype through wo, scaled by
+    tanh(gate) (the gate in x's dtype)."""
+    b, s, _ = x.shape
+    kvh = dims.n_kv
+    g = dims.n_heads // kvh
+    src = source.to(x.dtype)
+    q = einsum("bsd,dhk->bhsk", x, p["wq"])
+    k = einsum("btd,dhk->bhtk", src, p["wk"])
+    v = einsum("btd,dhk->bhtk", src, p["wv"])
+    qg = q.reshape(b, kvh, g, s, dims.d_head)
+    s_ = einsum("bkgsd,bktd->bkgst", qg.float(),
+                k.float()) * dims.d_head ** -0.5
+    w = torch.softmax(s_, dim=-1)
+    out = einsum("bkgst,bktd->bkgsd", w, v.float())
+    out = out.reshape(b, dims.n_heads, s, dims.d_head).to(x.dtype)
+    y = einsum("bhsk,hkd->bsd", out, p["wo"])
+    return torch.tanh(p["gate"].to(x.dtype)) * y

@@ -1,14 +1,17 @@
 """The decoder LM over a repeating layer pattern (counterpart of
-`repro.models.model`). A layer's mixer is GQA self-attention, Mamba
-(`models/mamba.py`), mLSTM or sLSTM (`models/xlstm.py`); its channel the
-SwiGLU MLP, the routed MoE (`models/moe.py`) or none. Cross-attention and
-the audio codebooks raise NotImplementedError (`check_supported`).
+`repro.models.model`). A layer's mixer is GQA self-attention, tanh-gated
+cross-attention to a vision source (`xattn`), Mamba (`models/mamba.py`),
+mLSTM or sLSTM (`models/xlstm.py`); its channel the SwiGLU MLP, the routed
+MoE (`models/moe.py`) or none. An audio model (`n_codebooks` K) reads
+tokens [B, K, S], sums the K codebooks' embeddings and gives logits
+[B, K, S, V].
 
 `DecoderLM` is an `nn.Module` whose parameters map one to one onto the
-reference's tree: `embed`, `final_norm`, `lm_head` (untied heads) and
-`layers.<pattern pos>.<name>`, each layer weight stacked over the repeats
-with a leading [R] axis. Where the reference `lax.scan`s the stack, the
-port loops over R in Python. Modes:
+reference's tree: `embed` ([V, D], or [K, V, D]), `final_norm`, `lm_head`
+(untied heads; [D, V] or [K, D, V]), `vision_proj` [d_vision, D] (a vision
+model) and `layers.<pattern pos>.<name>`, each layer weight stacked over
+the repeats with a leading [R] axis. Where the reference `lax.scan`s the
+stack, the port loops over R in Python. Modes:
   * train   — full-sequence forward, CE loss (+ MoE aux, `loss_fn`), no
               caches; the weights cast inside the graph (autograd follows
               whenever grad is enabled), `remat` checkpoints one repeat of
@@ -19,13 +22,17 @@ port loops over R in Python. Modes:
 Caches are per-pattern-position NamedTuples with a leading [R] axis: a
 `KVCache` for attention (in the cache dtype), a `MambaState`,
 `MLSTMState` or `SLSTMState` for the recurrent mixers (float32 whatever the
-cache dtype). They are written in place: attention writes its positions,
-a recurrent mixer's new state is copied over its row. The functional
+cache dtype), `()` for cross-attention (its source is given to every call
+and projected anew, as the reference does). They are written in place:
+attention writes its positions, a recurrent mixer's new state is copied
+over its row. The functional
 entry points of the reference (`init_params`, `init_cache`, `forward`,
 `loss_fn`, `prefill`, `decode_step`, ...) are thin functions over the
 module.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
@@ -42,7 +49,8 @@ from repro_torch.models.common import (ParamFactory, cross_entropy, einsum,
                                        rms_norm)
 
 MODES = ("train", "prefill", "decode")
-MIXERS = ("attn", "mamba", "mlstm", "slstm")
+MIXERS = ("attn", "xattn", "mamba", "mlstm", "slstm")
+CHANNELS = ("mlp", "moe", "none")
 # Each mixer's leaves that it reads at their stored dtype (the reference
 # casts them to float32 from its master, or adds them uncast), not cast to
 # the compute dtype; norms are read so everywhere.
@@ -74,24 +82,6 @@ def xlstm_dims(cfg: ModelConfig) -> xlstm_lib.XLSTMDims:
                                cfg.xlstm_proj_factor)
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for what the cross-attention and audio
-    codebooks slice brings (ROADMAP.md queue 1, the LM substrate's item
-    2.3): the `xattn` mixer, `n_codebooks` and `n_vision_tokens`."""
-    refused = [f"mixer {spec.mixer!r}" for spec in cfg.pattern
-               if spec.mixer not in MIXERS]
-    refused += [f"channel {spec.channel!r}" for spec in cfg.pattern
-                if spec.channel not in ("mlp", "moe", "none")]
-    refused += [f"{field}={getattr(cfg, field)}"
-                for field in ("n_codebooks", "n_vision_tokens")
-                if getattr(cfg, field)]
-    if refused:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(dict.fromkeys(refused))} not ported "
-            f"yet; it comes with the cross-attention and audio codebooks "
-            f"slice")
-
-
 # ------------------------------------------------------------ the module
 
 class Layer(nn.Module):
@@ -100,9 +90,17 @@ class Layer(nn.Module):
     def __init__(self, pf: ParamFactory, spec: LayerSpec, cfg: ModelConfig):
         super().__init__()
         r = cfg.n_repeats
+        if spec.mixer not in MIXERS:
+            raise ValueError(spec.mixer)
+        if spec.channel not in CHANNELS:
+            raise ValueError(spec.channel)
         self.norm1 = pf.ones((cfg.d_model,), r)
         if spec.mixer == "attn":
             self.attn = attn_lib.Attention(pf, attn_dims(cfg), r)
+        elif spec.mixer == "xattn":
+            # the source reaches the layer projected to d_model
+            self.xattn = attn_lib.CrossAttention(pf, attn_dims(cfg),
+                                                 cfg.d_model, r)
         elif spec.mixer == "mamba":
             self.mamba = mamba_lib.Mamba(pf, mamba_dims(cfg), r)
         elif spec.mixer == "mlstm":
@@ -147,12 +145,19 @@ class DecoderLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, pf: ParamFactory):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
-        self.embed = pf.embedding(cfg.vocab_size, cfg.d_model)
+        if cfg.n_codebooks:
+            k = cfg.n_codebooks
+            self.embed = pf.dense((k, cfg.vocab_size, cfg.d_model), scale=0.02)
+            head = (k, cfg.d_model, cfg.vocab_size)   # fan-in K, as the ref's
+        else:
+            self.embed = pf.embedding(cfg.vocab_size, cfg.d_model)
+            head = (cfg.d_model, cfg.vocab_size)
         self.final_norm = pf.ones((cfg.d_model,))
         if not cfg.tie_embeddings:
-            self.lm_head = pf.dense((cfg.d_model, cfg.vocab_size))
+            self.lm_head = pf.dense(head)
+        if cfg.n_vision_tokens:
+            self.vision_proj = pf.dense((cfg.d_vision, cfg.d_model))
         self.layers = nn.ModuleList(Layer(pf, spec, cfg)
                                     for spec in cfg.pattern)
         self._compute = None   # (key, weights in a compute dtype)
@@ -185,28 +190,41 @@ class DecoderLM(nn.Module):
         key = (dtype, tuple((p.data_ptr(), p._version) for p in params))
         if self._compute is None or self._compute[0] != key:
             self._compute = None   # free the old copy before casting anew
-            head = self.embed if self.cfg.tie_embeddings else self.lm_head
             stacks = [_unbind_tree(layer) for layer in self.layers]
             weights = {
-                "embed": self.embed.to(dtype),
-                "head": head.to(dtype),
+                # the codebooks' rows are summed as stored, then cast
+                "embed": (self.embed if self.cfg.n_codebooks
+                          else self.embed.to(dtype)),
+                "head": self.head_weight(dtype),
                 "layers": [[_layer_weights(stack, r, dtype)
                             for stack in stacks]
                            for r in range(self.cfg.n_repeats)]}
+            if self.cfg.n_vision_tokens:
+                weights["vision_proj"] = self.vision_proj.to(dtype)
             self._compute = (key, weights)
         return self._compute[1]
+
+    def head_weight(self, dtype: torch.dtype) -> torch.Tensor:
+        """The head as `output_logits` reads it: in `dtype`, except a tied
+        codebook head, read as stored (the reference's einsum promotes)."""
+        if not self.cfg.tie_embeddings:
+            return self.lm_head.to(dtype)
+        return self.embed if self.cfg.n_codebooks else self.embed.to(dtype)
 
     def forward(self, tokens: torch.Tensor, mode: str = "train",
                 caches=None, pos: int | None = None,
                 compute_dtype: torch.dtype = torch.bfloat16,
-                remat: bool = True):
-        """tokens int [B,S]. Returns (logits, caches, aux); the caches are
-        written in place. aux is the MoE auxiliary loss of each repeat's
-        last pattern position, summed over the repeats (a float32 scalar; 0
-        where that position has no MoE channel): the reference's scan body
-        adds the aux of its last layer only, so a pattern with MoE layers
-        elsewhere (jamba's) counts one of them a repeat, and the port does
-        the same. Train mode casts the
+                remat: bool = True, vision: torch.Tensor | None = None):
+        """tokens int [B,S] ([B,K,S] with K codebooks). Returns (logits
+        [B,S,V] or [B,K,S,V], caches, aux); the caches are written in
+        place. `vision` [B,T,d_vision] is projected to d_model once, in the
+        compute dtype, and read by every xattn layer; a model with xattn
+        layers raises a ValueError without it. aux is the MoE auxiliary
+        loss of each repeat's last pattern position, summed over the
+        repeats (a float32 scalar; 0 where that position has no MoE
+        channel): the reference's scan body adds the aux of its last layer
+        only, so a pattern with MoE layers elsewhere (jamba's) counts one
+        of them a repeat, and the port does the same. Train mode casts the
         weights inside the graph (`remat` checkpoints each repeat of the
         pattern); prefill and decode run under torch.no_grad from the cast
         cache."""
@@ -215,22 +233,28 @@ class DecoderLM(nn.Module):
         if (caches is None) != (mode == "train"):
             raise ValueError("mode 'train' takes no caches; prefill and "
                              "decode need them")
+        require_source(self.cfg, vision)
         if mode == "train":
-            return self._train_forward(tokens, compute_dtype, remat)
+            return self._train_forward(tokens, compute_dtype, remat, vision)
         with torch.no_grad():
             return self._serve_forward(tokens, mode, caches, pos,
-                                       compute_dtype)
+                                       compute_dtype, vision)
 
-    def _serve_forward(self, tokens, mode, caches, pos, compute_dtype):
+    def _serve_forward(self, tokens, mode, caches, pos, compute_dtype,
+                       vision):
         cfg = self.cfg
         w = self.compute_weights(compute_dtype)
-        x = embed_tokens(w, cfg, tokens)
+        x = embed_tokens(w, cfg, tokens).to(compute_dtype)
+        if vision is not None and cfg.n_vision_tokens:
+            vision = einsum("btd,de->bte", vision.to(compute_dtype),
+                            w["vision_proj"])
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for r, layer_ws in enumerate(w["layers"]):
             for i, spec in enumerate(cfg.pattern):
+                # a cache's leaves at repeat r; () for a cross-attention
                 cache = type(caches[i])(*(leaf[r] for leaf in caches[i]))
                 x, new, a = apply_layer(spec, layer_ws[i], x, cfg, mode,
-                                        cache, pos)
+                                        cache, pos, vision)
                 for row, leaf in zip(cache, new):
                     if leaf is not row:   # a recurrent mixer's new state
                         row.copy_(leaf)
@@ -239,21 +263,25 @@ class DecoderLM(nn.Module):
         logits = output_logits(w, cfg, x)
         return logits, caches, aux
 
-    def _train_forward(self, tokens, compute_dtype, remat):
+    def _train_forward(self, tokens, compute_dtype, remat, vision):
         """The reference's train forward under autograd: the embedding
         gathered from the stored table, then cast (its gradient then sums
         in the parameter's dtype); each layer's weights cast inside the
         graph, as `w.astype(x.dtype)`; one checkpoint per repeat, as
         `jax.checkpoint` over the scan body."""
         cfg = self.cfg
-        x = self.embed[tokens].to(compute_dtype)
+        x = embed_tokens({"embed": self.embed}, cfg, tokens).to(compute_dtype)
+        if vision is not None and cfg.n_vision_tokens:
+            vision = einsum("btd,de->bte", vision.to(compute_dtype),
+                            self.vision_proj.to(compute_dtype))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         stacks = [_unbind_tree(layer) for layer in self.layers]
 
         def body(x, aux, r):
             for i, spec in enumerate(cfg.pattern):
                 p = _layer_weights(stacks[i], r, compute_dtype)
-                x, _, a = apply_layer(spec, p, x, cfg, "train")
+                x, _, a = apply_layer(spec, p, x, cfg, "train",
+                                      vision=vision)
             return x, aux + a
 
         for r in range(cfg.n_repeats):
@@ -262,8 +290,8 @@ class DecoderLM(nn.Module):
             else:
                 x, aux = body(x, aux, r)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
-        head = self.embed if cfg.tie_embeddings else self.lm_head
-        logits = output_logits({"head": head.to(compute_dtype)}, cfg, x)
+        logits = output_logits({"head": self.head_weight(compute_dtype)},
+                               cfg, x)
         return logits, None, aux
 
 
@@ -286,8 +314,11 @@ def empty(cfg: ModelConfig, device="cuda",
 
 def init_layer_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
                      max_len: int, dtype, device, repeats: int | None = None):
-    """One pattern position's cache: a KVCache in `dtype`, or a recurrent
-    mixer's state in float32 whatever `dtype`."""
+    """One pattern position's cache: a KVCache in `dtype`, a recurrent
+    mixer's state in float32 whatever `dtype`, or () for cross-attention
+    (its source is static: no cache)."""
+    if spec.mixer == "xattn":
+        return ()
     if spec.mixer == "attn":
         return attn_lib.init_kv_cache(batch, attn_dims(cfg), max_len, dtype,
                                       device, repeats)
@@ -303,7 +334,6 @@ def init_layer_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda"):
     """Tuple over pattern positions; leaves stacked [R, ...]."""
-    check_supported(cfg)
     device = resolve_device(device)
     return tuple(init_layer_cache(spec, cfg, batch, max_len, dtype, device,
                                   cfg.n_repeats)
@@ -311,16 +341,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def apply_layer(spec: LayerSpec, p, x, cfg: ModelConfig, mode: str,
-                cache=None, pos=None):
+                cache=None, pos=None, vision=None):
     """One layer: the pre-norm mixer, then the pre-norm MLP or MoE channel
     (or none), each with its residual. Returns (x, cache, aux): attention
     writes its KV cache in place and returns it; a recurrent mixer returns
     its new state (prefill starts from zeros, decode from `cache`; train
-    mode returns `cache` as given). aux is the MoE channel's
-    load-balancing loss (a float32 scalar), 0.0 for the others."""
+    mode returns `cache` as given); cross-attention reads `vision` (the
+    projected source) in every mode and returns `cache` as given. aux is
+    the MoE channel's load-balancing loss (a float32 scalar), 0.0 for the
+    others."""
     aux = 0.0
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    if spec.mixer == "attn":
+    if spec.mixer == "xattn":
+        y = attn_lib.cross_attention(p["xattn"], h, vision, attn_dims(cfg))
+    elif spec.mixer == "attn":
         if mode == "train":
             y = attn_lib.attention_train(p["attn"], h, attn_dims(cfg),
                                          cfg.q_chunk, cfg.k_chunk)
@@ -363,18 +397,43 @@ def apply_layer(spec: LayerSpec, p, x, cfg: ModelConfig, mode: str,
     return x, cache, aux
 
 
+def require_source(cfg: ModelConfig, vision) -> None:
+    """Raise the ValueError of an xattn layer without a source, before any
+    work: a model with cross-attention needs `vision`."""
+    if vision is None:
+        for i, spec in enumerate(cfg.pattern):
+            if spec.mixer == "xattn":
+                raise ValueError(f"{cfg.name}: the xattn layer at pattern "
+                                 f"position {i} needs a vision source, and "
+                                 f"vision is None")
+
+
 def embed_tokens(weights: dict, cfg: ModelConfig, tokens):
-    """The embedding rows of `tokens`, in the compute dtype of `weights`
-    (`DecoderLM.compute_weights`)."""
-    return weights["embed"][tokens]
+    """The embedding rows of `tokens` [B,S], in the dtype of
+    weights["embed"] (`DecoderLM.compute_weights`). With K codebooks,
+    tokens [B,K,S]: the K rows summed in the table's stored dtype, in
+    order k = 0..K-1, as the reference sums them (the caller casts)."""
+    emb = weights["embed"]
+    if cfg.n_codebooks:
+        return functools.reduce(torch.add, [emb[k][tokens[:, k]]
+                                            for k in range(cfg.n_codebooks)])
+    return emb[tokens]
 
 
 def output_logits(weights: dict, cfg: ModelConfig, x):
     """The head over `weights` (`DecoderLM.compute_weights`): tied
-    `bsd,vd->bsv` or untied `bsd,dv->bsv`, in x's dtype."""
+    `bsd,vd->bsv` or untied `bsd,dv->bsv`, in x's dtype; with codebooks
+    `bsd,kdv->bksv` (untied) or `bsd,kvd->bksv` against the stored table
+    (tied), in the dtype x and the table promote to, as jnp promotes."""
+    head = weights["head"]
+    if cfg.n_codebooks:
+        if cfg.tie_embeddings:
+            dt = torch.promote_types(x.dtype, head.dtype)
+            return einsum("bsd,kvd->bksv", x.to(dt), head.to(dt))
+        return einsum("bsd,kdv->bksv", x, head)
     if cfg.tie_embeddings:
-        return einsum("bsd,vd->bsv", x, weights["head"])
-    return einsum("bsd,dv->bsv", x, weights["head"])
+        return einsum("bsd,vd->bsv", x, head)
+    return einsum("bsd,dv->bsv", x, head)
 
 
 def _model_for(params: DecoderLM, cfg: ModelConfig) -> DecoderLM:
@@ -386,37 +445,41 @@ def _model_for(params: DecoderLM, cfg: ModelConfig) -> DecoderLM:
 
 def forward(params: DecoderLM, cfg: ModelConfig, tokens, mode: str = "train",
             caches=None, pos=None, compute_dtype=torch.bfloat16,
-            remat: bool = True):
-    """tokens int [B,S]. Returns (logits, caches, aux)."""
+            remat: bool = True, vision=None):
+    """tokens int [B,S] ([B,K,S] audio). Returns (logits, caches, aux)."""
     return _model_for(params, cfg)(tokens, mode, caches, pos, compute_dtype,
-                                   remat)
+                                   remat, vision)
 
 
 def loss_fn(params: DecoderLM, cfg: ModelConfig, batch,
             compute_dtype=torch.bfloat16, remat: bool = True,
             aux_weight: float = 0.01):
     """(ce + aux_weight·aux/max(n_layers, 1), {"ce", "aux"}) over
-    batch["tokens"] and batch["labels"], int [B,S] on the model's device."""
+    batch["tokens"] and batch["labels"], int [B,S] ([B,K,S] audio) on the
+    model's device, and batch.get("vision") for a vision model."""
     logits, _, aux = forward(params, cfg, batch["tokens"], "train",
-                             compute_dtype=compute_dtype, remat=remat)
+                             compute_dtype=compute_dtype, remat=remat,
+                             vision=batch.get("vision"))
     ce = cross_entropy(logits, batch["labels"])
     return ce + aux_weight * aux / max(cfg.n_layers, 1), {"ce": ce, "aux": aux}
 
 
 def decode_step(params: DecoderLM, cfg: ModelConfig, tokens, caches, pos,
-                compute_dtype=torch.bfloat16):
-    """One serve step: tokens [B,1] at position `pos`. Returns
-    (next_tokens int32 [B,1], caches); the argmax is taken on logits in the
-    compute dtype (the first maximum, as jnp.argmax)."""
+                compute_dtype=torch.bfloat16, vision=None):
+    """One serve step: tokens [B,1] ([B,K,1] audio) at position `pos`.
+    Returns (next_tokens int32 [B,1] or [B,K,1], caches); the argmax is
+    taken on logits in the compute dtype (the first maximum, as
+    jnp.argmax)."""
     logits, caches, _ = forward(params, cfg, tokens, "decode", caches=caches,
-                                pos=pos, compute_dtype=compute_dtype)
+                                pos=pos, compute_dtype=compute_dtype,
+                                vision=vision)
     nxt = torch.argmax(logits[..., -1, :], dim=-1).to(torch.int32)
     return nxt[..., None], caches
 
 
 def prefill(params: DecoderLM, cfg: ModelConfig, tokens, caches,
-            compute_dtype=torch.bfloat16):
+            compute_dtype=torch.bfloat16, vision=None):
     logits, caches, _ = forward(params, cfg, tokens, "prefill", caches=caches,
-                                compute_dtype=compute_dtype)
+                                compute_dtype=compute_dtype, vision=vision)
     return logits, caches
 

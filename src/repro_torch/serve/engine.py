@@ -40,25 +40,31 @@ class ServeEngine:
         self._decode = make_decode_step(cfg, step_cfg)
         self._prefill = make_prefill_step(cfg, step_cfg)
 
-    def generate(self, prompts: np.ndarray, n_new: int) -> np.ndarray:
-        """prompts int32 [B, P]. Greedy decode n_new tokens; returns int32
-        [B, P + n_new] (numpy)."""
+    def generate(self, prompts: np.ndarray, n_new: int,
+                 vision: np.ndarray | None = None) -> np.ndarray:
+        """prompts int32 [B, P] ([B, K, P] audio). Greedy decode n_new
+        tokens; returns int32 [B, P + n_new] ([B, K, P + n_new]) as numpy.
+        `vision` [B, T, d_vision] (float32) goes to prefill and to every
+        decode step."""
         cfg = self.cfg
         device = self.params.device
-        b, plen = prompts.shape
+        b, plen = prompts.shape[0], prompts.shape[-1]
         caches = model_lib.init_cache(cfg, b, plen + n_new,
                                       dtype=self._cache_dtype, device=device)
         toks = torch.from_numpy(prompts.astype(np.int32)).to(device)
+        vis = (None if vision is None else
+               torch.from_numpy(np.asarray(vision, np.float32)).to(device))
 
-        logits, caches = self._prefill(self.params, toks, caches)
+        logits, caches = self._prefill(self.params, toks, caches, vis)
         # First new token comes from the last prefill position's logits.
-        cur = torch.argmax(logits[:, plen - 1, :], dim=-1)[..., None]
+        cur = torch.argmax(logits[..., plen - 1, :], dim=-1)[..., None]
         cur = cur.to(torch.int32)
         out = [toks, cur]
         for t in range(n_new - 1):
-            cur, caches = self._decode(self.params, cur, caches, plen + t)
+            cur, caches = self._decode(self.params, cur, caches, plen + t,
+                                       vis)
             out.append(cur)
-        return torch.cat(out, dim=1).cpu().numpy()
+        return torch.cat(out, dim=toks.dim() - 1).cpu().numpy()
 
 
 def throughput_probe(engine: ServeEngine, prompts: np.ndarray, n_new: int

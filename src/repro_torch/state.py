@@ -70,7 +70,6 @@ def lm_params_from_reference(cfg: ModelConfig, params_np,
     "layers.0.attn.wq", shapes and dtypes kept. Load it with
     `model.load_state_dict(..., assign=True)`, which checks every name and
     shape."""
-    model_lib.check_supported(cfg)
     device = resolve_device(device)
     out = {}
     for path, leaf in flatten_with_paths(params_np):

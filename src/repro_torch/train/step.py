@@ -43,10 +43,12 @@ class StepConfig:
 
 def make_train_step(cfg: ModelConfig, opt_cfg: optim_lib.OptConfig,
                     step_cfg: StepConfig = StepConfig()):
-    """A step of `loss_fn`'s gradients and AdamW. A step whose loss is not
-    finite leaves the parameters and the optimizer state as they were and
-    returns its metrics, so that the loop's NaN guard retries from the
-    same state (as over the reference's functional step)."""
+    """A step of `loss_fn`'s gradients and AdamW over a batch of "tokens"
+    and "labels" (and "vision", float32, for a vision model). A step whose
+    loss is not finite leaves the parameters and the optimizer state as
+    they were and returns its metrics, so that the loop's NaN guard
+    retries from the same state (as over the reference's functional
+    step)."""
     opt_cfg = step_cfg.opt_config(opt_cfg)
 
     def train_step(params, opt_state, batch):
@@ -71,14 +73,16 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optim_lib.OptConfig,
 
 
 def make_decode_step(cfg: ModelConfig, step_cfg: StepConfig = StepConfig()):
-    def serve_step(params, tokens, caches, pos):
+    def serve_step(params, tokens, caches, pos, vision=None):
         return model_lib.decode_step(params, cfg, tokens, caches, pos,
-                                     compute_dtype=step_cfg.compute_dtype)
+                                     compute_dtype=step_cfg.compute_dtype,
+                                     vision=vision)
     return serve_step
 
 
 def make_prefill_step(cfg: ModelConfig, step_cfg: StepConfig = StepConfig()):
-    def prefill_step(params, tokens, caches):
+    def prefill_step(params, tokens, caches, vision=None):
         return model_lib.prefill(params, cfg, tokens, caches,
-                                 compute_dtype=step_cfg.compute_dtype)
+                                 compute_dtype=step_cfg.compute_dtype,
+                                 vision=vision)
     return prefill_step

@@ -1566,3 +1566,139 @@ def test_recurrent_train_steps_on_card_equal_the_cpu(cuda_device, arch):
     constant added to i_t scales c and n alike) and is held as exempt."""
     cfg, cpu, model = _recurrent_on_card(arch)
     _hold_train_steps_to_cpu(cfg, cpu, model, zero_gradient=("slstm/b_i",))
+
+
+# ------------------------------------------------------------ cross-attention and codebooks
+
+XATTN_ARCHS = ["llama-3.2-vision-90b", "musicgen-large"]
+
+
+def _xattn_on_card(arch):
+    """The vision arch reduced to its 5-layer period, its xattn gates at
+    0.5 (at the zero init the layer adds nothing); musicgen-large reduced
+    to 2 layers. Drawn on the CPU from a seed, and a copy on the card."""
+    n = 5 if arch == "llama-3.2-vision-90b" else 2
+    cfg = dataclasses.replace(get_config(arch).reduced(), n_layers=n)
+    cpu = model_lib.init_params(cfg, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for layer in cpu.layers:
+            if hasattr(layer, "xattn"):
+                layer.xattn.gate.fill_(0.5)
+    return cfg, cpu, copy.deepcopy(cpu).to("cuda")
+
+
+def _xattn_inputs(cfg, seed, batch=2, seq=32):
+    rng = np.random.default_rng(seed)
+    shape = ((batch, cfg.n_codebooks, seq) if cfg.n_codebooks
+             else (batch, seq))
+    toks = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
+    vision = (rng.normal(0, 1, (batch, cfg.n_vision_tokens, cfg.d_vision))
+              .astype(np.float32) if cfg.n_vision_tokens else None)
+    return toks, vision
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", XATTN_ARCHS)
+def test_xattn_codebook_f32_logits_on_card_equal_the_cpu(cuda_device, arch):
+    cfg, cpu, model = _xattn_on_card(arch)
+    toks, vision = _xattn_inputs(cfg, 3)
+    vis = None if vision is None else torch.from_numpy(vision)
+    want, _, _ = model_lib.forward(cpu, cfg, torch.from_numpy(toks),
+                                   compute_dtype=torch.float32, vision=vis)
+    with _no_tf32():
+        got, _, _ = model_lib.forward(
+            model, cfg, torch.from_numpy(toks).to(cuda_device),
+            compute_dtype=torch.float32,
+            vision=None if vis is None else vis.to(cuda_device))
+    assert got.shape == want.shape
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", XATTN_ARCHS)
+def test_xattn_codebook_bf16_generate_repeats_bitwise_on_card(cuda_device,
+                                                              arch):
+    cfg, _, model = _xattn_on_card(arch)
+    toks, vision = _xattn_inputs(cfg, 2, batch=4, seq=16)
+    eng = ServeEngine(cfg, model, ServeConfig())
+    a = eng.generate(toks, 16, vision)
+    b = eng.generate(toks, 16, vision)
+    np.testing.assert_array_equal(a, b)
+    assert a.shape == toks.shape[:-1] + (32,)
+    assert a.min() >= 0 and a.max() < cfg.vocab_size
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", XATTN_ARCHS)
+def test_xattn_codebook_lowmem_train_steps_on_card_are_finite(cuda_device,
+                                                              arch):
+    """Two lowmem steps on the card (bfloat16 parameters, int8 moments):
+    musicgen's batches of [B, K, T] codebook streams, the vision arch's
+    with a float32 vision source; the losses finite."""
+    from repro_torch.train import optim as optim_lib
+    from repro_torch.train import step as step_lib
+    n = 5 if arch == "llama-3.2-vision-90b" else 2
+    cfg = dataclasses.replace(get_config(arch).reduced(), n_layers=n)
+    model = model_lib.init_params(
+        cfg, torch.Generator(device=cuda_device).manual_seed(0),
+        torch.bfloat16)
+    step_cfg = step_lib.StepConfig(policy="lowmem")
+    opt_cfg = optim_lib.OptConfig(lr=1e-3, warmup_steps=2, decay_steps=10)
+    opt = optim_lib.init_opt_state(model.param_tree(),
+                                   step_cfg.opt_config(opt_cfg))
+    step = step_lib.make_train_step(cfg, opt_cfg, step_cfg)
+    losses = []
+    for seed in (4, 5):
+        toks, vision = _xattn_inputs(cfg, seed, batch=4, seq=33)
+        batch = {"tokens": torch.from_numpy(toks[..., :-1]),
+                 "labels": torch.from_numpy(toks[..., 1:])}
+        if vision is not None:
+            batch["vision"] = torch.from_numpy(vision)
+        _, opt, m = step(model, opt, batch)
+        losses.append(m["loss"].item())
+    assert np.isfinite(losses).all() and opt["step"].item() == 2
+    assert model.embed.dtype == torch.bfloat16
+    assert opt["m"]["embed"]["q"].dtype == torch.int8
+
+
+@pytest.mark.cuda
+def test_full_width_cross_attention_gradients_on_card_equal_the_cpu(
+        cuda_device):
+    """llama-3.2-vision-90b's cross-attention at full width (d 8192, 64
+    heads, 8 KV heads, dh 128) in float32, TF32 off, the gate at 0.5:
+    x [2, 128, 8192] against a projected source [2, 1601, 8192]; the
+    output and the gradients of wq, wk, wv, wo and the gate, card against
+    CPU (rtol 1e-3, atol 1e-3 of each leaf's largest)."""
+    from repro_torch.models import attention as attn_lib
+    cfg = get_config("llama-3.2-vision-90b")
+    dims = model_lib.attn_dims(cfg)
+    layer = attn_lib.CrossAttention(
+        ParamFactory(torch.Generator().manual_seed(5)), dims, cfg.d_model)
+    with torch.no_grad():
+        layer.gate.fill_(0.5)
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(0, 1, (2, 128, cfg.d_model)).astype(
+        np.float32))
+    src = torch.from_numpy(rng.normal(0, 1, (2, cfg.n_vision_tokens,
+                                             cfg.d_model)).astype(np.float32))
+    cot = torch.from_numpy(rng.normal(0, 1, (2, 128, cfg.d_model)).astype(
+        np.float32))
+
+    def run(device):
+        p = {k: v.detach().to(device).requires_grad_()
+             for k, v in layer.named_parameters()}
+        y = attn_lib.cross_attention(p, x.to(device), src.to(device), dims)
+        grads = torch.autograd.grad((y * cot.to(device)).sum(),
+                                    list(p.values()))
+        return y.detach().cpu(), dict(zip(p, (g.cpu() for g in grads)))
+    want_y, want_g = run("cpu")
+    with _no_tf32():
+        got_y, got_g = run(cuda_device)
+    torch.testing.assert_close(got_y, want_y, rtol=1e-3,
+                               atol=1e-3 * want_y.abs().max().item())
+    assert sorted(want_g) == ["gate", "wk", "wo", "wq", "wv"]
+    for name, w in want_g.items():
+        assert w.abs().max() > 0, name
+        torch.testing.assert_close(got_g[name], w, rtol=1e-3,
+                                   atol=1e-3 * w.abs().max().item(),
+                                   msg=name)

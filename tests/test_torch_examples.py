@@ -57,6 +57,8 @@ def test_serve_example_runs_on_the_cpu(capsys):
                  "jamba-v0.1-52b"):
         assert any(line.startswith(arch) and "out=(4, 40)  on cpu" in line
                    for line in lines), out
+    assert any(line.startswith("musicgen-large") and
+               "out=(4, 4, 40)  on cpu" in line for line in lines), out
 
 
 def test_train_example_runs_on_the_cpu(capsys, tmp_path):

@@ -43,7 +43,7 @@ from repro.models import attention as ref_attn
 from repro.models import common as ref_common
 from repro.models import model as ref_model
 from repro_torch.checkpoint.ckpt import flatten_with_paths
-from repro_torch.configs import all_archs, get_config
+from repro_torch.configs import get_config
 from repro_torch.models import attention as port_attn
 from repro_torch.models import common as port_common
 from repro_torch.models import model as port_model
@@ -59,7 +59,6 @@ RECURRENT = ["xlstm-125m", "jamba-v0.1-52b"]
 ARCHS = DENSE + MOE + RECURRENT
 CASES = [(arch, dtype) for dtype in ("float32", "bfloat16") for arch in ARCHS
          if (arch, dtype) != ("jamba-v0.1-52b", "bfloat16")]
-NOT_PORTED = [a for a in all_archs() if a not in ARCHS]
 B, S, PREFILL, DECODES = 2, 32, 16, 10
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-4),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -348,18 +347,6 @@ def test_init_params_has_the_reference_scales():
     assert (model.layers[0].norm1 == 1).all()
     again = port_model.init_params(cfg, torch.Generator().manual_seed(0))
     assert torch.equal(again.layers[0].mlp.wg, model.layers[0].mlp.wg)
-
-
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_non_dense_archs_raise_not_implemented(arch):
-    """The cross-attention and codebook archs (the recurrent ones are held
-    to the reference above)."""
-    assert arch in ("llama-3.2-vision-90b", "musicgen-large")
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        port_model.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="slice"):
-        port_model.init_cache(cfg, 1, 8, device="cpu")
 
 
 def test_forward_checks_its_mode_and_config():
