@@ -194,6 +194,24 @@ Phases, each reported on its own lines:
      --arch llama-3.2-vision-90b (its ValueError); the run's Telemetry
      through BlinkQLService ("musicgen_telemetry_launches" in the
      kernels' record);
+  3n. the LM mesh (between 3m and 4): qwen2-1.5b at full width cut to 2
+     of its 28 layers, float32 compute with TF32 off, on a (2, 2) (data,
+     model) mesh of 4 spawned ranks sharing the card (gloo; every
+     collective staged through host buffers): (a) three mesh train steps
+     at B = 8, T = 128 (the batch split over the 4 ranks, each layer's
+     weights gathered where it runs, gradients summed in rank order back
+     into each leaf's block), step 0's loss and grad norm against the
+     single-device port's (rtol 1e-4), losses finite and step 0's batch's
+     lower after them, each rank's placed bytes equal to build_shardings'
+     prediction, its peak GB and step ms; (b) sharded-cache decode of B =
+     4, P = 64 on the fresh weights, prefill logits (rtol 1e-4) and 8
+     greedy tokens against one device's; (c) the parameters saved from the
+     world of 4, restored onto a world of 2 and onto one device, every
+     leaf's sha1 equal; (d) launch.train --arch xlstm-125m in the world of
+     2 (full width and depth, one step), and python -m
+     repro_torch.launch.dryrun --all; (e)
+     rank 0's Telemetry through BlinkQLService ("mesh_telemetry_launches"
+     of agg_scan_fused in the kernels' record);
   4. times: each kernel at the main path's shapes (agg_scan_fused and
      quantile_scan at G = 1, 6, 200 and 500) against its bound and its
      plain version, quantile_scan beside the yardstick agg_scan_fused +
@@ -4809,6 +4827,468 @@ def phase_lm_xattn_codebooks(torch, np, card: str, device="cuda") -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 3n
+
+MESH_LM_LAYERS = 2        # qwen2-1.5b's widths, 2 of its 28 layers (PERF.md §4)
+MESH_LM_MODEL_AXIS = 2    # a (2, 2) (data, model) mesh of 4 ranks on one card
+MESH_LM_WORLD = 4
+MESH_LM_STEPS = 3         # (a): step 0, then two more
+MESH_SERVE_BATCH, MESH_SERVE_PROMPT, MESH_SERVE_NEW = 4, 64, 8   # (b)
+MESH_RTOL = 1e-4
+# (d): the launcher in a world of 2 on xlstm-125m at full width and depth
+# (its 0.16B parameters keep the gathers short; qwen2's 28 layers took
+# 44.5 s there; a recurrent pattern through the mesh step on the card)
+MESH_LAUNCH_ARGS = ["--arch", "xlstm-125m", "--steps", "1", "--batch", "2",
+                    "--seq", "16", "--ckpt-every", "0"]
+
+
+def mesh_lm_config():
+    """qwen2-1.5b at full width, its depth cut to MESH_LM_LAYERS."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(LM_ARCH), n_layers=MESH_LM_LAYERS)
+
+
+def f32_step_config(policy: str = "f32"):
+    """StepConfig(policy) with float32 compute (the holds' precision)."""
+    import torch
+    from repro_torch.train import step as step_lib
+
+    class F32Compute(step_lib.StepConfig):
+        @property
+        def compute_dtype(self):
+            return torch.float32
+    return F32Compute(policy=policy)
+
+
+def mesh_stream(cfg):
+    from repro_torch.data.tokens import DataConfig, SyntheticTokenStream
+    return SyntheticTokenStream(DataConfig(cfg.vocab_size, LM_TRAIN_SEQ,
+                                           LM_TRAIN_BATCH, seed=0))
+
+
+def mesh_prompts(np, cfg):
+    return lm_prompts(np, cfg, MESH_SERVE_BATCH, MESH_SERVE_PROMPT, seed=7)
+
+
+def leaf_digests(tree) -> dict:
+    """sha1 of each leaf's bytes, by path (bfloat16 as its bits)."""
+    import hashlib
+    import torch
+    from repro_torch.checkpoint.ckpt import flatten_with_paths
+    out = {}
+    for path, t in flatten_with_paths(tree):
+        t = t.detach().contiguous().cpu()
+        out[path] = hashlib.sha1(t.reshape(-1).view(
+            torch.uint8).numpy().tobytes()).hexdigest()
+    return out
+
+
+def mesh_one_device(torch, np, cfg, device) -> dict:
+    """The single-device port at the phase's depth, before the ranks
+    start: (b)'s prefill logits (float32 numpy) and greedy tokens from the
+    fresh weights, then (a)'s step 0 (loss, grad norm) on them."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.train import optim as optim_lib
+    from repro_torch.train import step as step_lib
+    step_cfg = f32_step_config()
+    opt_cfg = optim_lib.OptConfig(**LM_OPT)
+    with no_tf32(torch):
+        model = model_lib.init_params(
+            cfg, torch.Generator(device=device).manual_seed(0),
+            torch.float32)
+        prompts = mesh_prompts(np, cfg)
+        caches = model_lib.init_cache(cfg, MESH_SERVE_BATCH,
+                                      MESH_SERVE_PROMPT + MESH_SERVE_NEW,
+                                      torch.float32, device)
+        logits, _ = step_lib.make_prefill_step(cfg, step_cfg)(
+            model, torch.from_numpy(prompts).to(device), caches)
+        logits = logits.float().cpu().numpy()
+        del caches
+        engine = ServeEngine(cfg, model, ServeConfig(
+            batch=MESH_SERVE_BATCH), step_cfg)
+        tokens = engine.generate(prompts, MESH_SERVE_NEW)
+        opt = optim_lib.init_opt_state(model.param_tree(),
+                                       step_cfg.opt_config(opt_cfg))
+        batch = lm_batch(torch, mesh_stream(cfg))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step_lib.make_train_step(cfg, opt_cfg, step_cfg)(
+            model, opt, batch)
+        torch.cuda.synchronize()
+        out = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+               "step_ms": 1e3 * (time.perf_counter() - t0),
+               "logits": logits, "tokens": tokens}
+    del model, opt, engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_mesh_rank(job) -> dict:
+    """Phase 3n's rank target in the world of 4: qwen2's cut on the (2, 2)
+    mesh, every rank on the one card. (b) first, on the fresh placement:
+    prefill (rank 0 writes the whole batch's logits to job["tmp"]) and
+    ServeEngine.generate over sharded caches; then (a): MESH_LM_STEPS mesh
+    steps (ms each, host clock, device synchronised), step 0's batch's loss
+    again after them, the run's Telemetry, the rank's placed bytes against
+    build_shardings' and its peak memory; then (c): the parameters
+    gathered and saved by rank 0 (sha1 of every leaf)."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.ckpt import (CheckpointManager,
+                                            flatten_with_paths)
+    from repro_torch.launch.cells import cell_rules
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.sharding import lm as mesh_lm
+    from repro_torch.sharding import rules as rules_lib
+    from repro_torch.train import loop as loop_lib
+    from repro_torch.train import optim as optim_lib
+    from repro_torch.train import step as step_lib
+    device = job["device"]
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    cfg = mesh_lm_config()
+    step_cfg = f32_step_config()
+    opt_cfg = optim_lib.OptConfig(**LM_OPT)
+    mesh = make_host_mesh(MESH_LM_MODEL_AXIS)
+    comm = mesh_lm.MeshComm(mesh)
+    rules = cell_rules(cfg, mesh, False)
+    out = {"rank": comm.rank, "mesh": rules_lib.mesh_extents(mesh)}
+    with no_tf32(torch):
+        t0 = time.perf_counter()
+        model = model_lib.init_params(
+            cfg, torch.Generator(device=device).manual_seed(0),
+            torch.float32)
+        params = mesh_lm.ShardedLM.place(model, comm, rules)
+        del model
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sh = step_lib.build_shardings(cfg, rules_lib.mesh_extents(mesh),
+                                      rules, step_cfg, opt_cfg)
+        out["placed_bytes"] = params.placed_bytes()
+        out["predicted_bytes"] = step_lib.tree_bytes(sh["params_sharding"],
+                                                     sh["params_sds"])
+        out["place_s"] = time.perf_counter() - t0
+
+        # (b) sharded-cache decode on the fresh weights
+        prompts = mesh_prompts(np, cfg)
+        t0 = time.perf_counter()
+        caches = mesh_lm.init_local_cache(
+            params, MESH_SERVE_BATCH, MESH_SERVE_PROMPT + MESH_SERVE_NEW)
+        out["cache_bytes"] = sum(
+            t.numel() * t.element_size() for _, _, t in
+            rules_lib.leaves_with_paths(model_lib.cache_axes(cfg),
+                                        caches.local))
+        logits, _ = step_lib.make_prefill_step(cfg, step_cfg)(
+            params, torch.from_numpy(prompts), caches)
+        if comm.rank == 0:
+            np.save(f"{job['tmp']}/mesh_logits.npy",
+                    logits.float().cpu().numpy())
+        del logits, caches
+        engine = ServeEngine(cfg, params, ServeConfig(
+            batch=MESH_SERVE_BATCH), step_cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out["tokens"] = engine.generate(prompts, MESH_SERVE_NEW)
+        torch.cuda.synchronize()
+        out["generate_s"] = time.perf_counter() - t1
+        out["serve_s"] = time.perf_counter() - t0
+        params.drop_gathered()
+        torch.cuda.empty_cache()
+
+        # (a) the mesh train step
+        opt = mesh_lm.init_opt_state(params, step_cfg.opt_config(opt_cfg))
+        out["opt_bytes"] = sum(t.numel() * t.element_size()
+                               for _, t in flatten_with_paths(opt))
+        out["predicted_opt_bytes"] = step_lib.tree_bytes(sh["opt_sharding"],
+                                                         sh["opt_sds"])
+        stream = mesh_stream(cfg)
+        step = step_lib.make_train_step(cfg, opt_cfg, step_cfg)
+        telemetry = loop_lib.Telemetry()
+        out["losses"], out["grad_norms"], out["step_ms"] = [], [], []
+        out["collective_ms"] = []
+        sent = dict(comm.bytes)
+        first = None
+        for i in range(MESH_LM_STEPS):
+            raw = stream.next_batch()
+            batch = {k: torch.from_numpy(v) for k, v in raw.items()
+                     if k in ("tokens", "labels")}
+            if first is None:
+                first = batch
+            before = sum(comm.seconds.values())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            out["step_ms"].append(1e3 * (time.perf_counter() - t0))
+            out["collective_ms"].append(
+                1e3 * (sum(comm.seconds.values()) - before))
+            out["losses"].append(m["loss"].item())
+            out["grad_norms"].append(m["grad_norm"].item())
+            telemetry.log(i, m["loss"].item(), raw["domain"],
+                          {"grad_norm": m["grad_norm"].item()})
+        out["sent_bytes_a_step"] = {
+            k: (comm.bytes[k] - sent[k]) / MESH_LM_STEPS for k in sent}
+        again, _ = mesh_lm.loss_and_grads(params, cfg, first, step_cfg,
+                                          grads=False)
+        out["first_batch_after"] = again["loss"].item()
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        if comm.rank == 0:
+            out["telemetry"] = telemetry
+
+        # (c) save from the world of 4: full arrays, rank 0 writes
+        t0 = time.perf_counter()
+        full = mesh_lm.gather_tree(comm, params.param_tree(),
+                                   params.sharding_tree())
+        out["digests"] = leaf_digests(full) if comm.rank == 0 else None
+        if comm.rank == 0:
+            CheckpointManager(f"{job['tmp']}/ckpt", async_save=False).save(
+                1, {"params": full})
+        del full
+        comm.barrier()
+        out["save_s"] = time.perf_counter() - t0
+    return out
+
+
+def lm_mesh_world2(job) -> dict:
+    """Phase 3n's rank target in the world of 2 (a (1, 2) mesh): (c) the
+    world of 4's checkpoint restored onto this mesh by its placements
+    (`restore(shardings=)`), gathered back (rank 0: sha1 of every leaf);
+    (d) launch.train's main in this process group (the mesh step, at
+    MESH_LAUNCH_ARGS): its printed lines."""
+    import contextlib as ctx
+    import io
+    import torch
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.launch import train as train_lib
+    from repro_torch.launch.cells import cell_rules
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as model_lib
+    from repro_torch.sharding import lm as mesh_lm
+    from repro_torch.sharding import rules as rules_lib
+    if job["device"] == "cuda":
+        torch.cuda.set_device(0)
+    cfg = mesh_lm_config()
+    mesh = make_host_mesh(2)
+    comm = mesh_lm.MeshComm(mesh)
+    rules = cell_rules(cfg, mesh, False)
+    meta, axes = model_lib.abstract_params(cfg)
+    sh = {"params": rules_lib.tree_shardings(mesh, rules, axes, meta)}
+    t0 = time.perf_counter()
+    step, blocks = CheckpointManager(f"{job['tmp']}/ckpt").restore(
+        {"params": meta}, shardings=sh)
+    full = mesh_lm.gather_tree(comm, blocks["params"], sh["params"])
+    out = {"rank": comm.rank, "step": step,
+           "digests": leaf_digests(full) if comm.rank == 0 else None,
+           "restore_s": time.perf_counter() - t0}
+    del full
+    del blocks
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with ctx.redirect_stdout(buf):
+        # a checkpoint directory of this run's own: the default one under
+        # $TMPDIR may hold another run's checkpoint, which would resume
+        train_lib.main(list(job["launch_args"])
+                       + ["--ckpt-dir", f"{job['tmp']}/launch"])
+    out["launch"] = buf.getvalue()
+    out["launch_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_lm_mesh(torch, np, card: str, device="cuda") -> dict:
+    """The LM mesh (repro_torch.sharding, launch.cells, launch.dryrun):
+    qwen2-1.5b at full width, MESH_LM_LAYERS layers, float32 compute with
+    TF32 off, on a (2, 2) mesh of 4 spawned ranks sharing the card (gloo,
+    collectives staged through host buffers). (a) MESH_LM_STEPS mesh
+    steps at B = 8, T = 128: step 0's loss and grad norm against the
+    single-device port's step on the same seed (run here first, rtol
+    1e-4), every loss finite, step 0's batch's loss lower after the steps;
+    per rank its placed bytes equal to build_shardings' prediction, its
+    peak GB and its step ms. (b) sharded-cache decode on the same mesh and
+    the fresh weights: prefill logits of B = 4, P = 64 against the single
+    device's (rtol 1e-4), 8 greedy tokens equal. (c) the parameters saved
+    from the world of 4, restored onto a world of 2 and onto one device,
+    bit-equal (sha1 of every leaf). (d) launch.train in the world of 2
+    (MESH_LAUNCH_ARGS: xlstm-125m at full width and depth, one step, a
+    checkpoint directory of its own): a [train] mesh line and a
+    [train] done: first loss line on each rank;
+    python -m repro_torch.launch.dryrun --all: exit 0 and the llama3-405b
+    train_4k pod line. (e) rank 0's Telemetry through BlinkQLService,
+    every agg_scan_fused launch held to its plain version."""
+    import os
+    import tempfile
+    from repro_torch.checkpoint.ckpt import (CheckpointManager,
+                                            flatten_with_paths, map_leaves,
+                                            to_tensor)
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model as model_lib
+    t_phase = time.perf_counter()
+    cfg = mesh_lm_config()
+    out = {"layers": MESH_LM_LAYERS, "card": card}
+    # (d)'s dry run (host only) runs beside the ranks
+    dryrun = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all"],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=str(ROOT),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    one = mesh_one_device(torch, np, cfg, device)
+    log(f"  one device ({cfg.name} cut to {MESH_LM_LAYERS} layers, float32 "
+        f"compute, TF32 off): step 0 loss {one['loss']:.6f}, grad norm "
+        f"{one['grad_norm']:.6f} ({one['step_ms']:.1f} ms); prefill + "
+        f"{MESH_SERVE_NEW} tokens; {time.perf_counter() - t0:.1f}s")
+    with tempfile.TemporaryDirectory(prefix="phase3n-") as tmp:
+        job = {"device": device, "tmp": tmp}
+        t0 = time.perf_counter()
+        ranks = mesh_lib.run_ranks(lm_mesh_rank, MESH_LM_WORLD, job,
+                                   timeout=600.0)
+        out["world4_s"] = time.perf_counter() - t0
+        r0 = ranks[0]
+        # (a)
+        for r in ranks:
+            if (r["losses"], r["grad_norms"]) != (r0["losses"],
+                                                  r0["grad_norms"]):
+                raise AssertionError(f"(a): rank {r['rank']}'s metrics "
+                                     f"differ from rank 0's")
+            if r["placed_bytes"] != r["predicted_bytes"] or \
+                    r["opt_bytes"] != r["predicted_opt_bytes"]:
+                raise AssertionError(f"(a): rank {r['rank']} holds "
+                                     f"{r['placed_bytes']} + "
+                                     f"{r['opt_bytes']} bytes, "
+                                     f"build_shardings predicts "
+                                     f"{r['predicted_bytes']} + "
+                                     f"{r['predicted_opt_bytes']}")
+        for name, got, want in (("loss", r0["losses"][0], one["loss"]),
+                                ("grad norm", r0["grad_norms"][0],
+                                 one["grad_norm"])):
+            if not abs(got - want) <= MESH_RTOL * abs(want):
+                raise AssertionError(f"(a): step 0's {name} {got} vs one "
+                                     f"device's {want}")
+        if not (np.isfinite(r0["losses"]).all()
+                and r0["first_batch_after"] < r0["losses"][0]):
+            raise AssertionError(f"(a): losses {r0['losses']}, step 0's "
+                                 f"batch after them "
+                                 f"{r0['first_batch_after']}")
+        full_bytes = sum(p.numel() * 4 for _, p in flatten_with_paths(
+            model_lib.abstract_params(cfg)[0]))
+        out["a"] = {
+            "loss0": r0["losses"][0], "one_device_loss0": one["loss"],
+            "grad_norm0": r0["grad_norms"][0],
+            "one_device_grad_norm0": one["grad_norm"],
+            "losses": r0["losses"], "first_batch_after":
+                r0["first_batch_after"], "full_param_bytes": full_bytes,
+            "one_device_step_ms": one["step_ms"],
+            "ranks": [{k: r[k] for k in ("rank", "placed_bytes",
+                                         "predicted_bytes", "opt_bytes",
+                                         "peak_bytes", "step_ms", "place_s",
+                                         "collective_ms",
+                                         "sent_bytes_a_step")}
+                      for r in ranks]}
+        log(f"  (a) (2, 2) mesh, 4 ranks: step 0 loss {r0['losses'][0]:.6f} "
+            f"(one device {one['loss']:.6f}, rel "
+            f"{abs(r0['losses'][0] - one['loss']) / one['loss']:.2e}), grad "
+            f"norm {r0['grad_norms'][0]:.6f} (one device "
+            f"{one['grad_norm']:.6f}); losses "
+            f"{', '.join(f'{x:.4f}' for x in r0['losses'])}, step 0's batch "
+            f"after them {r0['first_batch_after']:.4f}; world of 4 in "
+            f"{out['world4_s']:.1f}s")
+        for r in ranks:
+            log(f"    rank {r['rank']}: placed {r['placed_bytes'] / 1e9:.4f} "
+                f"GB of parameters (= build_shardings'; the full model "
+                f"{full_bytes / 1e9:.4f} GB) + {r['opt_bytes'] / 1e9:.4f} "
+                f"GB of moments, peak {r['peak_bytes'] / 1e9:.2f} GB, step "
+                f"ms {', '.join(f'{x:.0f}' for x in r['step_ms'])}, of "
+                f"them in collectives "
+                f"{', '.join(f'{x:.0f}' for x in r['collective_ms'])}; sent "
+                f"a step: all_gather "
+                f"{r['sent_bytes_a_step']['all_gather'] / 1e9:.3f} GB, "
+                f"all_to_all {r['sent_bytes_a_step']['all_to_all'] / 1e9:.3f}"
+                f" GB ({card}; 4 ranks share the card and the host: "
+                f"correctness, not scaling)")
+        # (b)
+        got = np.load(f"{tmp}/mesh_logits.npy")
+        ratio = float(np.max(np.abs(got - one["logits"]) / (
+            MESH_RTOL * np.abs(one["logits"]) + MESH_RTOL)))
+        if not ratio <= 1.0:
+            raise AssertionError(f"(b): prefill logits off, worst ratio "
+                                 f"{ratio} of rtol/atol {MESH_RTOL}")
+        for r in ranks:
+            if not np.array_equal(r["tokens"], one["tokens"]):
+                raise AssertionError(f"(b): rank {r['rank']}'s tokens "
+                                     f"differ from one device's")
+        out["b"] = {"logits_worst_ratio": ratio,
+                    "generate_s": r0["generate_s"],
+                    "cache_bytes": [r["cache_bytes"] for r in ranks]}
+        log(f"  (b) sharded-cache decode: prefill logits [{MESH_SERVE_BATCH},"
+            f" {MESH_SERVE_PROMPT}, {cfg.vocab_size}] worst ratio "
+            f"{ratio:.3f} of rtol/atol {MESH_RTOL}; {MESH_SERVE_NEW} greedy "
+            f"tokens equal to one device's on every rank; cache blocks "
+            f"{[r['cache_bytes'] for r in ranks]} bytes a rank; generate "
+            f"{r0['generate_s']:.2f}s")
+        # (c) and (d): the world of 2
+        t0 = time.perf_counter()
+        two = mesh_lib.run_ranks(lm_mesh_world2, 2, {
+            **job, "launch_args": MESH_LAUNCH_ARGS}, timeout=600.0)
+        out["world2_s"] = time.perf_counter() - t0
+        meta, _ = model_lib.abstract_params(cfg)
+        step, whole = CheckpointManager(f"{tmp}/ckpt").restore(
+            {"params": meta})
+        one_digests = leaf_digests(map_leaves(to_tensor, whole["params"]))
+        if two[0]["digests"] != r0["digests"]:
+            raise AssertionError("(c): the world of 2's leaves differ from "
+                                 "the saved ones")
+        if one_digests != r0["digests"] or step != 1:
+            raise AssertionError("(c): the checkpoint restored onto one "
+                                 "device differs from the world of 4's")
+        out["c"] = {"leaves": len(r0["digests"]),
+                    "save_s": r0["save_s"],
+                    "restore_s": [r["restore_s"] for r in two]}
+        log(f"  (c) {len(r0['digests'])} parameter leaves saved from the "
+            f"world of 4 ({r0['save_s']:.2f}s), restored onto a world of 2 "
+            f"((1, 2) mesh, {max(r['restore_s'] for r in two):.2f}s) and "
+            f"onto one device: every leaf's sha1 equal")
+        for r in two:
+            lines = r["launch"].splitlines()
+            if not (any(x.startswith("[train] mesh") for x in lines)
+                    and any(x.startswith("[train] done: first loss")
+                            for x in lines)):
+                raise AssertionError(f"(d): launch.train rank {r['rank']} "
+                                     f"printed no [train] mesh and [train] "
+                                     f"done: first loss lines (no mesh step "
+                                     f"ran):\n{r['launch'][-2000:]}")
+        done = [x for x in two[0]["launch"].splitlines()
+                if x.startswith("[train]")]
+        out["d"] = {"launch_lines": done,
+                    "launch_s": [r["launch_s"] for r in two]}
+        log(f"  (d) launch.train {' '.join(MESH_LAUNCH_ARGS)} in a world of "
+            f"2 ranks: {' | '.join(done)} "
+            f"({max(r['launch_s'] for r in two):.1f}s); world of 2 in "
+            f"{out['world2_s']:.1f}s")
+    t0 = time.perf_counter()
+    stdout, stderr = dryrun.communicate(timeout=300)
+    line = [x for x in stdout.splitlines()
+            if x.startswith("[llama3-405b × train_4k @ pod]")]
+    if dryrun.returncode != 0 or not line:
+        raise AssertionError(f"(d): launch.dryrun exited "
+                             f"{dryrun.returncode}\n{stdout[-2000:]}\n"
+                             f"{stderr[-4000:]}")
+    out["d"]["dryrun_line"] = line[0]
+    log(f"  (d) python -m repro_torch.launch.dryrun --all (beside the "
+        f"ranks): exit 0, {stdout.strip().splitlines()[-1]} (waited "
+        f"{time.perf_counter() - t0:.1f}s after the ranks); {line[0]}")
+    # (e) rank 0's telemetry through BlinkQL, every fused launch held
+    out["telemetry"] = telemetry_blinkql(torch, np, r0["telemetry"],
+                                         MESH_LM_STEPS, device, tag="(e)")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 3n ok: {cfg.name}'s widths on a (2, 2) mesh of 4 ranks "
+        f"({MESH_LM_LAYERS} layers): the mesh step held to one device's, "
+        f"sharded-cache decode equal, elastic restore bit-equal, "
+        f"launch.train in a world of 2 and the dry run exit 0, the "
+        f"telemetry through the fused kernel; {out['seconds']:.1f}s")
+    return out
+
+
 # ----------------------------------------------------------------- phase 4
 
 def time_cuda(torch, fn, warmup: int, reps: int) -> float:
@@ -5219,7 +5699,7 @@ def phase_times_subsampled(torch, sub_db, card: str) -> dict:
 
 def kernels_record(worst, record, main, batch, ops_path, times, sample,
                    l2_times, subj, sub_times, mut, serving, mesh, lm_train,
-                   lm_moe, lm_rec, lm_xc, card: str) -> list[dict]:
+                   lm_moe, lm_rec, lm_xc, lm_mesh, card: str) -> list[dict]:
     """The kernels' JSON record: one entry per kernel, its launches on its
     path, its worst disagreement with its plain version over every phase,
     and its times at the main path's shapes; the fused and quantile
@@ -5248,9 +5728,9 @@ def kernels_record(worst, record, main, batch, ops_path, times, sample,
             if checked:  # phase 3e's and 3f's launches, each against plain
                 errs.append((max(w[0] for w in checked.values()),
                              max(w[1] for w in checked.values())))
-        for run in (lm_train, lm_moe, lm_rec, lm_xc):
+        for run in (lm_train, lm_moe, lm_rec, lm_xc, lm_mesh):
             telemetry = run["telemetry"]["worst"].get(kname, {})
-            if telemetry:  # phases 3j (f), 3k (f), 3l (g), 3m (f): plain
+            if telemetry:  # 3j (f), 3k (f), 3l (g), 3m (f), 3n (e): plain
                 errs.append((max(w[0] for w in telemetry.values()),
                              max(w[1] for w in telemetry.values())))
         if kname in MESH_KERNELS:  # phase 3h's ranks, each against plain
@@ -5371,7 +5851,14 @@ def kernels_record(worst, record, main, batch, ops_path, times, sample,
                 musicgen_telemetry_path=("BlinkQLService.submit over the "
                                          "musicgen trainer's Telemetry of "
                                          "phase 3m (c), each launch held to "
-                                         "its plain version (phase 3m (f))"))
+                                         "its plain version (phase 3m (f))"),
+                mesh_telemetry_launches=lm_mesh["telemetry"]["launches"][
+                    kname],
+                mesh_telemetry_times=lm_mesh["telemetry"]["times"],
+                mesh_telemetry_path=("BlinkQLService.submit over rank 0's "
+                                     "Telemetry of the mesh train step, "
+                                     "phase 3n (a), each launch held to its "
+                                     "plain version (phase 3n (e))"))
             entry["mutation_compaction"] = {
                 str(phi): sides for phi, sides in mut["compaction"].items()}
         if kname == "agg_scan_batched":
@@ -5483,20 +5970,28 @@ def main() -> int:
         "(lowmem), launch.serve; its telemetry through BlinkQLService")
     lm_xc = phase_lm_xattn_codebooks(torch, np, card)
 
+    log("phase 3n: the LM mesh, qwen2-1.5b's widths on a (2, 2) mesh of 4 "
+        "ranks on the card: sharding.rules placements, the mesh train step, "
+        "sharded-cache decode, elastic restore, launch.train in a world of "
+        "2, launch.dryrun; its telemetry through BlinkQLService")
+    lm_mesh = phase_lm_mesh(torch, np, card)
+
     log(f"phase 4: times at the main path's shapes ({card})")
     times = phase_times(torch, main["db"], card)
     l2_times = phase_times_l2(torch, sample["db"], card)
     sub_times = phase_times_subsampled(torch, subj["sub_db"], card)
     kernels = kernels_record(worst, record, main, batch, ops_path, times,
                              sample, l2_times, subj, sub_times, mut, serving,
-                             mesh, lm_train, lm_moe, lm_rec, lm_xc, card)
+                             mesh, lm_train, lm_moe, lm_rec, lm_xc, lm_mesh,
+                             card)
     log(f"smoke total {time.perf_counter() - t_start:.1f}s (phase 3d "
         f"{sample['seconds']:.1f}s, phase 3e {subj['seconds']:.1f}s, phase "
         f"3f {mut['seconds']:.1f}s, phase 3g {serving['seconds']:.1f}s, "
         f"phase 3h {mesh['seconds']:.1f}s, phase 3i {lm['seconds']:.1f}s, "
         f"phase 3j {lm_train['seconds']:.1f}s, phase 3k "
         f"{lm_moe['seconds']:.1f}s, phase 3l {lm_rec['seconds']:.1f}s, "
-        f"phase 3m {lm_xc['seconds']:.1f}s)")
+        f"phase 3m {lm_xc['seconds']:.1f}s, phase 3n "
+        f"{lm_mesh['seconds']:.1f}s)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -11,8 +11,10 @@ directory into place; with `async_save` it runs on a background thread that
 `wait()` joins (and whose error it raises) before the next save or restore.
 Leaf paths are those of `jax.tree_util.tree_flatten_with_path`: dict keys
 sorted, tuple and list indices as digits, NamedTuple fields by name in
-order, None an empty subtree. Restoring onto a device mesh waits for the
-LM mesh slice (ROADMAP.md).
+order, None an empty subtree. The files hold full arrays and no topology:
+a state saved from a mesh is gathered first (`sharding.lm.gather_tree`),
+and `restore(..., shardings=)` cuts each leaf to this rank's block on the
+current mesh (elastic: any mesh, or one device).
 """
 from __future__ import annotations
 
@@ -97,9 +99,9 @@ def to_tensor(arr) -> torch.Tensor:
 
 
 def load_into(dst: torch.Tensor, arr) -> None:
-    """Copy a restored array into `dst` in place, on dst's device and in
-    its dtype."""
-    src = to_tensor(arr)
+    """Copy a restored array (or a tensor: a block cut by `restore`'s
+    shardings) into `dst` in place, on dst's device and in its dtype."""
+    src = arr if isinstance(arr, torch.Tensor) else to_tensor(arr)
     if tuple(src.shape) != tuple(dst.shape):
         raise ValueError(f"restored shape {tuple(src.shape)} is not "
                          f"{tuple(dst.shape)}")
@@ -187,9 +189,13 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like, step: int | None = None) -> tuple[int, Any]:
+    def restore(self, like, step: int | None = None,
+                shardings=None) -> tuple[int, Any]:
         """The checkpoint at `step` (default: the latest) as numpy arrays
-        in the structure of `like`, whose leaves give only the names."""
+        in the structure of `like`, whose leaves give only the names. With
+        `shardings` (a tree of `sharding.rules.NamedSharding` on the
+        current mesh, the structure of `like`; a None leaf is kept whole)
+        each leaf comes back as a CPU tensor of this rank's block."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -197,7 +203,13 @@ class CheckpointManager:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
         arrays_dir = os.path.join(self.directory, f"step_{step:08d}",
                                   "arrays")
-        loaded = iter([np.load(_leaf_file(arrays_dir, name))
-                       for name, _ in flatten_with_paths(like)])
+        names = [name for name, _ in flatten_with_paths(like)]
+        arrays = [np.load(_leaf_file(arrays_dir, name)) for name in names]
+        if shardings is not None:
+            held = dict(flatten_with_paths(shardings))
+            arrays = [held[name].local(to_tensor(a))
+                      if held.get(name) is not None else a
+                      for name, a in zip(names, arrays)]
+        loaded = iter(arrays)
         return step, map_leaves(lambda _: next(loaded), like)
 

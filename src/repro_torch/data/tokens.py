@@ -9,8 +9,8 @@ plus a production-shaped loader:
   * `state()`/`restore()` so checkpoints capture the exact stream position,
   * per-example domain labels feeding the BlinkDB telemetry tables.
 
-The reference's `batch_specs` (ShapeDtypeStructs for its dry-run) waits for
-the LM mesh slice (ROADMAP.md).
+`batch_specs` gives a global batch's shapes as meta tensors (the dry run's
+stand-ins, as the reference's ShapeDtypeStructs).
 """
 from __future__ import annotations
 
@@ -87,3 +87,12 @@ class SyntheticTokenStream:
             "labels": tokens[:, 1:],
             "domain": domains,
         }
+
+
+def batch_specs(cfg: DataConfig) -> dict:
+    """Meta-tensor stand-ins (int32) for a global batch (the dry run's
+    input specs)."""
+    import torch
+    shape = (cfg.global_batch, cfg.seq_len)
+    return {"tokens": torch.empty(shape, dtype=torch.int32, device="meta"),
+            "labels": torch.empty(shape, dtype=torch.int32, device="meta")}

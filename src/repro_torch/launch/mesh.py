@@ -15,6 +15,10 @@ rank stops them all and its traceback is raised here. On a card the kernel
 libraries are built once in the parent before the ranks start, and every
 rank scans on the engine's device (on a one-card machine, that card).
 
+`make_production_mesh` gives the reference's (16, 16) or (2, 16, 16) mesh
+over a world of that size (the dry run reads its extents by name from
+`production_mesh_shape`).
+
 `Session` and `run_session` describe and run one engine workload, the same
 on every rank; `session_rank` is the rank target that runs it over
 `make_host_mesh()`, and `run_session(session)` runs it on one device. With
@@ -39,6 +43,38 @@ from typing import Callable, Mapping, Sequence
 
 import numpy as np
 import torch
+
+
+# The reference's production meshes (a TPU pod of 16 x 16 chips, and two
+# pods), by name: the dry run places every cell on these extents.
+PRODUCTION_MESHES = {
+    "pod": {"data": 16, "model": 16},
+    "multipod": {"pod": 2, "data": 16, "model": 16},
+}
+
+
+def production_mesh_shape(multi_pod: bool = False) -> dict[str, int]:
+    """{axis name: extent} of the production mesh."""
+    return dict(PRODUCTION_MESHES["multipod" if multi_pod else "pod"])
+
+
+def make_production_mesh(multi_pod: bool = False):
+    """The production mesh over the initialized default process group:
+    (16, 16) ("data", "model"), or (2, 16, 16) ("pod", "data", "model").
+    Raises a ValueError naming the world it needs on any other world (a
+    world of 1 without a process group)."""
+    import torch.distributed as dist
+    shape = production_mesh_shape(multi_pod)
+    need = int(np.prod(list(shape.values())))
+    world = (dist.get_world_size()
+             if dist.is_available() and dist.is_initialized() else 1)
+    if world != need:
+        raise ValueError(f"the production mesh {tuple(shape.values())} "
+                         f"{tuple(shape)} needs a world of {need} ranks; "
+                         f"this one has {world}")
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh("cpu", tuple(shape.values()),
+                            mesh_dim_names=tuple(shape))
 
 
 def make_host_mesh(model: int = 1):

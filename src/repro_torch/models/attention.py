@@ -43,14 +43,17 @@ class Attention(nn.Module):
                  repeats: int | None = None):
         super().__init__()
         d, h, kv, dh = dims.d_model, dims.n_heads, dims.n_kv, dims.d_head
-        self.wq = pf.dense((d, h, dh), repeats)
-        self.wk = pf.dense((d, kv, dh), repeats)
-        self.wv = pf.dense((d, kv, dh), repeats)
-        self.wo = pf.dense((h, dh, d), repeats, scale=1.0 / (h * dh) ** 0.5)
+        self.wq = pf.dense((d, h, dh), ("embed", "q_heads", "head"), repeats)
+        self.wk = pf.dense((d, kv, dh), ("embed", "kv_heads", "head"),
+                           repeats)
+        self.wv = pf.dense((d, kv, dh), ("embed", "kv_heads", "head"),
+                           repeats)
+        self.wo = pf.dense((h, dh, d), ("q_heads", "head", "embed"), repeats,
+                           scale=1.0 / (h * dh) ** 0.5)
         if dims.qkv_bias:
-            self.bq = pf.zeros((h, dh), repeats)
-            self.bk = pf.zeros((kv, dh), repeats)
-            self.bv = pf.zeros((kv, dh), repeats)
+            self.bq = pf.zeros((h, dh), ("q_heads", "head"), repeats)
+            self.bk = pf.zeros((kv, dh), ("kv_heads", "head"), repeats)
+            self.bv = pf.zeros((kv, dh), ("kv_heads", "head"), repeats)
 
 
 def _project_qkv(p, x, dims: AttnDims, positions):
@@ -150,6 +153,12 @@ def init_kv_cache(batch: int, dims: AttnDims, max_len: int,
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
+def kv_cache_axes() -> KVCache:
+    """Logical axes of a (one layer's) KVCache."""
+    ax = ("batch", "kv_heads", "seq", "head")
+    return KVCache(ax, ax)
+
+
 def attention_prefill(p, x, dims: AttnDims, cache: KVCache,
                       q_chunk: int = 512, k_chunk: int = 1024):
     """Prefill: train-style attention, and k/v written into the cache's
@@ -198,11 +207,15 @@ class CrossAttention(nn.Module):
                  repeats: int | None = None):
         super().__init__()
         d, h, kv, dh = dims.d_model, dims.n_heads, dims.n_kv, dims.d_head
-        self.wq = pf.dense((d, h, dh), repeats)
-        self.wk = pf.dense((d_source, kv, dh), repeats)
-        self.wv = pf.dense((d_source, kv, dh), repeats)
-        self.wo = pf.dense((h, dh, d), repeats, scale=1.0 / (h * dh) ** 0.5)
-        self.gate = pf.zeros((), repeats)
+        self.wq = pf.dense((d, h, dh), ("embed", "q_heads", "head"), repeats)
+        self.wk = pf.dense((d_source, kv, dh),
+                           ("vision_embed", "kv_heads", "head"), repeats)
+        self.wv = pf.dense((d_source, kv, dh),
+                           ("vision_embed", "kv_heads", "head"), repeats)
+        self.wo = pf.dense((h, dh, d), ("q_heads", "head", "embed"), repeats,
+                           scale=1.0 / (h * dh) ** 0.5)
+        # a scalar: the reference marks its axes (None,)
+        self.gate = pf.zeros((), (None,), repeats)
 
 
 def cross_attention(p, x, source, dims: AttnDims):

@@ -5,12 +5,16 @@ depthwise causal convolution).
 
 Parameters are `nn.Parameter`s of the reference's shapes. A layer's weights
 are stacked over the pattern's repeats (a leading [R] axis), as the
-reference stacks them for `lax.scan`; the port loops over R in Python. The
-logical-axis trees of the reference wait for `sharding/rules.py`.
+reference stacks them for `lax.scan`; the port loops over R in Python.
+The factory records each parameter's logical axes beside it (the
+reference's axes tree, `("layers",) + axes` for a stacked leaf), which
+`sharding/rules.py` maps onto a mesh.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+from typing import Callable
 
 import torch
 from torch import nn
@@ -19,7 +23,10 @@ from torch import nn
 class ParamFactory:
     """Creates parameters with the reference's shapes and scales from one
     explicit `torch.Generator`, on its device. Without a generator the
-    parameters are left uninitialised on `device`, to be loaded."""
+    parameters are left uninitialised on `device`, to be loaded (on the
+    "meta" device nothing is allocated). Every parameter carries its
+    logical axes as `logical_axes`, led by "layers" when it is stacked
+    over `repeats`."""
 
     def __init__(self, generator: torch.Generator | None,
                  dtype: torch.dtype = torch.float32,
@@ -32,7 +39,18 @@ class ParamFactory:
         full = ((repeats,) if repeats else ()) + tuple(shape)
         return torch.empty(full, dtype=self.dtype, device=self.device)
 
-    def dense(self, shape: tuple[int, ...], repeats: int | None = None,
+    @staticmethod
+    def _param(w: torch.Tensor, axes: tuple, repeats: int | None
+               ) -> nn.Parameter:
+        if len(axes) != w.dim() - (1 if repeats else 0) and axes != (None,):
+            raise ValueError(f"axes {axes} for a weight of shape "
+                             f"{tuple(w.shape)}")
+        p = nn.Parameter(w)
+        p.logical_axes = (("layers",) if repeats else ()) + tuple(axes)
+        return p
+
+    def dense(self, shape: tuple[int, ...], axes: tuple,
+              repeats: int | None = None,
               scale: float | None = None) -> nn.Parameter:
         """normal × scale, by default 1/√fan_in with fan_in = shape[0] of
         one layer's weight (`ParamFactory.dense`)."""
@@ -41,25 +59,27 @@ class ParamFactory:
             s = scale if scale is not None else \
                 1.0 / math.sqrt(max(shape[0], 1))
             w.normal_(generator=self.generator).mul_(s)
-        return nn.Parameter(w)
+        return self._param(w, axes, repeats)
 
-    def zeros(self, shape, repeats: int | None = None) -> nn.Parameter:
+    def zeros(self, shape, axes: tuple,
+              repeats: int | None = None) -> nn.Parameter:
         w = self._new(shape, repeats)
         if self.generator is not None:
             w.zero_()
-        return nn.Parameter(w)
+        return self._param(w, axes, repeats)
 
-    def ones(self, shape, repeats: int | None = None) -> nn.Parameter:
+    def ones(self, shape, axes: tuple,
+             repeats: int | None = None) -> nn.Parameter:
         w = self._new(shape, repeats)
         if self.generator is not None:
             w.fill_(1.0)
-        return nn.Parameter(w)
+        return self._param(w, axes, repeats)
 
     def embedding(self, vocab: int, d: int) -> nn.Parameter:
-        return self.dense((vocab, d), scale=0.02)
+        return self.dense((vocab, d), ("vocab", "embed"), scale=0.02)
 
-    def constant(self, shape, value, repeats: int | None = None
-                 ) -> nn.Parameter:
+    def constant(self, shape, axes: tuple, value,
+                 repeats: int | None = None) -> nn.Parameter:
         """One layer's weight of `shape` holding `value` (a float, or a
         tensor broadcast to `shape`), computed in float32 and rounded to
         the factory's dtype, as the reference's `jnp.full`, `log(tile(..))`
@@ -68,7 +88,36 @@ class ParamFactory:
         if self.generator is not None:
             w.copy_(torch.as_tensor(value, dtype=torch.float32).expand(
                 w.shape))
-        return nn.Parameter(w)
+        return self._param(w, axes, repeats)
+
+
+# The mesh train step (sharding/lm.py) splits a batch over ranks; a
+# statistic over all of the batch's tokens (the MoE's load-balancing terms)
+# then sums over the ranks. A process-wide setting, not a thread's: the
+# backward pass, and the recomputation of a checkpointed repeat, run on
+# autograd's own threads.
+_ALL_SUM: Callable | None = None
+
+
+@contextlib.contextmanager
+def split_batch(all_sum: Callable):
+    """While active, `token_mean` is over the whole batch of every rank:
+    all_sum(x) returns the sum of x over the ranks (differentiable)."""
+    global _ALL_SUM
+    prev, _ALL_SUM = _ALL_SUM, all_sum
+    try:
+        yield
+    finally:
+        _ALL_SUM = prev
+
+
+def token_mean(x: torch.Tensor) -> torch.Tensor:
+    """x.mean(0); under `split_batch`, the mean over every rank's rows."""
+    if _ALL_SUM is None:
+        return x.mean(0)
+    total = _ALL_SUM(torch.stack([x.sum(0), x.new_full(x.shape[1:],
+                                                         x.shape[0])]))
+    return total[0] / total[1]
 
 
 def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

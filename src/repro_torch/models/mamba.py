@@ -61,17 +61,18 @@ class Mamba(nn.Module):
                  repeats: int | None = None):
         super().__init__()
         d, di, n, r = dims.d_model, dims.d_inner, dims.d_state, dims.rank
-        self.in_proj = pf.dense((d, 2 * di), repeats)
-        self.conv_w = pf.dense((dims.d_conv, di), repeats, scale=0.5)
-        self.conv_b = pf.zeros((di,), repeats)
-        self.x_proj = pf.dense((di, r + 2 * n), repeats)
-        self.dt_proj = pf.dense((r, di), repeats)
-        self.dt_bias = pf.constant((di,), torch.log(torch.expm1(
+        self.in_proj = pf.dense((d, 2 * di), ("embed", "mlp"), repeats)
+        self.conv_w = pf.dense((dims.d_conv, di), ("conv", "mlp"), repeats,
+                               scale=0.5)
+        self.conv_b = pf.zeros((di,), ("mlp",), repeats)
+        self.x_proj = pf.dense((di, r + 2 * n), ("mlp", "ssm_in"), repeats)
+        self.dt_proj = pf.dense((r, di), ("ssm_rank", "mlp"), repeats)
+        self.dt_bias = pf.constant((di,), ("mlp",), torch.log(torch.expm1(
             torch.tensor(0.01, dtype=torch.float32))), repeats)
-        self.a_log = pf.constant((di, n), torch.log(
+        self.a_log = pf.constant((di, n), ("mlp", "ssm_state"), torch.log(
             torch.arange(1, n + 1, dtype=torch.float32)), repeats)
-        self.d_skip = pf.ones((di,), repeats)
-        self.out_proj = pf.dense((di, d), repeats)
+        self.d_skip = pf.ones((di,), ("mlp",), repeats)
+        self.out_proj = pf.dense((di, d), ("mlp", "embed"), repeats)
 
 
 class MambaState(NamedTuple):
@@ -88,6 +89,11 @@ def init_mamba_state(batch: int, dims: MambaDims, device=None,
                     dtype=torch.float32, device=device),
         torch.zeros(lead + (batch, dims.d_inner, dims.d_state),
                     dtype=torch.float32, device=device))
+
+
+def mamba_state_axes() -> MambaState:
+    """Logical axes of a (one layer's) MambaState."""
+    return MambaState(("batch", None, "mlp"), ("batch", "mlp", "ssm_state"))
 
 
 def _ssm_params(p, xz, dims: MambaDims):

@@ -13,9 +13,9 @@ class MLP(nn.Module):
     def __init__(self, pf: ParamFactory, d_model: int, d_ff: int,
                  repeats: int | None = None):
         super().__init__()
-        self.wi = pf.dense((d_model, d_ff), repeats)
-        self.wg = pf.dense((d_model, d_ff), repeats)
-        self.wo = pf.dense((d_ff, d_model), repeats)
+        self.wi = pf.dense((d_model, d_ff), ("embed", "mlp"), repeats)
+        self.wg = pf.dense((d_model, d_ff), ("embed", "mlp"), repeats)
+        self.wo = pf.dense((d_ff, d_model), ("mlp", "embed"), repeats)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

@@ -94,7 +94,7 @@ class Layer(nn.Module):
             raise ValueError(spec.mixer)
         if spec.channel not in CHANNELS:
             raise ValueError(spec.channel)
-        self.norm1 = pf.ones((cfg.d_model,), r)
+        self.norm1 = pf.ones((cfg.d_model,), ("embed",), r)
         if spec.mixer == "attn":
             self.attn = attn_lib.Attention(pf, attn_dims(cfg), r)
         elif spec.mixer == "xattn":
@@ -108,10 +108,10 @@ class Layer(nn.Module):
         else:
             self.slstm = xlstm_lib.SLSTM(pf, xlstm_dims(cfg), r)
         if spec.channel == "mlp":
-            self.norm2 = pf.ones((cfg.d_model,), r)
+            self.norm2 = pf.ones((cfg.d_model,), ("embed",), r)
             self.mlp = mlp_lib.MLP(pf, cfg.d_model, cfg.d_ff, r)
         elif spec.channel == "moe":
-            self.norm2 = pf.ones((cfg.d_model,), r)
+            self.norm2 = pf.ones((cfg.d_model,), ("embed",), r)
             self.moe = moe_lib.MoE(pf, moe_dims(cfg), r)
 
 
@@ -128,15 +128,52 @@ def _unbind_tree(module: nn.Module) -> dict:
     return out
 
 
-def _layer_weights(tree: dict, r: int, dtype, stored=frozenset()) -> dict:
-    """Layer r's weights of an `_unbind_tree`: norms (rms_norm reads them
-    in float32) and each mixer's `AS_STORED` leaves as stored, the rest in
-    `dtype`."""
-    return {name: _layer_weights(v, r, dtype, AS_STORED.get(name, ()))
-            if isinstance(v, dict)
-            else v[r] if name.startswith("norm") or name in stored
-            else v[r].to(dtype)
+def _pick(tree: dict, r: int) -> dict:
+    """Layer r's weights of an `_unbind_tree`, as stored."""
+    return {name: _pick(v, r) if isinstance(v, dict) else v[r]
             for name, v in tree.items()}
+
+
+def cast_layer(tree: dict, dtype, stored=frozenset()) -> dict:
+    """One layer's weights as its forward reads them: norms (rms_norm reads
+    them in float32) and each mixer's `AS_STORED` leaves as stored, the
+    rest in `dtype`."""
+    return {name: cast_layer(v, dtype, AS_STORED.get(name, ()))
+            if isinstance(v, dict)
+            else v if name.startswith("norm") or name in stored
+            else v.to(dtype)
+            for name, v in tree.items()}
+
+
+def _layer_weights(tree: dict, r: int, dtype) -> dict:
+    """Layer r's weights of an `_unbind_tree`, cast by `cast_layer`."""
+    return cast_layer(_pick(tree, r), dtype)
+
+
+def head_weight(cfg: ModelConfig, top, dtype: torch.dtype) -> torch.Tensor:
+    """The head as `output_logits` reads it, from `top(name)` (the stored
+    top-level leaves): in `dtype`, except a tied codebook head, read as
+    stored (the reference's einsum promotes)."""
+    if not cfg.tie_embeddings:
+        return top("lm_head").to(dtype)
+    return top("embed") if cfg.n_codebooks else top("embed").to(dtype)
+
+
+class OwnWeights:
+    """A model's own parameters as `train_forward` reads them: `top(name)`
+    a top-level leaf as stored, `layer(i, r)` repeat r of pattern position
+    i as the reference's nested dict, as stored (views of the stacks, so
+    that autograd stacks a stack's gradients once)."""
+
+    def __init__(self, model: "DecoderLM"):
+        self.model = model
+        self.stacks = [_unbind_tree(layer) for layer in model.layers]
+
+    def top(self, name: str) -> torch.Tensor:
+        return getattr(self.model, name)
+
+    def layer(self, i: int, r: int) -> dict:
+        return _pick(self.stacks[i], r)
 
 
 class DecoderLM(nn.Module):
@@ -148,18 +185,26 @@ class DecoderLM(nn.Module):
         self.cfg = cfg
         if cfg.n_codebooks:
             k = cfg.n_codebooks
-            self.embed = pf.dense((k, cfg.vocab_size, cfg.d_model), scale=0.02)
-            head = (k, cfg.d_model, cfg.vocab_size)   # fan-in K, as the ref's
+            self.embed = pf.dense((k, cfg.vocab_size, cfg.d_model),
+                                  ("codebooks", "vocab", "embed"), scale=0.02)
+            # fan-in K, as the reference's
+            head = ((k, cfg.d_model, cfg.vocab_size),
+                    ("codebooks", "embed", "vocab"))
         else:
             self.embed = pf.embedding(cfg.vocab_size, cfg.d_model)
-            head = (cfg.d_model, cfg.vocab_size)
-        self.final_norm = pf.ones((cfg.d_model,))
+            head = ((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
+        self.final_norm = pf.ones((cfg.d_model,), ("embed",))
         if not cfg.tie_embeddings:
-            self.lm_head = pf.dense(head)
+            self.lm_head = pf.dense(*head)
         if cfg.n_vision_tokens:
-            self.vision_proj = pf.dense((cfg.d_vision, cfg.d_model))
+            self.vision_proj = pf.dense((cfg.d_vision, cfg.d_model),
+                                        ("vision_embed", "embed"))
         self.layers = nn.ModuleList(Layer(pf, spec, cfg)
                                     for spec in cfg.pattern)
+        # each parameter's logical axes by name (loading replaces the
+        # Parameter objects, not their names)
+        self._axes = {name: p.logical_axes
+                      for name, p in self.named_parameters()}
         self._compute = None   # (key, weights in a compute dtype)
 
     @property
@@ -205,11 +250,12 @@ class DecoderLM(nn.Module):
         return self._compute[1]
 
     def head_weight(self, dtype: torch.dtype) -> torch.Tensor:
-        """The head as `output_logits` reads it: in `dtype`, except a tied
-        codebook head, read as stored (the reference's einsum promotes)."""
-        if not self.cfg.tie_embeddings:
-            return self.lm_head.to(dtype)
-        return self.embed if self.cfg.n_codebooks else self.embed.to(dtype)
+        """The head as `output_logits` reads it (`head_weight`)."""
+        return head_weight(self.cfg, functools.partial(getattr, self), dtype)
+
+    def param_axes(self) -> dict:
+        """Each parameter's logical axes, in the tree of `param_tree()`."""
+        return param_axes(self)
 
     def forward(self, tokens: torch.Tensor, mode: str = "train",
                 caches=None, pos: int | None = None,
@@ -264,35 +310,41 @@ class DecoderLM(nn.Module):
         return logits, caches, aux
 
     def _train_forward(self, tokens, compute_dtype, remat, vision):
-        """The reference's train forward under autograd: the embedding
-        gathered from the stored table, then cast (its gradient then sums
-        in the parameter's dtype); each layer's weights cast inside the
-        graph, as `w.astype(x.dtype)`; one checkpoint per repeat, as
-        `jax.checkpoint` over the scan body."""
-        cfg = self.cfg
-        x = embed_tokens({"embed": self.embed}, cfg, tokens).to(compute_dtype)
-        if vision is not None and cfg.n_vision_tokens:
-            vision = einsum("btd,de->bte", vision.to(compute_dtype),
-                            self.vision_proj.to(compute_dtype))
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        stacks = [_unbind_tree(layer) for layer in self.layers]
+        return train_forward(self.cfg, OwnWeights(self), tokens,
+                             compute_dtype, remat, vision)
 
-        def body(x, aux, r):
-            for i, spec in enumerate(cfg.pattern):
-                p = _layer_weights(stacks[i], r, compute_dtype)
-                x, _, a = apply_layer(spec, p, x, cfg, "train",
-                                      vision=vision)
-            return x, aux + a
 
-        for r in range(cfg.n_repeats):
-            if remat:
-                x, aux = checkpoint(body, x, aux, r, use_reentrant=False)
-            else:
-                x, aux = body(x, aux, r)
-        x = rms_norm(x, self.final_norm, cfg.norm_eps)
-        logits = output_logits({"head": self.head_weight(compute_dtype)},
-                               cfg, x)
-        return logits, None, aux
+def train_forward(cfg: ModelConfig, weights, tokens, compute_dtype, remat,
+                  vision):
+    """The reference's train forward under autograd over `weights` (an
+    `OwnWeights`, or the mesh step's gathering source in sharding/lm.py):
+    the embedding gathered from the stored table, then cast (its gradient
+    then sums in the parameter's dtype); each layer's weights read inside
+    the checkpointed body and cast there, as `w.astype(x.dtype)`; one
+    checkpoint per repeat, as `jax.checkpoint` over the scan body.
+    Returns (logits, None, aux)."""
+    x = embed_tokens({"embed": weights.top("embed")}, cfg,
+                     tokens).to(compute_dtype)
+    if vision is not None and cfg.n_vision_tokens:
+        vision = einsum("btd,de->bte", vision.to(compute_dtype),
+                        weights.top("vision_proj").to(compute_dtype))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def body(x, aux, r):
+        for i, spec in enumerate(cfg.pattern):
+            p = cast_layer(weights.layer(i, r), compute_dtype)
+            x, _, a = apply_layer(spec, p, x, cfg, "train", vision=vision)
+        return x, aux + a
+
+    for r in range(cfg.n_repeats):
+        if remat:
+            x, aux = checkpoint(body, x, aux, r, use_reentrant=False)
+        else:
+            x, aux = body(x, aux, r)
+    x = rms_norm(x, weights.top("final_norm"), cfg.norm_eps)
+    logits = output_logits(
+        {"head": head_weight(cfg, weights.top, compute_dtype)}, cfg, x)
+    return logits, None, aux
 
 
 # ------------------------------------------------------------ functional API
@@ -310,6 +362,29 @@ def empty(cfg: ModelConfig, device="cuda",
           dtype: torch.dtype = torch.float32) -> DecoderLM:
     """A DecoderLM with uninitialised parameters on `device`, to load."""
     return DecoderLM(cfg, ParamFactory(None, dtype, resolve_device(device)))
+
+
+def param_axes(model: DecoderLM) -> dict:
+    """The logical axes of `model`'s parameters in the tree of its
+    `param_tree()` (the reference's axes tree)."""
+    tree: dict = {}
+    for name, axes in model._axes.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = axes
+    tree["layers"] = tuple(tree["layers"][str(i)]
+                           for i in range(len(model.layers)))
+    return tree
+
+
+def abstract_params(cfg: ModelConfig, dtype: torch.dtype = torch.float32):
+    """(parameter tree, axes tree) of `cfg` on the "meta" device: the
+    shapes and dtypes of `init_params`, nothing allocated (the dry run's
+    path)."""
+    model = DecoderLM(cfg, ParamFactory(None, dtype, torch.device("meta")))
+    return model.param_tree(), param_axes(model)
 
 
 def init_layer_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
@@ -333,11 +408,37 @@ def init_layer_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda"):
-    """Tuple over pattern positions; leaves stacked [R, ...]."""
-    device = resolve_device(device)
+    """Tuple over pattern positions; leaves stacked [R, ...] (on "meta",
+    shapes only)."""
+    device = (torch.device("meta") if str(device) == "meta"
+              else resolve_device(device))
     return tuple(init_layer_cache(spec, cfg, batch, max_len, dtype, device,
                                   cfg.n_repeats)
                  for spec in cfg.pattern)
+
+
+def layer_cache_axes(spec: LayerSpec):
+    """The logical axes of one pattern position's cache (`()` for
+    cross-attention)."""
+    if spec.mixer == "attn":
+        return attn_lib.kv_cache_axes()
+    if spec.mixer == "mamba":
+        return mamba_lib.mamba_state_axes()
+    if spec.mixer == "mlstm":
+        return xlstm_lib.mlstm_state_axes()
+    if spec.mixer == "slstm":
+        return xlstm_lib.slstm_state_axes()
+    return ()
+
+
+def cache_axes(cfg: ModelConfig):
+    """The logical axes of `init_cache`'s tree, "layers" leading each
+    stacked leaf."""
+    out = []
+    for spec in cfg.pattern:
+        ax = layer_cache_axes(spec)
+        out.append(type(ax)(*(("layers",) + a for a in ax)) if ax else ())
+    return tuple(out)
 
 
 def apply_layer(spec: LayerSpec, p, x, cfg: ModelConfig, mode: str,

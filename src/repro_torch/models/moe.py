@@ -8,7 +8,8 @@ expert's buffer [E, C, D], C a static capacity; an assignment past C is
 dropped. The slot is the count of earlier assignments to the same expert,
 found by a stable sort, so no [T, E, C] one-hot is formed. The reference's
 sharding constraints are layout hints with no effect on one device and are
-left out (they come with the LM mesh).
+left out: the mesh step computes on plain tensors (sharding/lm.py), and
+the aux's token means then span every rank's rows (`token_mean`).
 
 The dispatch and the combine are plain torch ops with no atomics, so a
 forward gives the same bits on every run on the card: the dispatch writes
@@ -26,7 +27,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from repro_torch.models.common import ParamFactory, einsum
+from repro_torch.models.common import ParamFactory, einsum, token_mean
 from repro_torch.models.mlp import silu
 
 
@@ -51,10 +52,11 @@ class MoE(nn.Module):
                  repeats: int | None = None):
         super().__init__()
         d, f, e = dims.d_model, dims.d_ff, dims.n_experts
-        self.router = pf.dense((d, e), repeats, scale=0.02)
-        self.wi = pf.dense((e, d, f), repeats)
-        self.wg = pf.dense((e, d, f), repeats)
-        self.wo = pf.dense((e, f, d), repeats)
+        self.router = pf.dense((d, e), ("embed", "experts"), repeats,
+                               scale=0.02)
+        self.wi = pf.dense((e, d, f), ("experts", "embed", "mlp"), repeats)
+        self.wg = pf.dense((e, d, f), ("experts", "embed", "mlp"), repeats)
+        self.wo = pf.dense((e, f, d), ("experts", "mlp", "embed"), repeats)
 
 
 def apply_moe(p, x: torch.Tensor, dims: MoEDims):
@@ -97,8 +99,8 @@ def _route(p, xt: torch.Tensor, dims: MoEDims):
     gate_w = torch.gather(probs, 1, gate_idx)
     gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
     ones = torch.zeros_like(probs.detach()).scatter_(1, gate_idx, 1.0)
-    frac = ones.mean(0)
-    aux = e * torch.sum(frac * probs.mean(0))
+    frac = token_mean(ones)
+    aux = e * torch.sum(frac * token_mean(probs))
     return gate_w, gate_idx, aux
 
 

@@ -68,18 +68,20 @@ class MLSTM(nn.Module):
                  repeats: int | None = None):
         super().__init__()
         d, di, h, dh = dims.d_model, dims.d_inner, dims.n_heads, dims.d_head
-        self.up_proj = pf.dense((d, 2 * di), repeats)
-        self.conv_w = pf.dense((dims.conv_kernel, di), repeats, scale=0.5)
-        self.conv_b = pf.zeros((di,), repeats)
-        self.wq = pf.dense((di, h, dh), repeats)
-        self.wk = pf.dense((di, h, dh), repeats)
-        self.wv = pf.dense((di, h, dh), repeats)
-        self.w_i = pf.dense((di, h), repeats, scale=0.02)
-        self.w_f = pf.dense((di, h), repeats, scale=0.02)
-        self.b_i = pf.zeros((h,), repeats)
-        self.b_f = pf.constant((h,), 3.0, repeats)
-        self.ln_scale = pf.ones((h, dh), repeats)
-        self.down_proj = pf.dense((di, d), repeats)
+        qkv = ("mlp", "q_heads", "head")
+        self.up_proj = pf.dense((d, 2 * di), ("embed", "mlp"), repeats)
+        self.conv_w = pf.dense((dims.conv_kernel, di), ("conv", "mlp"),
+                               repeats, scale=0.5)
+        self.conv_b = pf.zeros((di,), ("mlp",), repeats)
+        self.wq = pf.dense((di, h, dh), qkv, repeats)
+        self.wk = pf.dense((di, h, dh), qkv, repeats)
+        self.wv = pf.dense((di, h, dh), qkv, repeats)
+        self.w_i = pf.dense((di, h), ("mlp", "q_heads"), repeats, scale=0.02)
+        self.w_f = pf.dense((di, h), ("mlp", "q_heads"), repeats, scale=0.02)
+        self.b_i = pf.zeros((h,), ("q_heads",), repeats)
+        self.b_f = pf.constant((h,), ("q_heads",), 3.0, repeats)
+        self.ln_scale = pf.ones((h, dh), ("q_heads", "head"), repeats)
+        self.down_proj = pf.dense((di, d), ("mlp", "embed"), repeats)
 
 
 class MLSTMState(NamedTuple):
@@ -100,6 +102,14 @@ def init_mlstm_state(batch: int, dims: XLSTMDims, device=None,
         torch.zeros(lead + (h, dh), **f32),
         torch.full(lead + (h,), M_INIT, **f32),
         torch.zeros(lead + (dims.conv_kernel - 1, dims.d_inner), **f32))
+
+
+def mlstm_state_axes() -> MLSTMState:
+    """Logical axes of a (one layer's) MLSTMState."""
+    return MLSTMState(("batch", "q_heads", "head", None),
+                      ("batch", "q_heads", "head"),
+                      ("batch", "q_heads"),
+                      ("batch", None, "mlp"))
 
 
 def _mlstm_cell(state: MLSTMState, qkvif):
@@ -187,13 +197,14 @@ class SLSTM(nn.Module):
         d, h = dims.d_model, dims.n_heads
         dh = d // h
         for g in GATES:
-            setattr(self, f"w_{g}", pf.dense((d, h, dh), repeats))
-            setattr(self, f"r_{g}", pf.dense((h, dh, dh), repeats,
-                                             scale=0.02))
-            setattr(self, f"b_{g}", pf.constant((h, dh),
-                                                1.0 if g == "f" else 0.0,
-                                                repeats))
-        self.out_proj = pf.dense((d, d), repeats)
+            setattr(self, f"w_{g}", pf.dense(
+                (d, h, dh), ("embed", "q_heads", "head"), repeats))
+            setattr(self, f"r_{g}", pf.dense(
+                (h, dh, dh), ("q_heads", "head", None), repeats, scale=0.02))
+            setattr(self, f"b_{g}", pf.constant(
+                (h, dh), ("q_heads", "head"), 1.0 if g == "f" else 0.0,
+                repeats))
+        self.out_proj = pf.dense((d, d), ("embed", "embed2"), repeats)
 
 
 class SLSTMState(NamedTuple):
@@ -212,6 +223,12 @@ def init_slstm_state(batch: int, dims: XLSTMDims, device=None,
     return SLSTMState(z(), z(), z(), torch.full(shape, M_INIT,
                                                  dtype=torch.float32,
                                                  device=device))
+
+
+def slstm_state_axes() -> SLSTMState:
+    """Logical axes of a (one layer's) SLSTMState."""
+    ax = ("batch", "q_heads", "head")
+    return SLSTMState(ax, ax, ax, ax)
 
 
 def _slstm_cell(p, state: SLSTMState, xg: dict):

@@ -3,7 +3,9 @@
 
 A request batch is prefilled in one pass, then decoded step-synchronously
 on the model's device. Eager PyTorch stands in for the reference's
-`jax.jit`; the caches are written in place.
+`jax.jit`; the caches are written in place. Over a `sharding.lm.ShardedLM`
+the engine serves on its mesh: each rank holds its blocks of the caches
+(placed by `cache_axes`), every rank gets the whole batch's tokens.
 """
 from __future__ import annotations
 
@@ -49,8 +51,14 @@ class ServeEngine:
         cfg = self.cfg
         device = self.params.device
         b, plen = prompts.shape[0], prompts.shape[-1]
-        caches = model_lib.init_cache(cfg, b, plen + n_new,
-                                      dtype=self._cache_dtype, device=device)
+        from repro_torch.sharding import lm as mesh_lm
+        if isinstance(self.params, mesh_lm.ShardedLM):
+            caches = mesh_lm.init_local_cache(self.params, b, plen + n_new,
+                                              self._cache_dtype)
+        else:
+            caches = model_lib.init_cache(cfg, b, plen + n_new,
+                                          dtype=self._cache_dtype,
+                                          device=device)
         toks = torch.from_numpy(prompts.astype(np.int32)).to(device)
         vis = (None if vision is None else
                torch.from_numpy(np.asarray(vision, np.float32)).to(device))

@@ -9,7 +9,9 @@ technique applied to the training framework's own data plane.
 A checkpoint holds {"params", "opt", "data": {"step", "seed"}} under the
 reference's leaf names, so a run of either package resumes in the other;
 a restore loads into the model's parameters and the optimizer's tensors in
-place, on their device.
+place, on their device. Over a mesh (`sharding.lm.ShardedLM`) a save
+gathers the full arrays and rank 0 writes them; a restore cuts each
+leaf to this rank's block (the files hold no topology).
 """
 from __future__ import annotations
 
@@ -66,14 +68,19 @@ def train(step_fn: Callable, params, opt_state, stream: SyntheticTokenStream,
     """Generic loop: step_fn(params, opt, batch) -> (params, opt, metrics),
     `params` a `DecoderLM`, the batch {"tokens", "labels"} as CPU tensors
     (the step moves them; `put_batch` may first)."""
-    mgr = CheckpointManager(loop_cfg.ckpt_dir, keep=loop_cfg.keep)
+    from repro_torch.sharding import lm as mesh_lm
+    mesh = (mesh_lm.state_shardings(params, opt_state)
+            if isinstance(params, mesh_lm.ShardedLM) else None)
+    mgr = CheckpointManager(loop_cfg.ckpt_dir, keep=loop_cfg.keep,
+                            async_save=mesh is None)
     telemetry = Telemetry()
     start = 0
     if resume and mgr.latest_step() is not None:
         like = _checkpoint_state(params, opt_state,
                                  {"step": np.zeros((), np.int64),
                                   "seed": np.zeros((), np.int64)})
-        step0, state = mgr.restore(like)
+        step0, state = mgr.restore(like, shardings=mesh and {
+            **mesh, "data": {"step": None, "seed": None}})
         with torch.no_grad():
             for (_, dst), (_, arr) in zip(
                     flatten_with_paths({"params": like["params"],
@@ -113,8 +120,17 @@ def train(step_fn: Callable, params, opt_state, stream: SyntheticTokenStream,
             print(f"[loop] step {step} loss {float(metrics['loss']):.4f} "
                   f"({dt:.2f}s)")
         if loop_cfg.ckpt_every and (step + 1) % loop_cfg.ckpt_every == 0:
-            mgr.save(step + 1, _checkpoint_state(
+            state = _checkpoint_state(
                 params, opt_state, {"step": np.int64(stream.step),
-                                    "seed": np.int64(stream.cfg.seed)}))
+                                    "seed": np.int64(stream.cfg.seed)})
+            if mesh is not None:
+                state = {**mesh_lm.gather_tree(
+                    params.comm, {"params": state["params"],
+                                  "opt": state["opt"]}, mesh),
+                         "data": state["data"]}
+            if mesh is None or params.comm.rank == 0:
+                mgr.save(step + 1, state)
+            if mesh is not None:
+                params.comm.barrier()
     mgr.wait()
     return params, opt_state, telemetry

@@ -105,6 +105,20 @@ def init_opt_state(params, cfg: OptConfig) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def opt_state_axes(axes_tree, cfg: OptConfig):
+    """Logical axes of the optimizer state: the moments mirror the
+    parameters (an int8 leaf's `scale` drops the last axis, replicated over
+    the blocks), `step` a scalar marker."""
+    from repro_torch.sharding.rules import map_axes
+
+    def leaf(a):
+        if cfg.moments_dtype == "int8":
+            return {"q": a, "scale": a[:-1] + (None,)}
+        return a
+    moments = map_axes(leaf, axes_tree)
+    return {"m": moments, "v": moments, "step": (None,)}
+
+
 def global_norm(tree) -> torch.Tensor:
     """√(Σ x²) over the leaves in the reference's order, float32."""
     return torch.sqrt(sum(torch.sum(torch.square(x.float()))
@@ -118,14 +132,30 @@ def _at(tree, path: str):
     return tree
 
 
+class Rows:
+    """Where an int8 moment's blocks lie. On one device every leaf holds
+    whole rows; on a mesh (sharding/lm.py) a leaf whose last axis is
+    sharded gathers its rows for the update and keeps its own part."""
+
+    def gather(self, path: str, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def own(self, path: str, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
 @torch.no_grad()
-def adamw_update(grads, opt_state, params, cfg: OptConfig):
+def adamw_update(grads, opt_state, params, cfg: OptConfig,
+                 gnorm: torch.Tensor | None = None, rows: Rows = Rows()):
     """Returns (params, opt_state, {"lr", "grad_norm"}): `params` (a tree
     of tensors, e.g. `DecoderLM.param_tree()`) and the moments of
-    `opt_state` updated in place, and the state's step advanced."""
+    `opt_state` updated in place, and the state's step advanced. `gnorm`
+    (default: `global_norm(grads)`) and `rows` (int8 moments over whole
+    rows) are the mesh step's: a rank's leaves are its shards."""
     step = opt_state["step"] + 1
     lr = schedule(cfg, step)
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     # A true division: torch computes `float / tensor` as reciprocal · float.
     scale_clip = torch.clamp(
         gnorm.new_tensor(cfg.clip_norm) / torch.clamp(gnorm, min=1e-9),
@@ -135,30 +165,34 @@ def adamw_update(grads, opt_state, params, cfg: OptConfig):
     bc2 = 1 - b2 ** step.float()
     int8 = cfg.moments_dtype == "int8"
 
-    def load(leaf, sqrt_space=False):
+    def load(path, leaf, sqrt_space=False):
         if int8:
-            x = dequantize_i8(leaf["q"], leaf["scale"], cfg.quant_block)
+            x = dequantize_i8(rows.gather(path, leaf["q"]), leaf["scale"],
+                              cfg.quant_block)
             return x * x if sqrt_space else x
         return leaf
 
-    def store(leaf, x, sqrt_space=False):
+    def store(path, leaf, x, sqrt_space=False):
         if int8:
             x = torch.sqrt(x) if sqrt_space else x
             q, s = quantize_i8(x, cfg.quant_block)
-            leaf["q"].copy_(q)
+            leaf["q"].copy_(rows.own(path, q))
             leaf["scale"].copy_(s)
         else:
             leaf.copy_(x)
 
     for path, p in flatten_with_paths(params):
-        g = _at(grads, path).float() * scale_clip
+        g = (rows.gather(path, _at(grads, path)) if int8
+             else _at(grads, path)).float() * scale_clip
         m_leaf, v_leaf = _at(opt_state["m"], path), _at(opt_state["v"], path)
-        m = b1 * load(m_leaf) + (1 - b1) * g
-        v = b2 * load(v_leaf, sqrt_space=True) + (1 - b2) * g * g
+        m = b1 * load(path, m_leaf) + (1 - b1) * g
+        v = b2 * load(path, v_leaf, sqrt_space=True) + (1 - b2) * g * g
         del g
+        store(path, m_leaf, m)
+        store(path, v_leaf, v, sqrt_space=True)
+        if int8:
+            m, v = rows.own(path, m), rows.own(path, v)
         update = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        store(m_leaf, m)
-        store(v_leaf, v, sqrt_space=True)
         del m, v
         # Per-element trust bound: quantized v can undershoot for tiny
         # entries; bounding |update| keeps those elements signSGD-like.

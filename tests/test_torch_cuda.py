@@ -1702,3 +1702,45 @@ def test_full_width_cross_attention_gradients_on_card_equal_the_cpu(
         torch.testing.assert_close(got_g[name], w, rtol=1e-3,
                                    atol=1e-3 * w.abs().max().item(),
                                    msg=name)
+
+
+# ------------------------------------------------------------ the LM mesh
+
+def _mesh_jobs():
+    rng = np.random.default_rng(0)
+    train = {"arch": "qwen2-1.5b", "overrides": {"vocab_size": 64,
+                                                 "d_ff": 64},
+             "batch": {k: rng.integers(0, 64, (8, 16)).astype(np.int32)
+                       for k in ("tokens", "labels")},
+             "opt": dict(lr=1e-2, warmup_steps=1, decay_steps=10),
+             "model_axis": 2, "more": 4, "device": "cuda"}
+    serve = {"arch": "qwen2-1.5b", "model_axis": 2, "attn_dp": True,
+             "prompts": rng.integers(0, 128, (4, 8)).astype(np.int32),
+             "n_new": 6, "device": "cuda"}
+    return train, serve
+
+
+@pytest.mark.cuda
+def test_lm_mesh_step_and_sharded_decode_on_the_card(cuda_device):
+    """qwen2 .reduced() (vocab 64, d_ff 64) on a (2, 2) mesh of 4 ranks on
+    cuda:0 (gloo, collectives staged through host buffers), float32
+    compute, TF32 off: step 0's loss (rtol 1e-5), every gradient leaf
+    (1e-4 of its largest) and the grad norm against the single-device
+    card step, the parameters after it, four more steps lowering the loss;
+    and ServeEngine.generate over sharded caches (attn_dp: KV over batch
+    and seq) equal to one card's tokens."""
+    import lm_mesh_ranks as ranks
+    from repro_torch.launch import mesh as mesh_lib
+    train, serve = _mesh_jobs()
+    res = mesh_lib.run_ranks(ranks.run_jobs, 4, [("train", train),
+                                                 ("serve", serve)],
+                             timeout=600.0)
+    with _no_tf32():
+        want = ranks.one_device(train)
+        engine = ServeEngine(ranks.config(serve),
+                             ranks.model_for(serve, "cuda"),
+                             ServeConfig(batch=4), ranks.F32Step())
+        tokens = engine.generate(serve["prompts"], serve["n_new"])
+    ranks.hold_step([r[0] for r in res], want, 1e-4, "card (2, 2)")
+    for r in res:
+        np.testing.assert_array_equal(r[1]["tokens"], tokens)

@@ -40,6 +40,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import repro_torch.serve.engine, repro_torch.launch.serve\n"
         "import repro_torch.data.tokens, repro_torch.train.optim\n"
         "import repro_torch.train.loop, repro_torch.launch.train\n"
+        "import repro_torch.sharding.rules, repro_torch.sharding.lm\n"
+        "import repro_torch.launch.cells, repro_torch.launch.dryrun\n"
         "for arch in repro_torch.configs.all_archs():\n"
         "    repro_torch.configs.get_config(arch)\n"
         "bad = [m for m in sys.modules if m in ('jax', 'repro')\n"
