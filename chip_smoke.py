@@ -203,7 +203,9 @@ Phases, each reported on its own lines:
      into each leaf's block), step 0's loss and grad norm against the
      single-device port's (rtol 1e-4), losses finite and step 0's batch's
      lower after them, each rank's placed bytes equal to build_shardings'
-     prediction, its peak GB and step ms; (b) sharded-cache decode of B =
+     prediction, its peak GB and step ms, and its bytes sent in step 0
+     equal to a DryComm's count of the same step on "meta" (launch/
+     cells.py `dry_train_step`); (b) sharded-cache decode of B =
      4, P = 64 on the fresh weights, prefill logits (rtol 1e-4) and 8
      greedy tokens against one device's; (c) the parameters saved from the
      world of 4, restored onto a world of 2 and onto one device, every
@@ -212,6 +214,15 @@ Phases, each reported on its own lines:
      repro_torch.launch.dryrun --all; (e)
      rank 0's Telemetry through BlinkQLService ("mesh_telemetry_launches"
      of agg_scan_fused in the kernels' record);
+  3o. the step's cost accounting (between 3n and 4): qwen2-1.5b at full
+     width and depth, B = 8, T = 128, one f32 train step, one lowmem train
+     step and one decode step at P = 128, each run on the card under
+     launch/roofline.py's `count_flops` and torch's FlopCounterMode and on
+     "meta" under `count_flops`: the FLOPs equal, the products equal to
+     FlopCounterMode's, the traced peak within 10% of
+     torch.cuda.max_memory_allocated (after reset_peak_memory_stats, less
+     what was allocated before the phase); then each step timed alone
+     against the `Roofline`'s bound with the card's peaks;
   4. times: each kernel at the main path's shapes (agg_scan_fused and
      quantile_scan at G = 1, 6, 200 and 500) against its bound and its
      plain version, quantile_scan beside the yardstick agg_scan_fused +
@@ -4937,6 +4948,7 @@ def lm_mesh_rank(job) -> dict:
     import torch
     from repro_torch.checkpoint.ckpt import (CheckpointManager,
                                             flatten_with_paths)
+    from repro_torch.launch import cells
     from repro_torch.launch.cells import cell_rules
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import model as model_lib
@@ -5018,10 +5030,14 @@ def lm_mesh_rank(job) -> dict:
             if first is None:
                 first = batch
             before = sum(comm.seconds.values())
+            sent_before = dict(comm.bytes)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             _, opt, m = step(params, opt, batch)
             torch.cuda.synchronize()
+            if i == 0:
+                out["step0_bytes"] = {k: comm.bytes[k] - sent_before[k]
+                                      for k in sent_before}
             out["step_ms"].append(1e3 * (time.perf_counter() - t0))
             out["collective_ms"].append(
                 1e3 * (sum(comm.seconds.values()) - before))
@@ -5031,6 +5047,9 @@ def lm_mesh_rank(job) -> dict:
                           {"grad_norm": m["grad_norm"].item()})
         out["sent_bytes_a_step"] = {
             k: (comm.bytes[k] - sent[k]) / MESH_LM_STEPS for k in sent}
+        # the same step counted on "meta" by a DryComm (launch/roofline.py)
+        out["dry_bytes"] = cells.dry_train_step(
+            cfg, mesh, rules, step_cfg, opt_cfg, first, comm.rank).bytes
         again, _ = mesh_lm.loss_and_grads(params, cfg, first, step_cfg,
                                           grads=False)
         out["first_batch_after"] = again["loss"].item()
@@ -5170,6 +5189,16 @@ def phase_lm_mesh(torch, np, card: str, device="cuda") -> dict:
             raise AssertionError(f"(a): losses {r0['losses']}, step 0's "
                                  f"batch after them "
                                  f"{r0['first_batch_after']}")
+        for r in ranks:
+            if r["step0_bytes"] != r["dry_bytes"]:
+                raise AssertionError(f"(a): rank {r['rank']} sent "
+                                     f"{r['step0_bytes']} in step 0, a "
+                                     f"DryComm counts {r['dry_bytes']}")
+        log(f"  (a) step 0's bytes sent by each rank's MeshComm (gloo) equal "
+            f"a DryComm's count of the same step on meta: "
+            + "; ".join(f"rank {r['rank']} all_gather "
+                        f"{r['step0_bytes']['all_gather']}, all_to_all "
+                        f"{r['step0_bytes']['all_to_all']}" for r in ranks))
         full_bytes = sum(p.numel() * 4 for _, p in flatten_with_paths(
             model_lib.abstract_params(cfg)[0]))
         out["a"] = {
@@ -5183,7 +5212,8 @@ def phase_lm_mesh(torch, np, card: str, device="cuda") -> dict:
                                          "predicted_bytes", "opt_bytes",
                                          "peak_bytes", "step_ms", "place_s",
                                          "collective_ms",
-                                         "sent_bytes_a_step")}
+                                         "sent_bytes_a_step", "step0_bytes",
+                                         "dry_bytes")}
                       for r in ranks]}
         log(f"  (a) (2, 2) mesh, 4 ranks: step 0 loss {r0['losses'][0]:.6f} "
             f"(one device {one['loss']:.6f}, rel "
@@ -5286,6 +5316,213 @@ def phase_lm_mesh(torch, np, card: str, device="cuda") -> dict:
         f"sharded-cache decode equal, elastic restore bit-equal, "
         f"launch.train in a world of 2 and the dry run exit 0, the "
         f"telemetry through the fused kernel; {out['seconds']:.1f}s")
+    return out
+
+
+# ----------------------------------------------------------------- phase 3o
+
+COST_DECODE_POS = LM_PROMPT          # (c): the token after a P = 128 prompt
+COST_PEAK_RTOL = 0.10                # traced peak against the card's
+# phase 3j's peaks as PERF.md §6 records them, each read over a run from
+# the model's init: (a) six f32 steps, (c) three lowmem steps
+PHASE_3J_PEAK_GB = {"f32": 36.59, "lowmem": 21.27}
+
+
+def meta_like(torch, tree):
+    """Meta tensors of the shapes and dtypes of a batch dict."""
+    return {k: torch.empty(tuple(v.shape), dtype=v.dtype, device="meta")
+            for k, v in tree.items()}
+
+
+def counted_on_card(torch, roof, step, args, base: int) -> dict:
+    """One call of step(*args) on the card under roofline.count_flops and
+    torch.utils.flop_counter.FlopCounterMode together, the peak memory
+    reset just before it: the StepCost, FlopCounterMode's count, the
+    card's peak less `base` (what was allocated before the phase)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        cost = roof.step_flops(step, *args)
+    torch.cuda.synchronize()
+    return {"cost": cost, "flop_counter": fc.get_total_flops(),
+            "peak": torch.cuda.max_memory_allocated() - base}
+
+
+def timed_call(torch, fn) -> float:
+    """Host ms of fn() (`timed_steps`)."""
+    seconds = []
+    timed_steps(torch, fn, seconds)()
+    return 1e3 * seconds[0]
+
+
+def hold_costs(label: str, meta_cost, card: dict) -> dict:
+    """(a)-(c)'s gates: the FLOPs counted on the card equal those counted
+    on meta; the products equal FlopCounterMode's; the traced peak within
+    COST_PEAK_RTOL of the card's; the step ran on the device."""
+    got = card["cost"]
+    if got.memory["argument_bytes"] <= 0:
+        raise AssertionError(f"{label}: no argument on the device")
+    if (got.flops, got.dot_flops) != (meta_cost.flops, meta_cost.dot_flops):
+        raise AssertionError(f"{label}: FLOPs on the card {got.flops} "
+                             f"(products {got.dot_flops}), on meta "
+                             f"{meta_cost.flops} ({meta_cost.dot_flops})")
+    if got.dot_flops != card["flop_counter"]:
+        raise AssertionError(f"{label}: products {got.dot_flops}, "
+                             f"FlopCounterMode {card['flop_counter']}")
+    traced = meta_cost.memory["peak_bytes"]
+    gap = traced / card["peak"] - 1.0
+    if not abs(gap) <= COST_PEAK_RTOL:
+        raise AssertionError(f"{label}: traced peak {traced} against the "
+                             f"card's {card['peak']} ({gap:+.1%})")
+    return {"flops": got.flops, "dot_flops": got.dot_flops,
+            "flop_counter": card["flop_counter"], "op_bytes": got.bytes,
+            "meta_op_bytes": meta_cost.bytes, "ops": got.ops,
+            "traced_peak": traced, "card_peak": card["peak"],
+            "peak_gap": gap, "meta_memory": meta_cost.memory,
+            "card_argument_bytes": got.memory["argument_bytes"]}
+
+
+def cost_line(label: str, held: dict, roof_line, ms: float,
+              card: str) -> str:
+    mem = held["meta_memory"]
+    top = ", ".join(f"{k} {v / 1e9:.2f}" for k, v in
+                    list(mem["peak_by_op"].items())[:5])
+    return (f"  {label}: FLOPs {held['flops']:.6e} on the card = on meta "
+            f"(products {held['dot_flops']:.6e} = FlopCounterMode's "
+            f"{held['flop_counter']:.6e}); op bytes "
+            f"{held['op_bytes'] / 1e9:.2f} GB (meta "
+            f"{held['meta_op_bytes'] / 1e9:.2f}), {held['ops']} ops;"
+            f" traced peak {held['traced_peak'] / 1e9:.2f} GB against the "
+            f"card's {held['card_peak'] / 1e9:.2f} GB "
+            f"({held['peak_gap']:+.1%}; at the peak by op, GB: {top}); "
+            f"step {ms:.1f} ms against the roofline's {roof_line.bottleneck}"
+            f" bound {1e3 * roof_line.t_bound:.3f} ms (compute "
+            f"{1e3 * roof_line.t_compute:.3f}, memory "
+            f"{1e3 * roof_line.t_memory:.3f}), the bound "
+            f"{1e3 * roof_line.t_bound / ms:.2%} of the step, "
+            f"roofline_fraction at the step "
+            f"{roof_line.fraction_at(ms / 1e3):.2%} ({card}; H100 data-sheet "
+            f"peaks)")
+
+
+def phase_lm_costs(torch, np, card: str, device="cuda") -> dict:
+    """The step's cost accounting (repro_torch.launch.roofline) on
+    qwen2-1.5b at full width and depth, B = 8, T = 128 (phase 3j's shape):
+    (a) one f32-policy train step, (b) one lowmem train step, (c) one
+    decode step at pos = P = 128 over a cache of P + 64, each run on the
+    card under `count_flops` and FlopCounterMode and on "meta" under
+    `count_flops` (`step_flops`): the FLOPs equal, the products equal to
+    FlopCounterMode's, the traced peak within 10% of
+    torch.cuda.max_memory_allocated after reset_peak_memory_stats (less
+    what was allocated before the phase); then the step timed alone
+    against the Roofline's bound with the card's peaks."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import DataConfig, SyntheticTokenStream
+    from repro_torch.launch import roofline as roof
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.common import ParamFactory
+    from repro_torch.train import optim as optim_lib
+    from repro_torch.train import step as step_lib
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    opt_cfg = optim_lib.OptConfig(**LM_OPT)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    stream = SyntheticTokenStream(DataConfig(cfg.vocab_size, LM_TRAIN_SEQ,
+                                             LM_TRAIN_BATCH, seed=0))
+    out = {"base_bytes": base, "card": card}
+
+    def meta_model(dtype):
+        return model_lib.DecoderLM(cfg, ParamFactory(None, dtype,
+                                                     torch.device("meta")))
+
+    def train(policy: str):
+        step_cfg = step_lib.StepConfig(policy=policy)
+        step = step_lib.make_train_step(cfg, opt_cfg, step_cfg)
+        model = model_lib.init_params(
+            cfg, torch.Generator(device=device).manual_seed(0),
+            step_cfg.param_dtype)
+        opt = optim_lib.init_opt_state(model.param_tree(),
+                                       step_cfg.opt_config(opt_cfg))
+        batch = lm_batch(torch, stream)
+        meta = meta_model(step_cfg.param_dtype)
+        meta_cost = roof.step_flops(
+            step, meta, optim_lib.init_opt_state(
+                meta.param_tree(), step_cfg.opt_config(opt_cfg)),
+            meta_like(torch, batch))
+        on_card = counted_on_card(torch, roof, step, (model, opt, batch),
+                                  base)
+        held = hold_costs(f"({policy})", meta_cost, on_card)
+        nxt = lm_batch(torch, stream)
+        held["step_ms"] = timed_call(torch, lambda: step(model, opt, nxt))
+        r = roof.Roofline(cfg.name, f"train B={LM_TRAIN_BATCH} "
+                          f"T={LM_TRAIN_SEQ}", "one card", 1,
+                          meta_cost.flops, meta_cost.dot_flops,
+                          meta_cost.bytes, {}, roof.model_flops_for(
+                              cfg, "train", LM_TRAIN_SEQ, LM_TRAIN_BATCH))
+        held["roofline"] = r.to_dict()
+        held["fraction_at_step"] = r.fraction_at(held["step_ms"] / 1e3)
+        log(cost_line(f"({'a' if policy == 'f32' else 'b'}) {policy} "
+                      f"train step", held, r, held["step_ms"], card)
+            + f"; phase 3j's peak over its run "
+            f"{PHASE_3J_PEAK_GB[policy]:.2f} GB")
+        return held, model, opt
+
+    # (a) f32, then (c) decode on its model, then (b) lowmem
+    t0 = time.perf_counter()
+    out["f32"], model, opt = train("f32")
+    out["f32"]["seconds"] = time.perf_counter() - t0
+    del opt
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    step_cfg = step_lib.StepConfig()
+    decode = step_lib.make_decode_step(cfg, step_cfg)
+    max_len = LM_PROMPT + LM_NEW
+    tokens = torch.from_numpy(lm_prompts(np, cfg, LM_BATCH, 1, seed=3))
+    caches = model_lib.init_cache(cfg, LM_BATCH, max_len, torch.bfloat16,
+                                  device)
+    meta_cost = roof.step_flops(
+        decode, meta_model(torch.float32),
+        torch.empty(tuple(tokens.shape), dtype=tokens.dtype, device="meta"),
+        model_lib.init_cache(cfg, LM_BATCH, max_len, torch.bfloat16, "meta"),
+        COST_DECODE_POS)
+    on_card = counted_on_card(torch, roof, decode,
+                              (model, tokens.to(device), caches,
+                               COST_DECODE_POS), base)
+    held = hold_costs("(c) decode", meta_cost, on_card)
+    model._compute = None      # the step below casts anew, as (c) did
+    held["step_ms"] = timed_call(torch, lambda: decode(
+        model, tokens.to(device), caches, COST_DECODE_POS))
+    warm_ms = timed_call(torch, lambda: decode(
+        model, tokens.to(device), caches, COST_DECODE_POS))
+    r = roof.Roofline(cfg.name, f"decode B={LM_BATCH} P={LM_PROMPT}",
+                      "one card", 1, meta_cost.flops, meta_cost.dot_flops,
+                      meta_cost.bytes, {}, roof.model_flops_for(
+                          cfg, "decode", max_len, LM_BATCH))
+    held["roofline"] = r.to_dict()
+    held["fraction_at_step"] = r.fraction_at(held["step_ms"] / 1e3)
+    held["warm_ms"] = warm_ms
+    log(cost_line("(c) decode step (the weights cast within it)", held, r,
+                  held["step_ms"], card)
+        + f"; with the cast kept (the serving engine's steady state) "
+        f"{warm_ms:.1f} ms")
+    held["seconds"] = time.perf_counter() - t0
+    out["decode"] = held
+    del model, caches
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    out["lowmem"], model, opt = train("lowmem")
+    out["lowmem"]["seconds"] = time.perf_counter() - t0
+    del model, opt
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 3o ok: {cfg.name} at full width and depth, the f32, lowmem "
+        f"and decode steps counted on the card and on meta alike, the "
+        f"traced peaks within {COST_PEAK_RTOL:.0%} of the card's; "
+        f"{out['seconds']:.1f}s")
     return out
 
 
@@ -5863,6 +6100,7 @@ def kernels_record(worst, record, main, batch, ops_path, times, sample,
                 str(phi): sides for phi, sides in mut["compaction"].items()}
         if kname == "agg_scan_batched":
             entry.update(q32_ms=times[kname][1]["ms"],
+                         q32_bound_ms=times[kname][1]["bound_ms"],
                          max_abs_diff_vs_fused=max(worst[kname][2],
                                                    ops_path[kname][2]))
         kernels.append(entry)
@@ -5976,6 +6214,13 @@ def main() -> int:
         "2, launch.dryrun; its telemetry through BlinkQLService")
     lm_mesh = phase_lm_mesh(torch, np, card)
 
+    log("phase 3o: the step's cost accounting, qwen2-1.5b at full width: "
+        "launch.roofline's counted FLOPs, op bytes and traced peak of the "
+        "f32, lowmem and decode steps on the card and on meta, against "
+        "FlopCounterMode, torch.cuda.max_memory_allocated and the roofline "
+        "with the card's peaks")
+    lm_costs = phase_lm_costs(torch, np, card)
+
     log(f"phase 4: times at the main path's shapes ({card})")
     times = phase_times(torch, main["db"], card)
     l2_times = phase_times_l2(torch, sample["db"], card)
@@ -5991,7 +6236,7 @@ def main() -> int:
         f"phase 3j {lm_train['seconds']:.1f}s, phase 3k "
         f"{lm_moe['seconds']:.1f}s, phase 3l {lm_rec['seconds']:.1f}s, "
         f"phase 3m {lm_xc['seconds']:.1f}s, phase 3n "
-        f"{lm_mesh['seconds']:.1f}s)")
+        f"{lm_mesh['seconds']:.1f}s, phase 3o {lm_costs['seconds']:.1f}s)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -134,6 +134,10 @@ class Table:
     def host_column(self, name: str) -> np.ndarray:
         return self.columns_host[name]
 
+    def column_codes(self, name: str) -> torch.Tensor:
+        """The column on the table's device (a categorical's int32 codes)."""
+        return self.columns[name]
+
     def cardinality(self, name: str) -> int:
         return self.schema.column(name).cardinality
 

@@ -368,3 +368,13 @@ class Answer:
     # answer is bit-identical to an untraced one.
     trace: Any = None
     timings: dict[str, float] | None = None
+
+    @property
+    def max_rel_err(self) -> float:
+        """The largest stderr / |estimate| over the answer's groups that are
+        not exact (0.0 for a zero estimate; 0.0 when every group is exact)."""
+        errs = [
+            abs(g.stderr / g.estimate) if g.estimate else 0.0
+            for g in self.groups if not g.exact
+        ]
+        return max(errs) if errs else 0.0

@@ -18,6 +18,7 @@ from typing import Callable
 
 import torch
 from torch import nn
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 
 class ParamFactory:
@@ -109,6 +110,19 @@ def split_batch(all_sum: Callable):
         yield
     finally:
         _ALL_SUM = prev
+
+
+def phase_boundary(kind: str) -> None:
+    """Called where a step's phase begins: a repeat of the pattern
+    ("repeat": its forward, and its recompute under remat) or one leaf of
+    a loop over the parameters ("leaf"). An active dispatch mode with a
+    `phase_boundary` method (launch/roofline.py's counter, which takes a
+    step's peak memory phase by phase) is told; nothing happens
+    otherwise."""
+    for mode in _get_current_dispatch_mode_stack():
+        hook = getattr(mode, "phase_boundary", None)
+        if hook is not None:
+            hook(kind)
 
 
 def token_mean(x: torch.Tensor) -> torch.Tensor:

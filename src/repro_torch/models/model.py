@@ -41,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import common
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import moe as moe_lib
@@ -296,6 +297,7 @@ class DecoderLM(nn.Module):
                             w["vision_proj"])
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for r, layer_ws in enumerate(w["layers"]):
+            common.phase_boundary("repeat")
             for i, spec in enumerate(cfg.pattern):
                 # a cache's leaves at repeat r; () for a cross-attention
                 cache = type(caches[i])(*(leaf[r] for leaf in caches[i]))
@@ -331,6 +333,7 @@ def train_forward(cfg: ModelConfig, weights, tokens, compute_dtype, remat,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def body(x, aux, r):
+        common.phase_boundary("repeat")
         for i, spec in enumerate(cfg.pattern):
             p = cast_layer(weights.layer(i, r), compute_dtype)
             x, _, a = apply_layer(spec, p, x, cfg, "train", vision=vision)

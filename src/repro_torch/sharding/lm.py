@@ -9,11 +9,16 @@ model code of `models/` runs unchanged on plain tensors.
     CPU tensors; on the card a tensor is copied to the host, moved, and
     copied back, in plain view). Every sum over ranks is formed in rank
     order 0..N-1, in float32, so all ranks hold the same bits.
+  * `DryComm` — one rank's view of a mesh shape with no process group:
+    MeshComm's interface on "meta" tensors, counting the bytes MeshComm
+    would send (the dry run's cost count, launch/roofline.py).
   * `ShardedLM` — a DecoderLM's parameters placed on the mesh: one local
     block per leaf, `param_tree()` in the reference's tree.
   * `train_step` — the mesh train step. The global batch is split over all
     N ranks by rows (activations are not sharded over `model`: the model
-    axis' ranks take rows of their own). Each repeat of the pattern gathers
+    axis' ranks take rows of their own; a batch smaller than the world
+    gives each row to world / rows ranks, each carrying its share of the
+    mean). Each repeat of the pattern gathers
     its weights inside the checkpointed body (`_Gather`), whose backward
     sums the full gradients over the ranks (one all-to-all) and keeps the
     rank's own block, so every gradient comes back in its leaf's
@@ -67,9 +72,7 @@ class MeshComm:
         if grid.size != self.world:
             raise ValueError(f"the mesh holds {grid.size} ranks; the world "
                              f"{self.world}")
-        self.coords_of = [None] * self.world
-        for idx, r in np.ndenumerate(grid):
-            self.coords_of[int(r)] = dict(zip(self.names, map(int, idx)))
+        self.coords_of = _coords_of(grid, self.names)
         self.coords = self.coords_of[self.rank]
         self.seconds = {"all_gather": 0.0, "all_to_all": 0.0}
         self.bytes = {"all_gather": 0, "all_to_all": 0}
@@ -149,6 +152,69 @@ class MeshComm:
                 seen.add(key)
                 out.append(r)
         return out
+
+
+class DryComm(MeshComm):
+    """One rank's view of a mesh of `extents` ({axis: extent}) with no
+    process group: MeshComm's interface, for a dry count of the mesh's
+    steps on "meta" (launch/roofline.py `step_flops`). Its collectives
+    return tensors of the shapes MeshComm's return, on the input's device
+    and with no data, and count `bytes` as MeshComm counts them (each also
+    in `detail`: {"op", "bytes", "ranks"}). Ranks are numbered row-major
+    over the extents, as `init_device_mesh` numbers them."""
+
+    def __init__(self, extents, rank: int = 0):
+        self.mesh = rules_lib.mesh_extents(extents)
+        self.extents = dict(self.mesh)
+        self.names = list(self.extents)
+        grid = np.arange(math.prod(self.extents.values())).reshape(
+            tuple(self.extents.values()))
+        self.world = grid.size
+        if not 0 <= rank < self.world:
+            raise ValueError(f"rank {rank} is not in a world of "
+                             f"{self.world}")
+        self.rank = rank
+        self.coords_of = _coords_of(grid, self.names)
+        self.coords = self.coords_of[rank]
+        self.seconds = {"all_gather": 0.0, "all_to_all": 0.0}
+        self.bytes = {"all_gather": 0, "all_to_all": 0}
+        self.detail: list[dict] = []
+
+    def peers(self, over: str | None = None) -> list[int]:
+        if over is None:
+            return list(range(self.world))
+        return [r for r, c in enumerate(self.coords_of)
+                if all(c[a] == self.coords[a] for a in self.names
+                       if a != over)]
+
+    def _count(self, op: str, nbytes: int, ranks: int) -> None:
+        self.bytes[op] += nbytes
+        self.detail.append({"op": op, "bytes": nbytes, "ranks": ranks})
+
+    def all_gather(self, t: torch.Tensor,
+                   over: str | None = None) -> list[torch.Tensor]:
+        host = _bytes(t)
+        peers = self.peers(over)
+        self._count("all_gather", host.numel(), len(peers))
+        return [torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                for _ in peers]
+
+    def all_to_all(self, send: torch.Tensor) -> torch.Tensor:
+        host = send.detach().float().contiguous()
+        self._count("all_to_all", host.numel() * 4, self.world)
+        return torch.empty(host.shape, dtype=torch.float32,
+                           device=send.device)
+
+    def barrier(self) -> None:
+        pass
+
+
+def _coords_of(grid: np.ndarray, names: list) -> list[dict]:
+    """Each rank's coordinates {axis: index} on a grid of ranks."""
+    out = [None] * grid.size
+    for idx, r in np.ndenumerate(grid):
+        out[int(r)] = dict(zip(names, map(int, idx)))
+    return out
 
 
 def _unbytes(b: torch.Tensor, dtype, shape) -> torch.Tensor:
@@ -339,6 +405,7 @@ class ShardedLM:
             dst = dict(flatten_with_paths(model.param_tree()))
             with torch.no_grad():
                 for path, t in self.local.items():
+                    common.phase_boundary("leaf")
                     dst[path].copy_(gather_full(self.comm, [t],
                                                 [self.spec[path]])[0])
             self._gathered = (key, model)
@@ -431,8 +498,11 @@ def global_norm(params: ShardedLM, grads: dict) -> torch.Tensor:
     once (in rank order), the leaves in the reference's order."""
     comm = params.comm
     paths = list(params.local)
-    sums = torch.stack([torch.sum(torch.square(grads[p].float()))
-                        for p in paths])
+    sums = []
+    for p in paths:
+        common.phase_boundary("leaf")
+        sums.append(torch.sum(torch.square(grads[p].float())))
+    sums = torch.stack(sums)
     parts = comm.all_gather(sums)
     total = None
     for i, path in enumerate(paths):
@@ -443,13 +513,19 @@ def global_norm(params: ShardedLM, grads: dict) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def local_rows(n: int, comm: MeshComm) -> slice:
-    """Rank r's rows of a batch of n split over the whole world."""
-    if n % comm.world:
-        raise ValueError(f"a batch of {n} does not split over "
-                         f"{comm.world} ranks")
-    b = n // comm.world
-    return slice(comm.rank * b, (comm.rank + 1) * b)
+def local_rows(n: int, comm: MeshComm) -> tuple[slice, float]:
+    """Rank r's rows of a batch of n split over the whole world, and the
+    share of the batch's mean they carry: n / world rows a rank; a batch
+    smaller than the world (the world a multiple of n) gives each row to
+    world / n ranks, each carrying 1 / world of the mean."""
+    if n % comm.world == 0:
+        b = n // comm.world
+        return slice(comm.rank * b, (comm.rank + 1) * b), b / n
+    if comm.world % n == 0:
+        r = comm.rank // (comm.world // n)
+        return slice(r, r + 1), 1 / comm.world
+    raise ValueError(f"a batch of {n} does not split over {comm.world} "
+                     f"ranks")
 
 
 def loss_and_grads(params: ShardedLM, cfg: ModelConfig, batch, step_cfg,
@@ -461,12 +537,11 @@ def loss_and_grads(params: ShardedLM, cfg: ModelConfig, batch, step_cfg,
     forward alone)."""
     comm = params.comm
     n = int(batch["tokens"].shape[0])
-    rows = local_rows(n, comm)
+    rows, share = local_rows(n, comm)
     local = {k: v[rows].to(params.device) for k, v in batch.items()}
     paths = list(params.local)
     # every rank holds the same number of rows: the global mean is the
     # ranks' mean, each rank's loss weighted by its share
-    share = (rows.stop - rows.start) / n
     with torch.set_grad_enabled(grads), common.split_batch(comm.all_sum):
         logits, _, aux = model_lib.train_forward(
             cfg, _GatheringWeights(params), local["tokens"],
@@ -497,7 +572,7 @@ def train_step(cfg: ModelConfig, opt_cfg, step_cfg):
             raise ValueError("the mesh step splits the batch over ranks: a "
                              "'global' MoE dispatch buffer would span it")
         metrics, grads = loss_and_grads(params, cfg, batch, step_cfg)
-        if not bool(torch.isfinite(metrics["loss"])):
+        if not optim_lib.loss_is_finite(metrics["loss"]):
             return params, opt_state, metrics
         _, opt_state, om = optim_lib.adamw_update(
             _unflatten(grads), opt_state, params.param_tree(),

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.checkpoint.ckpt import SEP, flatten_with_paths, map_leaves
+from repro_torch.models.common import phase_boundary
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,8 +122,19 @@ def opt_state_axes(axes_tree, cfg: OptConfig):
 
 def global_norm(tree) -> torch.Tensor:
     """√(Σ x²) over the leaves in the reference's order, float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for _, x in flatten_with_paths(tree)))
+    total = 0
+    for _, x in flatten_with_paths(tree):
+        phase_boundary("leaf")
+        total = total + torch.sum(torch.square(x.float()))
+    return torch.sqrt(total)
+
+
+def loss_is_finite(loss: torch.Tensor) -> bool:
+    """The steps' NaN guard: whether the loss is finite (read from the
+    device). A "meta" loss holds no data to guard (a dry count of the
+    step, launch/roofline.py) and passes, after the same test's ops."""
+    finite = torch.isfinite(loss)
+    return loss.is_meta or bool(finite)
 
 
 def _at(tree, path: str):
@@ -182,6 +194,7 @@ def adamw_update(grads, opt_state, params, cfg: OptConfig,
             leaf.copy_(x)
 
     for path, p in flatten_with_paths(params):
+        phase_boundary("leaf")
         g = (rows.gather(path, _at(grads, path)) if int8
              else _at(grads, path)).float() * scale_clip
         m_leaf, v_leaf = _at(opt_state["m"], path), _at(opt_state["v"], path)

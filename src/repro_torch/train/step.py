@@ -72,7 +72,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optim_lib.OptConfig,
             grads = iter(torch.autograd.grad(loss, leaves))
         metrics = {"loss": loss.detach(),
                    **{k: v.detach() for k, v in parts.items()}}
-        if not bool(torch.isfinite(metrics["loss"])):
+        if not optim_lib.loss_is_finite(metrics["loss"]):
             return params, opt_state, metrics
         grads = map_leaves(lambda _: next(grads), tree)
         _, opt_state, om = optim_lib.adamw_update(grads, opt_state, tree,

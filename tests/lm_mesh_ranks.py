@@ -15,6 +15,7 @@ import torch
 from repro_torch.checkpoint.ckpt import (CheckpointManager,
                                         flatten_with_paths)
 from repro_torch.configs import get_config
+from repro_torch.launch import cells
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import model as model_lib
 from repro_torch.serve.engine import ServeConfig, ServeEngine
@@ -100,7 +101,9 @@ def train_rank(job) -> dict:
                                               [params.spec[p]])[0])
                   for p, g in grads.items()}
     step = step_lib.make_train_step(cfg, opt_cfg, step_cfg)
+    sent = dict(comm.bytes)
     _, opt, m = step(params, opt, batch)
+    step_bytes = {k: comm.bytes[k] - sent[k] for k in sent}
     full = mesh_lm.gather_tree(comm, params.param_tree(),
                                params.sharding_tree())
     losses = [m["loss"].item()]
@@ -111,7 +114,10 @@ def train_rank(job) -> dict:
            "aux": metrics["aux"].item(), "grad_norm": m["grad_norm"].item(),
            "losses": losses, "placed_bytes": params.placed_bytes(),
            "blocks": {p: tuple(t.shape) for p, t in params.local.items()},
-           "rank": comm.rank}
+           "rank": comm.rank, "step_bytes": step_bytes,
+           "dry_bytes": cells.dry_train_step(
+               cfg, mesh, rules_for(job), step_cfg, opt_cfg, batch,
+               comm.rank).bytes}
     if comm.rank == 0:
         out["grads"] = full_grads
         out["params"] = {p: host(t) for p, t in flatten_with_paths(full)}

@@ -71,7 +71,13 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "assert hasattr(repro_torch.fault, 'FaultPlan')\n"
         "assert hasattr(repro_torch.sharding.placement, 'PlacementMap')\n"
         "assert hasattr(repro_torch.launch.roofline, 'scan_bytes_per_row')\n"
-        "assert not hasattr(repro_torch.launch.roofline, 'HBM_BW')\n"
+        "# the card's peaks, not the reference's TPU's (819e9 B/s HBM)\n"
+        "assert repro_torch.launch.roofline.HBM_BW == 3.35e12\n"
+        "assert repro_torch.launch.roofline.PEAK_FLOPS == 989.4e12\n"
+        "for name in ('count_flops', 'step_flops', 'StepCost', 'Roofline',\n"
+        "             'scan_hbm_seconds', 'extrapolate'):\n"
+        "    assert hasattr(repro_torch.launch.roofline, name), name\n"
+        "assert hasattr(repro_torch.sharding.lm, 'DryComm')\n"
         "assert hasattr(repro_torch.state, 'lm_params_from_reference')\n"
         "for name in ('DecoderLM', 'init_params', 'init_cache', 'forward',\n"
         "             'prefill', 'decode_step', 'loss_fn'):\n"

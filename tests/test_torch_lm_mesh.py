@@ -38,7 +38,11 @@ one device, at float32 compute:
     arrays) restored onto 2 ranks and onto one device bit for bit, and a
     checkpoint written by the reference's CheckpointManager onto 2 ranks;
   * launch.train in the world of 2: a checkpoint at step 2, then a run that
-    resumes from it.
+    resumes from it;
+  * 2 rows over the 4 ranks (each row on 2 ranks): the step as above;
+  * every train job's rank: the bytes its MeshComm sent in one step equal
+    a DryComm's count of the same step on "meta" (launch/cells.py
+    `dry_train_step`).
 """
 import dataclasses
 import functools
@@ -388,9 +392,14 @@ def worlds(tmp_path_factory):
            "jobs": {"train8": train8, "lowmem": lowmem,
                     "granite": granite_job(), "serve": serve_jobs()},
            "saved": saved, "ref_saved": ref_saved, "weights": weights}
+    # a batch of 2 rows over 4 ranks: each row on 2 ranks
+    rows2 = qwen_job(model_axis=2, more=1)
+    rows2["batch"] = {k: v[:2] for k, v in rows2["batch"].items()}
+    out["jobs"]["rows2"] = rows2
     out["world4"] = mesh_lib.run_ranks(
         ranks.run_jobs, 4, [("train", lowmem), ("train", out["jobs"]["granite"])]
-        + [("serve", j) for j in out["jobs"]["serve"]], timeout=JOIN_S)
+        + [("serve", j) for j in out["jobs"]["serve"]] + [("train", rows2)],
+        timeout=JOIN_S)
     ckpt = str(tmp / "launch")
     argv = ["--reduced", "--device", "cpu", "--batch", "4", "--seq", "16",
             "--ckpt-every", "2", "--ckpt-dir", ckpt]
@@ -462,6 +471,27 @@ def test_moe_step_on_2x2_stores_experts_over_model(worlds):
         for name in ("wi", "wg", "wo"):
             block = r["blocks"][f"layers/0/moe/{name}"]
             assert block[1] == e // 2, (name, block)
+
+
+def test_batch_smaller_than_the_world_splits_each_row_over_ranks(worlds):
+    """2 rows over 4 ranks: each row on 2 ranks, each carrying a quarter
+    of the mean; the step equals one device's."""
+    job = worlds["jobs"]["rows2"]
+    res = [r[4] for r in worlds["world4"]]
+    ranks.hold_step(res, ranks.one_device(job), 1e-4, "2 rows on (2, 2)")
+
+
+def test_dry_comm_counts_the_bytes_of_the_live_step(worlds):
+    """A DryComm's count of a rank's mesh train step on meta equals the
+    bytes the rank's MeshComm sent in the same step over gloo: (2, 4) f32,
+    (2, 2) lowmem (int8 rows gathered), (2, 2) MoE, 2 rows on 4 ranks."""
+    res = [r[0] for r in worlds["train8"]] + [
+        r[i] for r in worlds["world4"] for i in (0, 1, 4)]
+    assert len(res) == 20
+    for r in res:
+        assert r["step_bytes"] == r["dry_bytes"], r["rank"]
+        assert r["step_bytes"]["all_gather"] > 0
+        assert r["step_bytes"]["all_to_all"] > 0
 
 
 def test_sharded_cache_decode_gives_one_devices_tokens(worlds):
