@@ -205,15 +205,23 @@ Phases, each reported on its own lines:
      lower after them, each rank's placed bytes equal to build_shardings'
      prediction, its peak GB and step ms, and its bytes sent in step 0
      equal to a DryComm's count of the same step on "meta" (launch/
-     cells.py `dry_train_step`); (b) sharded-cache decode of B =
-     4, P = 64 on the fresh weights, prefill logits (rtol 1e-4) and 8
-     greedy tokens against one device's; (c) the parameters saved from the
-     world of 4, restored onto a world of 2 and onto one device, every
-     leaf's sha1 equal; (d) launch.train --arch xlstm-125m in the world of
-     2 (full width and depth, one step), and python -m
-     repro_torch.launch.dryrun --all; (e)
-     rank 0's Telemetry through BlinkQLService ("mesh_telemetry_launches"
-     of agg_scan_fused in the kernels' record);
+     cells.py `dry_train_step`); (b) sharded-cache serving of B = 4, P =
+     64 on the fresh weights, one layer's weights and cache gathered at a
+     time: each rank's prefill logits, its own rows alone, against those
+     rows of one device's (rtol 1e-4), its serving peak (the card's, the
+     step's arguments counted as count_flops counts them) within 10% of a
+     DryComm's traced count of the same prefill on "meta" (launch/
+     cells.py `dry_serve_step`), and 8 greedy tokens against one device's;
+     then qwen2-1.5b at full width and depth in lowmem (bfloat16) on the
+     same mesh: one prefill and one decode step, each rank's peak within
+     10% of meta's and below one whole copy of the parameters, with the
+     step ms and the bytes sent into all-gathers; (c) the parameters
+     saved from the world of 4, restored onto a world of 2 and onto one
+     device, every leaf's sha1 equal; (d) launch.train --arch xlstm-125m
+     in the world of 2 (full width and depth, one step), and python -m
+     repro_torch.launch.dryrun --all; (e) rank 0's Telemetry through
+     BlinkQLService ("mesh_telemetry_launches" of agg_scan_fused in the
+     kernels' record);
   3o. the step's cost accounting (between 3n and 4): qwen2-1.5b at full
      width and depth, B = 8, T = 128, one f32 train step, one lowmem train
      step and one decode step at P = 128, each run on the card under
@@ -4846,6 +4854,7 @@ MESH_LM_WORLD = 4
 MESH_LM_STEPS = 3         # (a): step 0, then two more
 MESH_SERVE_BATCH, MESH_SERVE_PROMPT, MESH_SERVE_NEW = 4, 64, 8   # (b)
 MESH_RTOL = 1e-4
+MESH_PEAK_RTOL = 0.10     # (b): a serving rank's peak against meta's
 # (d): the launcher in a world of 2 on xlstm-125m at full width and depth
 # (its 0.16B parameters keep the gathers short; qwen2's 28 layers took
 # 44.5 s there; a recurrent pattern through the mesh step on the card)
@@ -4984,20 +4993,25 @@ def lm_mesh_rank(job) -> dict:
                                                      sh["params_sds"])
         out["place_s"] = time.perf_counter() - t0
 
-        # (b) sharded-cache decode on the fresh weights
+        # (b) sharded-cache serving on the fresh weights: this rank's rows
+        # of the prefill logits, and its peak against meta's count
         prompts = mesh_prompts(np, cfg)
         t0 = time.perf_counter()
         caches = mesh_lm.init_local_cache(
             params, MESH_SERVE_BATCH, MESH_SERVE_PROMPT + MESH_SERVE_NEW)
-        out["cache_bytes"] = sum(
-            t.numel() * t.element_size() for _, _, t in
-            rules_lib.leaves_with_paths(model_lib.cache_axes(cfg),
-                                        caches.local))
-        logits, _ = step_lib.make_prefill_step(cfg, step_cfg)(
-            params, torch.from_numpy(prompts), caches)
-        if comm.rank == 0:
-            np.save(f"{job['tmp']}/mesh_logits.npy",
-                    logits.float().cpu().numpy())
+        out["cache_bytes"] = local_bytes(caches)
+        (logits, _), out["serve_peak"], out["prefill_ms"] = serving_peak(
+            torch, lambda: step_lib.make_prefill_step(cfg, step_cfg)(
+                params, torch.from_numpy(prompts), caches),
+            params.placed_bytes() + out["cache_bytes"])
+        out["serve_peak_meta"] = cells.dry_serve_step(
+            cfg, mesh, rules, step_cfg, torch.from_numpy(prompts),
+            MESH_SERVE_PROMPT + MESH_SERVE_NEW,
+            rank=comm.rank).memory["peak_bytes"]
+        _, rows = mesh_lm.batch_rows(params, MESH_SERVE_BATCH)
+        out["rows"] = (rows.start, rows.stop)
+        np.save(f"{job['tmp']}/mesh_logits_{comm.rank}.npy",
+                logits.float().cpu().numpy())
         del logits, caches
         engine = ServeEngine(cfg, params, ServeConfig(
             batch=MESH_SERVE_BATCH), step_cfg)
@@ -5007,7 +5021,6 @@ def lm_mesh_rank(job) -> dict:
         torch.cuda.synchronize()
         out["generate_s"] = time.perf_counter() - t1
         out["serve_s"] = time.perf_counter() - t0
-        params.drop_gathered()
         torch.cuda.empty_cache()
 
         # (a) the mesh train step
@@ -5068,7 +5081,115 @@ def lm_mesh_rank(job) -> dict:
         del full
         comm.barrier()
         out["save_s"] = time.perf_counter() - t0
+        del params, opt
+        torch.cuda.empty_cache()
+    # (b) qwen2-1.5b at full width and depth, lowmem, on the same mesh
+    out["full_depth"] = mesh_full_depth_serving(torch, np, comm, mesh,
+                                                device)
     return out
+
+
+def local_bytes(caches) -> int:
+    """Bytes of a rank's cache blocks (sharding/lm.py `MeshCaches`)."""
+    from repro_torch.checkpoint.ckpt import flatten_with_paths
+    return sum(t.numel() * t.element_size()
+               for _, t in flatten_with_paths(caches.local))
+
+
+def serving_peak(torch, fn, held: int) -> tuple:
+    """(fn(), the card's peak during it, its host ms): the peak is
+    max_memory_allocated after reset_peak_memory_stats, less what was
+    allocated before the call other than its arguments' `held` bytes (the
+    rank's placed parameters and cache blocks), as count_flops counts a
+    step's peak."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() - held
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = fn()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    return got, torch.cuda.max_memory_allocated() - base, ms
+
+
+def mesh_full_depth_serving(torch, np, comm, mesh, device) -> dict:
+    """(b)'s second part in a rank of the world of 4: qwen2-1.5b at full
+    width and depth under lowmem (bfloat16 parameters and compute,
+    bfloat16 caches), placed from one seed, then one prefill of B = 4, P
+    = 64 and one decode step: each step's peak on the card
+    (`serving_peak`) and on "meta" (`dry_serve_step`), host ms and the
+    bytes sent into all-gathers; the whole parameters' bytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import cells
+    from repro_torch.launch.cells import cell_rules
+    from repro_torch.models import model as model_lib
+    from repro_torch.sharding import lm as mesh_lm
+    from repro_torch.train import step as step_lib
+    cfg = get_config(LM_ARCH)
+    step_cfg = step_lib.StepConfig(policy="lowmem")
+    rules = cell_rules(cfg, mesh, False)
+    model = model_lib.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), torch.bfloat16)
+    whole = sum(p.numel() * p.element_size() for p in model.parameters())
+    params = mesh_lm.ShardedLM.place(model, comm, rules,
+                                     requires_grad=False)
+    del model
+    torch.cuda.empty_cache()
+    prompts = torch.from_numpy(mesh_prompts(np, cfg))
+    max_len = MESH_SERVE_PROMPT + MESH_SERVE_NEW
+    caches = mesh_lm.init_local_cache(params, MESH_SERVE_BATCH, max_len,
+                                      torch.bfloat16)
+    held = params.placed_bytes() + local_bytes(caches)
+    out = {"whole_bytes": whole, "placed_bytes": params.placed_bytes(),
+           "cache_bytes": local_bytes(caches)}
+    steps = (("prefill", None, prompts,
+              step_lib.make_prefill_step(cfg, step_cfg)),
+             ("decode", MESH_SERVE_PROMPT, prompts[:, -1:],
+              step_lib.make_decode_step(cfg, step_cfg)))
+    for name, pos, toks, step in steps:
+        sent = comm.bytes["all_gather"]
+        args = (params, toks, caches) + (() if pos is None else (pos,))
+        got, peak, ms = serving_peak(torch, lambda: step(*args), held)
+        if name == "decode" and not (got[0].shape == (
+                MESH_SERVE_BATCH, 1) and bool(
+                ((got[0] >= 0) & (got[0] < cfg.vocab_size)).all())):
+            raise AssertionError(f"(b) full depth: decode tokens "
+                                 f"{got[0]}")
+        if name == "prefill" and not bool(torch.isfinite(got[0]).all()):
+            raise AssertionError("(b) full depth: prefill logits not "
+                                 "finite")
+        del got
+        out[name] = {
+            "peak": peak, "ms": ms,
+            "sent_bytes": comm.bytes["all_gather"] - sent,
+            "meta_peak": cells.dry_serve_step(
+                cfg, mesh, rules, step_cfg, toks, max_len, pos,
+                torch.bfloat16, comm.rank).memory["peak_bytes"]}
+    del params, caches
+    torch.cuda.empty_cache()
+    return out
+
+
+def hold_serving_peaks(ranks) -> None:
+    """(b)'s memory gates on every rank: the 2-layer prefill's peak and
+    the full-depth lowmem prefill's and decode's within MESH_PEAK_RTOL of
+    meta's traced count, and each full-depth peak below one whole copy of
+    the parameters (the rank holds its blocks and one layer)."""
+    for r in ranks:
+        fd = r["full_depth"]
+        pairs = [("2-layer prefill", r["serve_peak"], r["serve_peak_meta"])]
+        pairs += [(f"full-depth {k}", fd[k]["peak"], fd[k]["meta_peak"])
+                  for k in ("prefill", "decode")]
+        for label, card, meta in pairs:
+            if not abs(card - meta) <= MESH_PEAK_RTOL * meta:
+                raise AssertionError(f"(b): rank {r['rank']}'s {label} peak "
+                                     f"{card} bytes on the card, {meta} "
+                                     f"traced on meta")
+        for k in ("prefill", "decode"):
+            if not fd[k]["peak"] < fd["whole_bytes"]:
+                raise AssertionError(f"(b): rank {r['rank']}'s full-depth "
+                                     f"{k} peak {fd[k]['peak']} bytes, the "
+                                     f"whole parameters {fd['whole_bytes']}")
 
 
 def lm_mesh_world2(job) -> dict:
@@ -5125,9 +5246,14 @@ def phase_lm_mesh(torch, np, card: str, device="cuda") -> dict:
     single-device port's step on the same seed (run here first, rtol
     1e-4), every loss finite, step 0's batch's loss lower after the steps;
     per rank its placed bytes equal to build_shardings' prediction, its
-    peak GB and its step ms. (b) sharded-cache decode on the same mesh and
-    the fresh weights: prefill logits of B = 4, P = 64 against the single
-    device's (rtol 1e-4), 8 greedy tokens equal. (c) the parameters saved
+    peak GB and its step ms. (b) sharded-cache serving on the same mesh
+    and the fresh weights: each rank's prefill logits of B = 4, P = 64,
+    its own rows alone, against those rows of the single device's (rtol
+    1e-4), its serving peak within 10% of meta's traced count
+    (`dry_serve_step`), 8 greedy tokens equal; then qwen2-1.5b at full
+    width and depth in lowmem, one prefill and one decode step, each
+    rank's peak within 10% of meta's and below the whole parameters'
+    bytes (`hold_serving_peaks`). (c) the parameters saved
     from the world of 4, restored onto a world of 2 and onto one device,
     bit-equal (sha1 of every leaf). (d) launch.train in the world of 2
     (MESH_LAUNCH_ARGS: xlstm-125m at full width and depth, one step, a
@@ -5237,9 +5363,18 @@ def phase_lm_mesh(torch, np, card: str, device="cuda") -> dict:
                 f" GB ({card}; 4 ranks share the card and the host: "
                 f"correctness, not scaling)")
         # (b)
-        got = np.load(f"{tmp}/mesh_logits.npy")
-        ratio = float(np.max(np.abs(got - one["logits"]) / (
-            MESH_RTOL * np.abs(one["logits"]) + MESH_RTOL)))
+        ratio = 0.0
+        for r in ranks:
+            lo, hi = r["rows"]
+            got = np.load(f"{tmp}/mesh_logits_{r['rank']}.npy")
+            want = one["logits"][lo:hi]
+            if got.shape != want.shape or hi - lo >= MESH_SERVE_BATCH:
+                raise AssertionError(f"(b): rank {r['rank']}'s prefill "
+                                     f"logits {got.shape}, its rows "
+                                     f"{lo}:{hi} of one device's "
+                                     f"{one['logits'].shape}")
+            ratio = max(ratio, float(np.max(np.abs(got - want) / (
+                MESH_RTOL * np.abs(want) + MESH_RTOL))))
         if not ratio <= 1.0:
             raise AssertionError(f"(b): prefill logits off, worst ratio "
                                  f"{ratio} of rtol/atol {MESH_RTOL}")
@@ -5247,15 +5382,37 @@ def phase_lm_mesh(torch, np, card: str, device="cuda") -> dict:
             if not np.array_equal(r["tokens"], one["tokens"]):
                 raise AssertionError(f"(b): rank {r['rank']}'s tokens "
                                      f"differ from one device's")
+        hold_serving_peaks(ranks)
         out["b"] = {"logits_worst_ratio": ratio,
                     "generate_s": r0["generate_s"],
-                    "cache_bytes": [r["cache_bytes"] for r in ranks]}
-        log(f"  (b) sharded-cache decode: prefill logits [{MESH_SERVE_BATCH},"
-            f" {MESH_SERVE_PROMPT}, {cfg.vocab_size}] worst ratio "
-            f"{ratio:.3f} of rtol/atol {MESH_RTOL}; {MESH_SERVE_NEW} greedy "
-            f"tokens equal to one device's on every rank; cache blocks "
+                    "cache_bytes": [r["cache_bytes"] for r in ranks],
+                    "ranks": [{k: r[k] for k in (
+                        "rank", "rows", "serve_peak", "serve_peak_meta",
+                        "prefill_ms", "full_depth")} for r in ranks]}
+        log(f"  (b) sharded-cache serving: each rank's prefill logits, its "
+            f"own rows of [{MESH_SERVE_BATCH}, {MESH_SERVE_PROMPT}, "
+            f"{cfg.vocab_size}] ({', '.join(str(r['rows']) for r in ranks)}"
+            f"), worst ratio {ratio:.3f} of rtol/atol {MESH_RTOL} against "
+            f"one device's rows; {MESH_SERVE_NEW} greedy tokens equal to "
+            f"one device's on every rank; cache blocks "
             f"{[r['cache_bytes'] for r in ranks]} bytes a rank; generate "
             f"{r0['generate_s']:.2f}s")
+        for r in ranks:
+            fd = r["full_depth"]
+            log(f"    rank {r['rank']}: {MESH_LM_LAYERS}-layer f32 prefill "
+                f"peak {r['serve_peak'] / 1e9:.4f} GB (meta "
+                f"{r['serve_peak_meta'] / 1e9:.4f}), {r['prefill_ms']:.0f} "
+                f"ms; {LM_ARCH} full depth lowmem: placed "
+                f"{fd['placed_bytes'] / 1e9:.4f} GB + caches "
+                f"{fd['cache_bytes'] / 1e9:.4f} GB of a whole "
+                f"{fd['whole_bytes'] / 1e9:.4f} GB; "
+                + "; ".join(
+                    f"{k} peak {fd[k]['peak'] / 1e9:.4f} GB (meta "
+                    f"{fd[k]['meta_peak'] / 1e9:.4f}), {fd[k]['ms']:.0f} ms, "
+                    f"sent into all-gathers "
+                    f"{fd[k]['sent_bytes'] / 1e9:.4f} GB"
+                    for k in ("prefill", "decode"))
+                + f" ({card}; 4 ranks share the card and the host)")
         # (c) and (d): the world of 2
         t0 = time.perf_counter()
         two = mesh_lib.run_ranks(lm_mesh_world2, 2, {
@@ -5313,7 +5470,8 @@ def phase_lm_mesh(torch, np, card: str, device="cuda") -> dict:
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 3n ok: {cfg.name}'s widths on a (2, 2) mesh of 4 ranks "
         f"({MESH_LM_LAYERS} layers): the mesh step held to one device's, "
-        f"sharded-cache decode equal, elastic restore bit-equal, "
+        f"sharded-cache serving equal, its peaks held to meta's at full "
+        f"depth, elastic restore bit-equal, "
         f"launch.train in a world of 2 and the dry run exit 0, the "
         f"telemetry through the fused kernel; {out['seconds']:.1f}s")
     return out

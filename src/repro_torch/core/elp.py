@@ -9,8 +9,9 @@ resolution — the resolution K_q that meets the query's error or time bound:
   * Latency profile: t(rows_read) is modeled linear (paper assumption,
     calibrated on small resolutions); pick the largest K with t(K) ≤ bound.
 
-On the card the latency model is bytes-scanned/BW_eff + t0 — the same linear
-form, calibrated from scan times taken with the device synchronised.
+The port's scans read the whole block whatever K is (rows above K are
+masked), so its probes time the largest resolution's scan: the engine fits
+them there (`fit_whole_block`), not at the probed prefixes.
 """
 from __future__ import annotations
 
@@ -61,6 +62,18 @@ def fit_latency(rows: Sequence[float], times: Sequence[float]) -> LatencyModel:
     res_a = float(np.sum((a0 * r - t) ** 2))
     res_b = float(np.sum((b0 - t) ** 2))
     return LatencyModel(a0, 0.0) if res_a <= res_b else LatencyModel(0.0, b0)
+
+
+def fit_whole_block(rows: float, times: Sequence[float]) -> LatencyModel:
+    """t = a·rows through the origin, for probes that all read `rows`.
+
+    Every probe's scan read the whole block, the largest resolution's
+    `rows`, whatever its K. Fitted at the probed prefixes instead, the
+    probes' spread, which is noise, became the slope, and the K admitted
+    moved between the smallest and the largest from run to run. Here the
+    mean time is the prediction at `rows`, so the largest K is admitted
+    whenever that scan fits the bound."""
+    return LatencyModel(float(np.mean(times)) / max(float(rows), 1.0), 0.0)
 
 
 def pick_k_for_error(fam: SampleFamily, n_probe_selected, n_required,

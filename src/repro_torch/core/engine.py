@@ -1475,10 +1475,12 @@ class BlinkDB:
     def _pick_k_for_time(self, table_name: str, q: Query,
                          phi: tuple[str, ...],
                          headroom_s: float = 0.0) -> float:
-        """§4.2 latency profile: calibrate t(rows) on the smallest
-        resolutions (scan times with the device synchronised), then pick
-        the largest K inside the bound. The fitted model is cached per
-        (table, family) and re-projected against each call's budget."""
+        """§4.2 latency profile: time scans on the smallest resolutions
+        (the device synchronised), then pick the largest K inside the bound.
+        Each of those scans reads the whole block, so the times are fitted
+        at the largest resolution's rows (`elp.fit_whole_block`). The model
+        is cached per (table, family) and re-projected against each call's
+        budget."""
         fam = self.families[table_name][phi]
         model = self._latency.get((table_name, phi))
         if model is None:
@@ -1489,8 +1491,8 @@ class BlinkDB:
                 fam, run_at_k, n_probes=self.config.probe_resolutions)
             # On a mesh every rank fits the slowest rank's times, so all
             # pick the same K.
-            model = elp_lib.fit_latency(
-                [p.rows_read for p in probes],
+            model = elp_lib.fit_whole_block(
+                max(fam.prefix_sizes),
                 exec_lib.agree_max([p.elapsed_s for p in probes], self._axes))
             self._latency[(table_name, phi)] = model
         return elp_lib.pick_k_for_time(fam, model, q.bound.seconds,

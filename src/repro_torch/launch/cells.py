@@ -146,6 +146,37 @@ def dry_train_step(cfg: ModelConfig, mesh, rules, step_cfg, opt_cfg, batch,
     return comm
 
 
+def dry_serve_step(cfg: ModelConfig, mesh, rules, step_cfg, tokens,
+                   max_len: int, pos: int | None = None,
+                   cache_dtype=torch.float32, rank: int = 0):
+    """`rank`'s mesh serving step of `cfg` on "meta" over a DryComm: a
+    prefill of `tokens`' shape and dtype (pos None) or a decode of them at
+    `pos`, the parameters placed by build_shardings and caches of
+    [batch, max_len] in `cache_dtype` by `cache_axes`; returns its
+    StepCost (launch/roofline.py `step_flops`: the traced peak, the bytes
+    the rank's MeshComm sends in the same step)."""
+    from repro_torch.launch import roofline
+    comm = mesh_lm.DryComm(rules_lib.mesh_extents(mesh), rank)
+    sh = step_lib.build_shardings(cfg, comm.extents, rules, step_cfg,
+                                  optim_lib.OptConfig())
+    params = rank_params(cfg, comm, rules, sh["params_sharding"],
+                         sh["params_sds"], False)
+    cache_sds = model_lib.init_cache(cfg, int(tokens.shape[0]), max_len,
+                                     cache_dtype, "meta")
+    axes = model_lib.cache_axes(cfg)
+    caches = mesh_lm.MeshCaches(
+        rank_blocks(comm, rules_lib.tree_shardings(comm.extents, rules, axes,
+                                                   cache_sds), cache_sds),
+        rules_lib.tree_pspecs(comm.extents, rules, axes, cache_sds))
+    toks = torch.empty(tuple(tokens.shape), dtype=tokens.dtype,
+                       device="meta")
+    if pos is None:
+        return roofline.step_flops(step_lib.make_prefill_step(cfg, step_cfg),
+                                   params, toks, caches, comm=comm)
+    return roofline.step_flops(step_lib.make_decode_step(cfg, step_cfg),
+                               params, toks, caches, pos, comm=comm)
+
+
 def build_cell(arch: str, shape_name: str, mesh, multi_pod: bool,
                policy: str | None = None, repeats: int | None = None,
                seq_len: int | None = None) -> Cell:

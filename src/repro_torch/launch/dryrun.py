@@ -8,11 +8,13 @@ assumptions) and the parameter counts, and writes a JSON under
 build/dryrun/<mesh>/<arch>__<shape>.json.
 
 The bytes are the placements at rest, what the rules give a rank to
-store. They are the port's training footprint's stored part (the mesh
-step gathers one layer at a time). For a serving shape they are not the
-port's serving footprint: its serving step gathers the whole model onto
-every rank (sharding/lm.py `serve_step`), so `fits_one_80gb_card` says
-only whether the placements fit.
+store: the stored part of the port's footprint in training and serving
+alike. Both steps hold the placements plus the one layer that runs (its
+weights gathered where it runs; a serving step also that layer's cache
+for the rank's rows, and a prefill the rank's rows of the logits;
+sharding/lm.py `train_step`, `serve_step`), so `fits_one_80gb_card`
+says whether the placements fit and `--costs`' traced peak whether the
+step does.
 
 With `--costs`, each cell also runs rank 0's step on "meta" under
 launch/roofline.py's counter (the cell's `fn`, over a `DryComm`) and adds
@@ -150,9 +152,9 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
         "attn_dp": cfg.n_heads % model_extent != 0,
         "per_rank_bytes": {**held, "total": per_rank},
         "per_rank_bytes_are": (
-            "the placements at rest" if shape.kind == "train" else
-            "the placements at rest only: the port's serving step gathers "
-            "the whole model onto every rank"),
+            "the placements at rest; the step holds them plus the one "
+            "layer that runs" + ("" if shape.kind == "train" else
+                                 " and its cache for the rank's rows")),
         "fits_one_80gb_card": per_rank <= CARD_BYTES,
         "model_flops": roof_lib.model_flops_for(
             cfg, shape.kind, shape.seq_len, shape.global_batch),
@@ -171,7 +173,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
                                           policy)))
         art["seconds"] = time.perf_counter() - t0
     print(f"[{arch} × {shape_name} @ {mesh_kind}] {cell.policy}: per rank "
-          + ("placed " if shape.kind == "train" else "placed (at rest) ")
+          + "placed "
           + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in held.items())
           + f" (of one 80 GB card: {per_rank / CARD_BYTES:.1%}); "
           f"model flops {art['model_flops']:.3e}", flush=True)

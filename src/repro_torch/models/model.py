@@ -177,6 +177,42 @@ class OwnWeights:
         return _pick(self.stacks[i], r)
 
 
+class CastWeights:
+    """A model's `compute_weights(dtype)` as `serve_forward` reads them:
+    `top(name)` a top-level leaf (the embedding, an untied head and
+    `vision_proj` cast once, the final norm as stored), `layer(i, r)`
+    repeat r of pattern position i already cast (`cast_layer` leaves it as
+    it is)."""
+
+    def __init__(self, model: "DecoderLM", dtype: torch.dtype):
+        self.model = model
+        self.w = model.compute_weights(dtype)
+
+    def top(self, name: str) -> torch.Tensor:
+        return self.w[name] if name in self.w else getattr(self.model, name)
+
+    def layer(self, i: int, r: int) -> dict:
+        return self.w["layers"][r][i]
+
+
+class StackedCaches:
+    """`init_cache`'s tree as `serve_forward` reads it: `layer(i, r)` the
+    cache of repeat r of pattern position i (views of the stacked leaves,
+    so attention writes its positions in place), `write(i, r, cache, new)`
+    a recurrent mixer's new state copied over its row."""
+
+    def __init__(self, caches):
+        self.caches = caches
+
+    def layer(self, i: int, r: int):
+        return type(self.caches[i])(*(leaf[r] for leaf in self.caches[i]))
+
+    def write(self, i: int, r: int, cache, new) -> None:
+        for row, leaf in zip(cache, new):
+            if leaf is not row:   # a recurrent mixer's new state
+                row.copy_(leaf)
+
+
 class DecoderLM(nn.Module):
     """The decoder. Build it with `init_params` (random, from a
     generator) or `empty(cfg, device)` followed by `load_state_dict`."""
@@ -238,21 +274,19 @@ class DecoderLM(nn.Module):
             self._compute = None   # free the old copy before casting anew
             stacks = [_unbind_tree(layer) for layer in self.layers]
             weights = {
-                # the codebooks' rows are summed as stored, then cast
+                # the codebooks' rows are summed as stored, then cast; a
+                # tied head reads this embedding (`head_weight`)
                 "embed": (self.embed if self.cfg.n_codebooks
                           else self.embed.to(dtype)),
-                "head": self.head_weight(dtype),
                 "layers": [[_layer_weights(stack, r, dtype)
                             for stack in stacks]
                            for r in range(self.cfg.n_repeats)]}
+            if not self.cfg.tie_embeddings:
+                weights["lm_head"] = self.lm_head.to(dtype)
             if self.cfg.n_vision_tokens:
                 weights["vision_proj"] = self.vision_proj.to(dtype)
             self._compute = (key, weights)
         return self._compute[1]
-
-    def head_weight(self, dtype: torch.dtype) -> torch.Tensor:
-        """The head as `output_logits` reads it (`head_weight`)."""
-        return head_weight(self.cfg, functools.partial(getattr, self), dtype)
 
     def param_axes(self) -> dict:
         """Each parameter's logical axes, in the tree of `param_tree()`."""
@@ -289,31 +323,46 @@ class DecoderLM(nn.Module):
 
     def _serve_forward(self, tokens, mode, caches, pos, compute_dtype,
                        vision):
-        cfg = self.cfg
-        w = self.compute_weights(compute_dtype)
-        x = embed_tokens(w, cfg, tokens).to(compute_dtype)
-        if vision is not None and cfg.n_vision_tokens:
-            vision = einsum("btd,de->bte", vision.to(compute_dtype),
-                            w["vision_proj"])
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for r, layer_ws in enumerate(w["layers"]):
-            common.phase_boundary("repeat")
-            for i, spec in enumerate(cfg.pattern):
-                # a cache's leaves at repeat r; () for a cross-attention
-                cache = type(caches[i])(*(leaf[r] for leaf in caches[i]))
-                x, new, a = apply_layer(spec, layer_ws[i], x, cfg, mode,
-                                        cache, pos, vision)
-                for row, leaf in zip(cache, new):
-                    if leaf is not row:   # a recurrent mixer's new state
-                        row.copy_(leaf)
-            aux = aux + a   # the last pattern position's (see forward)
-        x = rms_norm(x, self.final_norm, cfg.norm_eps)
-        logits = output_logits(w, cfg, x)
+        logits, aux = serve_forward(self.cfg, CastWeights(self, compute_dtype),
+                                    tokens, mode, StackedCaches(caches), pos,
+                                    compute_dtype, vision)
         return logits, caches, aux
 
     def _train_forward(self, tokens, compute_dtype, remat, vision):
         return train_forward(self.cfg, OwnWeights(self), tokens,
                              compute_dtype, remat, vision)
+
+
+def serve_forward(cfg: ModelConfig, weights, tokens, mode: str, caches,
+                  pos, compute_dtype, vision):
+    """The prefill or decode forward (under no_grad) over `weights` (a
+    `CastWeights`, or the mesh's gathering source in sharding/lm.py) and
+    `caches` (a `StackedCaches`, or the mesh's): `top(name)` and `layer(i,
+    r)` as `train_forward` reads them, each cast where it is read (a
+    no-op on weights already cast); a layer's cache taken by
+    `caches.layer(i, r)` just before it runs and handed back by
+    `caches.write(i, r, cache, new)` just after. Returns (logits, aux)."""
+    x = embed_tokens({"embed": weights.top("embed")}, cfg,
+                     tokens).to(compute_dtype)
+    if vision is not None and cfg.n_vision_tokens:
+        vision = einsum("btd,de->bte", vision.to(compute_dtype),
+                        weights.top("vision_proj").to(compute_dtype))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for r in range(cfg.n_repeats):
+        common.phase_boundary("repeat")
+        for i, spec in enumerate(cfg.pattern):
+            p = cast_layer(weights.layer(i, r), compute_dtype)
+            cache = caches.layer(i, r)
+            x, new, a = apply_layer(spec, p, x, cfg, mode, cache, pos,
+                                    vision)
+            del p   # the layer's weights go before the next are read
+            caches.write(i, r, cache, new)
+            del cache, new
+        aux = aux + a   # the last pattern position's (see forward)
+    x = rms_norm(x, weights.top("final_norm"), cfg.norm_eps)
+    logits = output_logits(
+        {"head": head_weight(cfg, weights.top, compute_dtype)}, cfg, x)
+    return logits, aux
 
 
 def train_forward(cfg: ModelConfig, weights, tokens, compute_dtype, remat,
@@ -525,7 +574,7 @@ def embed_tokens(weights: dict, cfg: ModelConfig, tokens):
 
 
 def output_logits(weights: dict, cfg: ModelConfig, x):
-    """The head over `weights` (`DecoderLM.compute_weights`): tied
+    """The head over `weights["head"]` (`head_weight`): tied
     `bsd,vd->bsv` or untied `bsd,dv->bsv`, in x's dtype; with codebooks
     `bsd,kdv->bksv` (untied) or `bsd,kvd->bksv` against the stored table
     (tied), in the dtype x and the table promote to, as jnp promotes."""
@@ -577,8 +626,13 @@ def decode_step(params: DecoderLM, cfg: ModelConfig, tokens, caches, pos,
     logits, caches, _ = forward(params, cfg, tokens, "decode", caches=caches,
                                 pos=pos, compute_dtype=compute_dtype,
                                 vision=vision)
-    nxt = torch.argmax(logits[..., -1, :], dim=-1).to(torch.int32)
-    return nxt[..., None], caches
+    return greedy(logits), caches
+
+
+def greedy(logits: torch.Tensor) -> torch.Tensor:
+    """The next tokens, int32 [..., 1], of logits [..., S, V]: the argmax
+    at the last position (the first maximum, as jnp.argmax)."""
+    return torch.argmax(logits[..., -1, :], dim=-1).to(torch.int32)[..., None]
 
 
 def prefill(params: DecoderLM, cfg: ModelConfig, tokens, caches,

@@ -5,7 +5,9 @@ A request batch is prefilled in one pass, then decoded step-synchronously
 on the model's device. Eager PyTorch stands in for the reference's
 `jax.jit`; the caches are written in place. Over a `sharding.lm.ShardedLM`
 the engine serves on its mesh: each rank holds its blocks of the caches
-(placed by `cache_axes`), every rank gets the whole batch's tokens.
+(placed by `cache_axes`), every rank gets the whole batch's tokens;
+prefill gives a rank its own rows' logits, whose first new tokens are
+gathered over the batch's axis.
 """
 from __future__ import annotations
 
@@ -52,7 +54,8 @@ class ServeEngine:
         device = self.params.device
         b, plen = prompts.shape[0], prompts.shape[-1]
         from repro_torch.sharding import lm as mesh_lm
-        if isinstance(self.params, mesh_lm.ShardedLM):
+        mesh = isinstance(self.params, mesh_lm.ShardedLM)
+        if mesh:
             caches = mesh_lm.init_local_cache(self.params, b, plen + n_new,
                                               self._cache_dtype)
         else:
@@ -64,9 +67,13 @@ class ServeEngine:
                torch.from_numpy(np.asarray(vision, np.float32)).to(device))
 
         logits, caches = self._prefill(self.params, toks, caches, vis)
-        # First new token comes from the last prefill position's logits.
+        # First new token comes from the last prefill position's logits
+        # (on a mesh: of this rank's rows, then gathered over the batch).
         cur = torch.argmax(logits[..., plen - 1, :], dim=-1)[..., None]
         cur = cur.to(torch.int32)
+        del logits
+        if mesh:
+            cur = mesh_lm.gather_rows(self.params, cur, b)
         out = [toks, cur]
         for t in range(n_new - 1):
             cur, caches = self._decode(self.params, cur, caches, plen + t,

@@ -28,13 +28,19 @@ model code of `models/` runs unchanged on plain tensors.
     block once, and an int8 moment whose last axis is sharded is updated
     on its gathered rows (the block absmax scales span the rows; they are
     kept whole, as the rules replicate them).
-  * `serve_step` — prefill and decode against sharded caches: a rank
-    computes the batch rows of its cache block (its data coordinate), over
-    the cache of those rows alone, gathered at the step from the ranks that
-    hold them (its `model` group), and writes back only its own block,
-    through its local tensor. The weights are gathered once into a whole
-    DecoderLM on every rank for serving (as `DecoderLM.compute_weights`
-    casts once): a serving rank holds the whole model, not its blocks.
+  * `serve_step` — prefill and decode against sharded caches, holding
+    what the train step holds: the rank's blocks and the one layer that
+    runs. A rank computes the batch rows of its cache block (its data
+    coordinate). `model.serve_forward` reads the top-level leaves gathered
+    once a call and each repeat's weights gathered just before its layer
+    runs and freed after it (`_GatheringWeights` without autograd); each
+    layer's cache for those rows is gathered just before the layer from
+    the ranks that hold them (its `model` group) and the rank's own block
+    written back just after, through its local tensor (`_RowCaches`).
+    Prefill returns the rank's own rows of the logits (`batch_rows`;
+    `gather_rows` gathers them over the batch's axis for a caller that
+    wants the whole batch); decode the whole batch's next tokens, gathered
+    over that axis alone.
   * `gather_tree` / `place_tree` — a state's blocks to full arrays and
     back (checkpoints hold full arrays: the files carry no topology).
 """
@@ -356,7 +362,6 @@ class ShardedLM:
                  spec: dict, shape: dict, rules):
         self.cfg, self.comm, self.rules = cfg, comm, rules
         self.local, self.spec, self.shape = local, spec, shape
-        self._gathered = None   # (key, DecoderLM) for serving
 
     @classmethod
     def place(cls, model: model_lib.DecoderLM, comm: MeshComm, rules,
@@ -389,28 +394,6 @@ class ShardedLM:
     def placed_bytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in self.local.values())
 
-    def drop_gathered(self) -> None:
-        """Free the serving copy of the full model."""
-        self._gathered = None
-
-    def gathered(self) -> model_lib.DecoderLM:
-        """The full model on this rank's device, gathered leaf by leaf and
-        kept until a block changes (serving)."""
-        key = tuple((t.data_ptr(), t._version) for t in self.local.values())
-        if self._gathered is None or self._gathered[0] != key:
-            self._gathered = None
-            dtype = self.local["embed"].dtype
-            model = model_lib.DecoderLM(self.cfg, common.ParamFactory(
-                None, dtype, self.device))
-            dst = dict(flatten_with_paths(model.param_tree()))
-            with torch.no_grad():
-                for path, t in self.local.items():
-                    common.phase_boundary("leaf")
-                    dst[path].copy_(gather_full(self.comm, [t],
-                                                [self.spec[path]])[0])
-            self._gathered = (key, model)
-        return self._gathered[1]
-
 
 def _nest(flat: dict) -> dict:
     """{"a/b/c": leaf} -> {"a": {"b": {"c": leaf}}}."""
@@ -434,13 +417,16 @@ def _unflatten(flat: dict) -> dict:
 
 
 class _GatheringWeights:
-    """`model.train_forward`'s weights source on the mesh: the top-level
-    leaves gathered at their first use (one collective), each repeat of a
-    pattern position gathered where its layer runs."""
+    """`model.train_forward`'s and `model.serve_forward`'s weights source
+    on the mesh: the top-level leaves gathered at their first use (one
+    collective), each repeat of a pattern position gathered where its
+    layer runs; under autograd (`gather_leaves`) for training, plain
+    (`gather_full`) for serving."""
 
-    def __init__(self, params: ShardedLM):
+    def __init__(self, params: ShardedLM, grad: bool = True):
         self.params = params
         self.comm = params.comm
+        self.gather = gather_leaves if grad else gather_full
         self._top = None
         self.stacks = {}   # path -> the local stack unbound over repeats
         for path, t in params.local.items():
@@ -451,9 +437,9 @@ class _GatheringWeights:
         if self._top is None:
             paths = [p for p in self.params.local
                      if not p.startswith("layers" + SEP)]
-            full = gather_leaves(self.comm,
-                                 [self.params.local[p] for p in paths],
-                                 [self.params.spec[p] for p in paths])
+            full = self.gather(self.comm,
+                               [self.params.local[p] for p in paths],
+                               [self.params.spec[p] for p in paths])
             self._top = dict(zip(paths, full))
         return self._top[name]
 
@@ -461,8 +447,8 @@ class _GatheringWeights:
         prefix = f"layers{SEP}{i}{SEP}"
         paths = [p for p in self.stacks if p.startswith(prefix)]
         # a stack's spec leads with its "layers" dim, replicated
-        full = gather_leaves(self.comm, [self.stacks[p][r] for p in paths],
-                             [self.params.spec[p][1:] for p in paths])
+        full = self.gather(self.comm, [self.stacks[p][r] for p in paths],
+                           [self.params.spec[p][1:] for p in paths])
         return _nest({p[len(prefix):]: t for p, t in zip(paths, full)})
 
 
@@ -647,61 +633,103 @@ def init_local_cache(params: ShardedLM, batch: int, max_len: int,
     return MeshCaches(local, specs)
 
 
+def batch_rows(params: ShardedLM, batch: int) -> tuple[tuple, slice]:
+    """(the placement of a serving batch of `batch` rows by its "batch"
+    logical axis, this rank's rows of it: all of them where the rows
+    split over no axis)."""
+    comm = params.comm
+    spec = rules_lib.logical_to_pspec(("batch",), (batch,), params.rules,
+                                      comm.extents)
+    return spec, comm.slices(spec, (batch,))[0] if spec else slice(0, batch)
+
+
+def gather_rows(params: ShardedLM, block: torch.Tensor,
+                batch: int) -> torch.Tensor:
+    """The whole batch of a tensor whose leading dim holds this rank's
+    rows (`batch_rows`): one all-gather over the batch's mesh axis alone
+    (the ranks of a `model` group hold the same rows), over the world
+    where the rows span more than one axis."""
+    spec, _ = batch_rows(params, batch)
+    axes = rules_lib.spec_axes(spec)
+    return gather_full(params.comm, [block], [spec],
+                       over=axes[0] if len(axes) == 1 else None)[0]
+
+
+class _RowCaches:
+    """`model.serve_forward`'s caches on the mesh: `layer(i, r)` the cache
+    of repeat r of pattern position i for this rank's rows, whole along
+    every other dim, gathered just before the layer runs from the ranks
+    that hold the same rows (the group along the one mesh axis the cache
+    is split over besides the rows' `row_axes`; the world where it is
+    split over more); `write` copies a recurrent mixer's new state over
+    it and writes the rank's own block back into its local stack just
+    after."""
+
+    def __init__(self, comm: MeshComm, caches: MeshCaches, batch: int,
+                 rows: slice, row_axes: list):
+        self.comm, self.caches, self.batch = comm, caches, batch
+        self.row_axes = set(row_axes)
+        self.n_rows = rows.stop - rows.start
+
+    def layer(self, i: int, r: int):
+        local, specs = self.caches.local[i], self.caches.specs[i]
+        if not local:
+            return local   # cross-attention: no cache
+        if any(s[:1] not in ((), (None,)) for s in specs):
+            raise ValueError(f"pattern position {i}: a cache stack's "
+                             f"layers dim is sharded ({specs})")
+        split = {a for s in specs
+                 for a in rules_lib.spec_axes(s)} - self.row_axes
+        got = gather_full(self.comm, [t[r] for t in local],
+                          [s[1:] for s in specs],
+                          dims=set(range(1, max(t.dim() for t in local) - 1)),
+                          over=split.pop() if len(split) == 1 else None)
+        for g in got:
+            if g.shape[0] != self.n_rows:
+                raise ValueError(f"a cache block holds {g.shape[0]} batch "
+                                 f"rows; the step computes {self.n_rows}")
+        return type(local)(*got)
+
+    def write(self, i: int, r: int, cache, new) -> None:
+        for row, leaf in zip(cache, new):
+            if leaf is not row:   # a recurrent mixer's new state
+                row.copy_(leaf)
+        for t, spec, g in zip(self.caches.local[i], self.caches.specs[i],
+                              cache):
+            own = list(self.comm.slices(spec[1:],
+                                        (self.batch, *g.shape[1:])))
+            own[:1] = [slice(None)]   # g holds this rank's rows only
+            t[r].copy_(g[tuple(own)])
+
+
 def serve_step(cfg: ModelConfig, step_cfg, mode: str):
     """The mesh counterpart of make_prefill_step's and make_decode_step's
     steps over a ShardedLM and MeshCaches. prefill(params, tokens, caches,
-    vision) -> (logits of the whole batch, caches); decode(params, tokens,
-    caches, pos, vision) -> (next tokens of the whole batch, caches);
-    tokens (and vision) the whole batch, the same on every rank. A rank
-    computes the rows of its cache blocks over those rows' cache (gathered
-    at the step from the ranks that hold them) and writes back only its
-    own blocks."""
+    vision) -> (this rank's block of the logits: its rows by `batch_rows`,
+    every position, the whole vocabulary; caches); decode(params, tokens,
+    caches, pos, vision) -> (next tokens of the whole batch, gathered over
+    the batch's axis, caches); tokens (and vision) the whole batch, the
+    same on every rank. A rank runs `model.serve_forward` on its rows, one
+    layer's weights and one layer's cache gathered at a time (see the
+    module docstring), and writes back only its own cache blocks."""
 
     def run(params: ShardedLM, tokens, caches: MeshCaches, pos=None,
             vision=None):
-        comm = params.comm
+        model_lib.require_source(cfg, vision)
         batch = int(tokens.shape[0])
-        row_spec = rules_lib.logical_to_pspec(
-            ("batch",), (batch,), params.rules, comm.extents)
-        rows = comm.slices(row_spec, (batch,))[0] if row_spec else \
-            slice(0, batch)
-        axes = model_lib.cache_axes(cfg)
-        leaves = rules_lib.leaves_with_paths(axes, caches.local, caches.specs)
-        # the rows' cache, whole along every dim but the batch (dim 1 of a
-        # stacked leaf), from the ranks that hold the same rows
-        rest = [a for a in comm.names
-                if a not in rules_lib.spec_axes(row_spec)]
-        rows_cache = gather_full(
-            comm, [t for _, _, t, _ in leaves], [s for *_, s in leaves],
-            dims=set(range(max((t.dim() for *_, t, _ in leaves),
-                               default=0))) - {1},
-            over=rest[0] if len(rest) == 1 else None)
-        for g in rows_cache:
-            if g.shape[1] != rows.stop - rows.start:
-                raise ValueError(f"a cache block holds {g.shape[1]} batch "
-                                 f"rows; the step computes {rows}")
-        it = iter(rows_cache)
-        mine = rules_lib.map_axes(lambda _: next(it), axes)
-        model = params.gathered()
+        row_spec, rows = batch_rows(params, batch)
+        row_caches = _RowCaches(params.comm, caches, batch, rows,
+                                rules_lib.spec_axes(row_spec))
         device = params.device
         vis = None if vision is None else vision[rows].to(device)
         with torch.no_grad():
-            if mode == "prefill":
-                out, _ = model_lib.prefill(
-                    model, cfg, tokens[rows].to(device), mine,
-                    compute_dtype=step_cfg.compute_dtype, vision=vis)
-            else:
-                out, _ = model_lib.decode_step(
-                    model, cfg, tokens[rows].to(device), mine, pos,
-                    compute_dtype=step_cfg.compute_dtype, vision=vis)
-            for (_, _, t, spec), g in zip(leaves, rows_cache):
-                full = (g.shape[0], batch, *g.shape[2:])
-                own = list(comm.slices(spec, full))
-                if len(own) > 1:
-                    own[1] = slice(None)   # g holds this rank's rows only
-                t.copy_(g[tuple(own)])
-        whole = gather_full(comm, [out], [row_spec])[0]
-        return whole, caches
+            out, _ = model_lib.serve_forward(
+                cfg, _GatheringWeights(params, grad=False),
+                tokens[rows].to(device), mode, row_caches, pos,
+                step_cfg.compute_dtype, vis)
+        if mode == "prefill":
+            return out, caches
+        return gather_rows(params, model_lib.greedy(out), batch), caches
 
     if mode == "prefill":
         return lambda params, tokens, caches, vision=None: run(

@@ -83,8 +83,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optim_lib.OptConfig,
 
 
 def make_decode_step(cfg: ModelConfig, step_cfg: StepConfig = StepConfig()):
-    """serve_step(params, tokens, caches, pos, vision) -> (next tokens,
-    caches); over a ShardedLM and `sharding.lm.MeshCaches`, the mesh's."""
+    """serve_step(params, tokens, caches, pos, vision) -> (next tokens of
+    the whole batch, caches); over a ShardedLM and
+    `sharding.lm.MeshCaches`, the mesh's."""
     from repro_torch.sharding import lm as mesh_lm
     mesh_step = mesh_lm.serve_step(cfg, step_cfg, "decode")
 
@@ -98,8 +99,12 @@ def make_decode_step(cfg: ModelConfig, step_cfg: StepConfig = StepConfig()):
 
 
 def make_prefill_step(cfg: ModelConfig, step_cfg: StepConfig = StepConfig()):
-    """prefill_step(params, tokens, caches, vision) -> (logits, caches);
-    over a ShardedLM and `sharding.lm.MeshCaches`, the mesh's."""
+    """prefill_step(params, tokens, caches, vision) -> (logits, caches):
+    the logits of the whole batch [B, S, V] ([B, K, S, V] audio) on one
+    device; over a ShardedLM and `sharding.lm.MeshCaches`, the mesh's
+    step, whose logits are this rank's block of them: its rows by the
+    batch's placement (`sharding.lm.batch_rows`), every position, the
+    whole vocabulary (`sharding.lm.gather_rows` gathers the batch)."""
     from repro_torch.sharding import lm as mesh_lm
     mesh_step = mesh_lm.serve_step(cfg, step_cfg, "prefill")
 

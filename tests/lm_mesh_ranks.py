@@ -135,20 +135,33 @@ def train_rank(job) -> dict:
 
 
 def serve_rank(job) -> dict:
-    """ServeEngine.generate over the mesh (sharded caches) of the job's
-    prompts: the tokens, and every rank's cache block shapes."""
+    """The mesh's prefill of the job's prompts (this rank's block of the
+    logits and its rows), then ServeEngine.generate over the mesh (sharded
+    caches): the tokens, and every rank's cache block shapes."""
     device = on_device(job)
     cfg = config(job)
     mesh = make_host_mesh(job["model_axis"])
     comm = mesh_lm.MeshComm(mesh)
     params = mesh_lm.ShardedLM.place(model_for(job, device), comm,
                                      rules_for(job), requires_grad=False)
+    b, plen = job["prompts"].shape[0], job["prompts"].shape[-1]
+    prompts = torch.from_numpy(job["prompts"])
+    sent = dict(comm.bytes)
+    logits, _ = step_lib.make_prefill_step(cfg, F32Step())(
+        params, prompts, mesh_lm.init_local_cache(params, b, plen))
+    prefill_bytes = {k: comm.bytes[k] - sent[k] for k in sent}
+    _, rows = mesh_lm.batch_rows(params, b)
+    dry = cells.dry_serve_step(cfg, mesh, rules_for(job), F32Step(),
+                               prompts, plen, rank=comm.rank)
     engine = ServeEngine(cfg, params, ServeConfig(batch=job["prompts"].shape[0]),
                          F32Step())
     tokens = engine.generate(job["prompts"], job["n_new"])
     caches = mesh_lm.init_local_cache(params, job["prompts"].shape[0],
                                       job["prompts"].shape[-1] + job["n_new"])
-    return {"tokens": tokens, "rank": comm.rank,
+    return {"tokens": tokens, "rank": comm.rank, "logits": host(logits),
+            "rows": (rows.start, rows.stop), "prefill_bytes": prefill_bytes,
+            "dry_prefill_bytes": {k: int(v) for k, v in
+                                  dry.collective_bytes.items()},
             "cache_blocks": [tuple(t.shape) for _, _, t in
                              rules_lib.leaves_with_paths(
                                  model_lib.cache_axes(cfg), caches.local)],

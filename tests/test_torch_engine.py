@@ -175,6 +175,32 @@ def test_time_bound_calibrates_a_model(engines):
     assert ans.groups and ans.bound_met is None
 
 
+def test_time_bound_admits_the_largest_k_whatever_the_probe_noise(
+        engines, monkeypatch):
+    """The probes read the whole block whatever their K, so 0.3 ms between
+    their times is noise: a bound that the whole block's scan fits admits
+    the largest K, and a bound it misses admits a smaller one."""
+    _, port = engines
+    fam = port.families["sessions"][("OS",)]
+
+    def probes(f, run_at_k, n_probes=2):
+        ks = sorted(f.ks)[:n_probes]
+        return [elp.ProbeResult(k, f.prefix_sizes[f.ks.index(k)], 1.0, t)
+                for k, t in zip(ks, (0.0080, 0.0083))]
+
+    monkeypatch.setattr(elp, "run_probes", probes)
+    for seconds, largest in ((0.05, True), (0.004, False)):
+        port._latency.clear()
+        ans = port.query(P.Query("sessions", P.AggOp.COUNT, group_by=("OS",),
+                                 bound=P.TimeBound(seconds)))
+        model = port._latency[("sessions", ("OS",))]
+        assert model.b == 0.0
+        assert model.predict(max(fam.prefix_sizes)) == \
+            pytest.approx(0.00815)
+        assert (ans.sample_k == max(fam.ks)) is largest
+    port._latency.clear()
+
+
 def test_engine_defaults_to_cuda():
     if torch.cuda.is_available():
         assert P.BlinkDB().device.type == "cuda"

@@ -155,6 +155,20 @@ def test_pick_k_for_time_matches(families, a, b, seconds, headroom):
                                 headroom)
 
 
+@pytest.mark.parametrize("times", [(0.0080, 0.0083), (0.0083, 0.0080),
+                                   (0.0080, 0.0080)])
+def test_fit_whole_block_admits_the_largest_k_whatever_the_spread(families,
+                                                                  times):
+    """Probes that all read the whole block: their spread does not move K."""
+    _, pf = families
+    rows = max(pf.prefix_sizes)
+    model = elp.fit_whole_block(rows, times)
+    assert (model.a, model.b) == (float(np.mean(times)) / rows, 0.0)
+    assert model.predict(rows) == pytest.approx(float(np.mean(times)))
+    assert elp.pick_k_for_time(pf, model, 0.05) == max(pf.ks)
+    assert elp.pick_k_for_time(pf, model, 0.5 * min(times)) < max(pf.ks)
+
+
 def test_run_probes_visits_smallest_resolutions(families):
     _, pf = families
     seen = []

@@ -10,7 +10,11 @@ the batches equal the reference's `tree_pspecs` entry for entry; the
 per-rank parameter bytes of the production mesh; `model_flops_for`,
 `analytic_memory_bytes` and `input_specs`; the dry run and launch.train's
 --production-mesh on a world of 1; `constrain` on a DTensor in a world
-of 1.
+of 1; rank 0's serving step of a production decode cell and a prefill
+cell counted on "meta" over a DryComm at 2 and 3 pattern periods (its
+peak grows by one repeat's placed blocks: the rank holds its blocks and
+the one layer that runs), and `launch.dryrun --costs` of llama3-405b's
+decode_32k fitting one card.
 
 In spawned worlds of 8, 4 and 2 ranks (gloo, one spawn each, every case in
 it; tests/lm_mesh_ranks.py holds the rank targets), against the port on
@@ -31,9 +35,15 @@ one device, at float32 compute:
     where the gradient is at that level;
   * granite-moe `.reduced()` on (2, 2) with moe_ep: the experts stored over
     `model`, the MoE aux over the whole batch, one step as above;
-  * ServeEngine.generate on (2, 2) over sharded caches, qwen2 `.reduced()`
+  * the mesh's prefill on (2, 2) over sharded caches, qwen2 `.reduced()`
     (KV over batch and seq, attn_dp) and jamba's reduced period (KV and
-    Mamba states): tokens equal to one device's;
+    Mamba states), on the reference's init: each rank's block of the
+    logits is its own rows, equal to those of the port's prefill on one
+    device and of the reference's (rtol/atol 1e-4);
+  * ServeEngine.generate on (2, 2) over sharded caches, the same two:
+    tokens equal to one device's; each rank's bytes sent in the prefill
+    equal to a DryComm's count of it on "meta" (launch/cells.py
+    `dry_serve_step`);
   * elastic restore: a lowmem state saved from the world of 4 (full
     arrays) restored onto 2 ranks and onto one device bit for bit, and a
     checkpoint written by the reference's CheckpointManager onto 2 ranks;
@@ -67,7 +77,7 @@ from repro.sharding import rules as ref_rules
 from repro.train import optim as ref_optim
 from repro_torch.checkpoint.ckpt import CheckpointManager, flatten_with_paths
 from repro_torch.configs import SHAPES, all_archs, get_config, shapes_for
-from repro_torch.launch import cells, mesh as mesh_lib
+from repro_torch.launch import cells, dryrun, mesh as mesh_lib
 from repro_torch.launch import roofline
 from repro_torch.models import model as model_lib
 from repro_torch.sharding import rules as rules_lib
@@ -348,11 +358,15 @@ def qwen_job(**kw):
             "opt": OPT, **kw}
 
 
-def ref_weights():
-    """The reference's init (key 0) of the reduced qwen2, as numpy."""
-    cfg = dataclasses.replace(ref_get_config("qwen2-1.5b").reduced(),
-                              **OVERRIDES)
-    params, _ = ref_model.init_params(cfg, jax.random.PRNGKey(0))
+def ref_config(arch, overrides=None):
+    return dataclasses.replace(ref_get_config(arch).reduced(),
+                               **(overrides or {}))
+
+
+def ref_weights(arch="qwen2-1.5b", overrides=OVERRIDES):
+    """The reference's init (key 0) of a reduced arch, as numpy."""
+    params, _ = ref_model.init_params(ref_config(arch, overrides),
+                                      jax.random.PRNGKey(0))
     return jax.tree.map(np.asarray, params)
 
 
@@ -370,10 +384,10 @@ def serve_jobs():
     return [
         {"arch": "qwen2-1.5b", "model_axis": 2, "attn_dp": True,
          "prompts": rng.integers(0, 128, (4, 8)).astype(np.int32),
-         "n_new": 6},
+         "n_new": 6, "weights": ref_weights("qwen2-1.5b", None)},
         {"arch": "jamba-v0.1-52b", "model_axis": 2,
          "prompts": rng.integers(0, 128, (4, 16)).astype(np.int32),
-         "n_new": 4}]
+         "n_new": 4, "weights": ref_weights("jamba-v0.1-52b", None)}]
 
 
 @pytest.fixture(scope="module")
@@ -512,6 +526,114 @@ def test_sharded_cache_decode_gives_one_devices_tokens(worlds):
         kv = [s for s in specs if len(s) >= 3]
         assert kv and all(set(rules_lib.spec_axes(s)) == {"data", "model"}
                           for s in kv), specs
+
+
+def test_mesh_prefill_gives_each_rank_its_own_rows_logits(worlds):
+    """Each rank's prefill logits are its block of the batch (its rows by
+    `batch_rows`, every position, the whole vocabulary), nothing
+    gathered; together the ranks cover the batch, each block equal to
+    those rows of the port's prefill on one device and of the reference's
+    on the same weights (carried by `state.lm_params_from_reference`),
+    float32 compute."""
+    from repro_torch.state import lm_params_from_reference
+    for i, job in enumerate(worlds["jobs"]["serve"]):
+        res = [r[2 + i] for r in worlds["world4"]]
+        cfg = ranks.config(job)
+        b, plen = job["prompts"].shape
+        model = model_lib.empty(cfg, "cpu")
+        model.load_state_dict(lm_params_from_reference(
+            cfg, job["weights"], "cpu"), assign=True)
+        one, _ = step_lib.make_prefill_step(cfg, ranks.F32Step())(
+            model, torch.from_numpy(job["prompts"]),
+            model_lib.init_cache(cfg, b, plen, torch.float32, "cpu"))
+        one = one.numpy()
+        rcfg = ref_config(job["arch"])
+        ref, _ = jax.jit(lambda p, t, c: ref_model.prefill(
+            p, rcfg, t, c, compute_dtype=jnp.float32))(
+            job["weights"], jnp.asarray(job["prompts"]),
+            ref_model.init_cache(rcfg, b, plen, dtype=jnp.float32))
+        ref = np.asarray(ref)
+        covered = []
+        for r in res:
+            lo, hi = r["rows"]
+            assert r["logits"].shape == (hi - lo, plen, cfg.vocab_size)
+            assert hi - lo == b // 2, r["rows"]   # rows over data = 2
+            np.testing.assert_allclose(r["logits"], one[lo:hi], rtol=1e-4,
+                                       atol=1e-4, err_msg=job["arch"])
+            np.testing.assert_allclose(r["logits"], ref[lo:hi], rtol=1e-4,
+                                       atol=1e-4, err_msg=job["arch"])
+            covered.append((lo, hi))
+        assert sorted(set(covered)) == [(0, b // 2), (b // 2, b)]
+
+
+def test_dry_comm_counts_the_bytes_of_the_live_serving_step(worlds):
+    """A DryComm's count of a rank's mesh prefill on meta (launch/cells.py
+    `dry_serve_step`) equals the bytes the rank's MeshComm sent in the
+    same step over gloo, qwen2 and jamba on (2, 2); a prefill sends no
+    logits, only the weights' and the caches' blocks."""
+    for i in range(len(worlds["jobs"]["serve"])):
+        for r in worlds["world4"]:
+            got = r[2 + i]
+            assert got["prefill_bytes"] == got["dry_prefill_bytes"], \
+                got["rank"]
+            assert got["prefill_bytes"]["all_gather"] > 0
+
+
+def one_repeat_bytes(cell) -> tuple[int, int]:
+    """(bytes placed on rank 0: parameters and caches, bytes of one repeat
+    of the pattern's weights whole) of a serving cell."""
+    placed = step_lib.tree_bytes(cell.in_shardings[0], cell.args_sds[0]) \
+        + step_lib.tree_bytes(cell.in_shardings[2], cell.args_sds[2])
+    layer = sum(t[0].numel() * t.element_size()
+                for path, t in flatten_with_paths(cell.args_sds[0])
+                if path.startswith("layers/"))
+    return placed, layer
+
+
+@pytest.mark.parametrize("arch, shape", [("llama3-405b", "decode_32k"),
+                                         ("qwen2-1.5b", "prefill_32k"),
+                                         ("xlstm-125m", "long_500k")])
+def test_mesh_serving_holds_its_blocks_and_one_layer(arch, shape):
+    """Rank 0's serving step of a production cell on the 16x16 mesh,
+    counted on "meta" over a DryComm at 2 and 3 pattern periods: the
+    traced peak grows by one repeat's placed blocks (parameters plus
+    caches) within 1%, not by a layer's weights, and the step's peak at
+    full depth (`over_repeats`) fits one 80 GB card. A prefill returns
+    rank 0's rows of the logits alone; long_500k's one row splits over no
+    axis (every rank computes it)."""
+    mesh = mesh_lib.production_mesh_shape()
+    counted = []
+    for repeats in (2, 3):
+        cell = cells.build_cell(arch, shape, mesh, False, repeats=repeats)
+        cost = roofline.step_flops(cell.step, *cell.place(*cell.args_sds),
+                                   comm=cell.comm)
+        counted.append((cost, *one_repeat_bytes(cell)))
+    (two, placed2, layer), (three, placed3, _) = counted
+    one_repeat = placed3 - placed2
+    grew = three.memory["peak_bytes"] - two.memory["peak_bytes"]
+    # a step that kept every layer it gathered would grow by a layer more
+    assert 0 < one_repeat < layer
+    assert abs(grew - one_repeat) <= 0.01 * one_repeat, (grew, one_repeat)
+    full = roofline.over_repeats(two, three, get_config(arch).n_repeats)
+    assert full.memory["peak_bytes"] <= dryrun.CARD_BYTES, full.memory
+    cfg, spec = get_config(arch), SHAPES[shape]
+    if spec.kind == "prefill":
+        rules = cells.cell_rules(cfg, mesh, False)
+        rows = rules_lib.shard_shape(rules_lib.logical_to_pspec(
+            ("batch",), (spec.global_batch,), rules, mesh),
+            (spec.global_batch,), mesh)[0]
+        assert rows < spec.global_batch
+        assert two.memory["output_bytes"] == \
+            rows * spec.seq_len * cfg.vocab_size * 2
+
+
+def test_dryrun_costs_fit_llama3_405b_decode_on_one_card():
+    """`launch.dryrun --arch llama3-405b --shape decode_32k --mesh pod
+    --costs`: the traced peak of a serving rank fits one 80 GB card."""
+    art = dryrun.run_cell("llama3-405b", "decode_32k", "pod",
+                          artifacts=False, costs=True)
+    assert art["fits_one_80gb_card_traced"], art["memory"]
+    assert art["memory"]["peak_bytes"] > art["per_rank_bytes"]["total"]
 
 
 def test_elastic_restore_from_4_onto_2_and_onto_1(worlds, tmp_path):
